@@ -1,0 +1,63 @@
+"""Carry parameters from the JAX package into the port.
+
+The JAX package's parameters arrive as numpy arrays (``np.asarray`` of each
+leaf) or as objects with the ``TernaryPacked`` fields; this module never
+imports JAX. With these, both packages compute the same thing on the same
+arrays, and a plane packed by either serves in the other (the packed bytes
+are identical).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from smmb_tpu_torch.formats.packed import TernaryPacked
+from smmb_tpu_torch.utils.device import resolve_device
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype)
+
+
+def mlp_params_from_jax(params_np: dict, device=None) -> dict:
+    """``{"w": [...], "b": [...]}`` master parameters → the port's, as f32
+    tensors on ``device`` (None = the CUDA card)."""
+    dev = resolve_device(device)
+    return {
+        "w": [_tensor(w, dev, torch.float32) for w in params_np["w"]],
+        "b": [_tensor(b, dev, torch.float32) for b in params_np["b"]],
+    }
+
+
+def packed_from_numpy(data, rows: int, cols: int, nnz: int, device=None) -> TernaryPacked:
+    """Packed int8 words (e.g. ``np.asarray(p.data)`` of a JAX
+    ``TernaryPacked``) → the port's ``TernaryPacked`` on ``device``."""
+    dev = resolve_device(device)
+    words = _tensor(data, dev, torch.int8)
+    if words.dim() != 2 or words.shape[1] != cols:
+        raise ValueError(f"packed data {tuple(words.shape)} is not (K_pad/4, {cols})")
+    return TernaryPacked(data=words.contiguous(), rows=rows, cols=cols, nnz=nnz)
+
+
+def packed_mlp_from_jax(packed, device=None) -> dict:
+    """A JAX ``pack_mlp`` result → the port's packed MLP dict.
+
+    Each weight needs ``data``, ``rows``, ``cols`` and ``nnz``; biases and
+    scales are anything ``np.asarray`` takes. A missing ``scale`` list stays
+    missing, as in the JAX format from before quantize-aware packing.
+    """
+    dev = resolve_device(device)
+    out = {
+        "w": [
+            packed_from_numpy(np.asarray(w.data), w.rows, w.cols, w.nnz, dev)
+            for w in packed["w"]
+        ],
+        "b": [_tensor(np.asarray(b), dev, torch.float32) for b in packed["b"]],
+    }
+    if "scale" in packed:
+        out["scale"] = [
+            _tensor(np.asarray(s), dev, torch.float32) for s in packed["scale"]
+        ]
+    return out

@@ -1,0 +1,173 @@
+"""Packed ternary SpMM with fused bias + PReLU: the hand-written CUDA kernel
+and its plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``smmb_tpu/kernels/packed_spmm.py::packed_spmm``
+(``pallas_call`` at :388, body ``_kernel`` at :50). The kernel is
+``csrc/packed_spmm.cu``, built with ``nvcc`` for ``sm_90a`` at first use
+(``_build.py``) and called through ctypes. Its design: one block per 64×128
+output tile, a loop inside the block over K in chunks of 8 packed rows (32
+logical rows, a slice of each of the 4 planes), the chunk's X and decoded W
+staged in shared memory, a 4×8 register micro-tile per thread, no split-K
+and no atomics. f32 mode runs f32 FMA (never TF32); bf16 mode converts the
+bf16 X to f32 and accumulates in f32; W2A8 mode multiplies int8 codes with
+dp4a (four planes per instruction) into int32 and dequantizes per row.
+
+Bound on this card: at the M=256, K=N=4096, ~10% nnz headline the bytes
+(X, packed W, bias and Y moved once) bound the bf16 and int8 modes and the
+f32 mode's operations bound it (no tensor cores without TF32). The kernel
+runs on CUDA cores and is far from the bf16/int8 bounds; its times are in
+PERF.md (measured by chip_smoke.py).
+
+Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
+``packed_spmm_plain``. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from smmb_tpu_torch.formats.packed import GROUP_ROWS, TernaryPacked, decode_words
+from smmb_tpu_torch.kernels import _build
+from smmb_tpu_torch.ops.dense import prelu
+from smmb_tpu_torch.ops.spmm import packed_spmm_ref
+
+_X_MODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+DECODES = ("shift", "fold")
+
+
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """W2A8 activation quantization (smmb_tpu/kernels/packed_spmm.py:350-357).
+
+    Per-row absmax: ``scale = max(max|x| / 127, 1e-12)`` in ``x``'s dtype,
+    codes ``clip(round(x / scale), -127, 127)`` as int8 (``torch.round``
+    rounds half to even, like ``jnp.round``). Returns (codes, f32 scale of
+    shape (M, 1)).
+    """
+    scale = x.abs().amax(dim=1, keepdim=True) / 127.0
+    scale = torch.clamp_min(scale, 1e-12)
+    codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return codes, scale.to(torch.float32)
+
+
+def packed_spmm_plain(
+    x: torch.Tensor,
+    w: TernaryPacked,
+    b: torch.Tensor | None = None,
+    alpha: float | None = None,
+    *,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, for 2-D ``x``, all three modes.
+
+    f32 / bf16: ``packed_spmm_ref`` (decode, cast X, one f32 product). int8:
+    the same quantization as the kernel, then exact integer sums (an f64
+    product of integers below 2**53 is exact), per-row dequant, bias, PReLU.
+    """
+    if compute_dtype != torch.int8:
+        return packed_spmm_ref(x, w, b, alpha, dtype=compute_dtype)
+    codes, scale = quantize_rows(x)
+    wd = decode_words(w.data, torch.float64)[: x.shape[1]]
+    acc = torch.matmul(codes.to(torch.float64), wd)
+    r = acc.to(torch.float32) * scale
+    if b is not None:
+        r = r + b.to(torch.float32)
+    if alpha is not None:
+        r = prelu(r, alpha)
+    return r.to(x.dtype)
+
+
+def _check_cuda_args(x, w, b, compute_dtype):
+    dev = x.device
+    if x.dtype not in _OUT_DTYPES:
+        raise TypeError(f"packed_spmm kernel takes f32 or bf16 x, got {x.dtype}")
+    if compute_dtype not in _X_MODE:
+        raise TypeError(f"unsupported compute_dtype {compute_dtype}")
+    if w.data.device != dev or w.data.dtype != torch.int8:
+        raise ValueError("w.data must be an int8 tensor on x's device")
+    if not w.data.is_contiguous():
+        raise ValueError("w.data must be contiguous")
+    kp, n = w.data.shape
+    if n != w.cols or kp * 4 < w.rows or (kp * 4) % GROUP_ROWS:
+        raise ValueError(f"packed data shape {tuple(w.data.shape)} does not "
+                         f"match a ({w.rows}, {w.cols}) matrix")
+    if b is not None and (b.device != dev or b.shape != (n,)):
+        raise ValueError(f"bias must be ({n},) on x's device")
+
+
+def packed_spmm(
+    x: torch.Tensor,
+    w: TernaryPacked,
+    b: torch.Tensor | None = None,
+    alpha: float | None = None,
+    *,
+    compute_dtype=torch.float32,
+    block_m: int | None = None,
+    block_n: int | None = None,
+    block_k: int | None = None,
+    decode: str = "shift",
+) -> torch.Tensor:
+    """``Y = prelu(X @ W + B, alpha)`` with 2-bit packed ternary W.
+
+    Args:
+      x: (..., K) activations, float32 or bfloat16.
+      w: TernaryPacked weights with logical shape (K, N).
+      b: optional (N,) bias, added in f32.
+      alpha: optional PReLU slope; None = no activation.
+      compute_dtype: float32 (parity mode, no TF32), bfloat16 (X cast once;
+        W decodes exactly, so the error comes only from the cast) or int8
+        (W2A8: per-row absmax int8 X, int32 sums, per-row dequant).
+      block_m/n/k, decode: kept for compatibility with the JAX signature.
+        They choose among TPU tilings and decode strategies with identical
+        results; the Hopper kernel has one tiling and one decode. ``decode``
+        must be "shift" or "fold" and ``block_k`` a multiple of 512.
+    Returns:
+      (..., N) in x.dtype.
+    """
+    if decode not in DECODES:
+        raise ValueError(f"decode={decode!r} is not one of {DECODES}")
+    if block_k is not None and block_k % GROUP_ROWS:
+        raise ValueError(f"block_k={block_k} must be a multiple of {GROUP_ROWS}")
+    if x.dim() > 2:
+        lead = x.shape[:-1]
+        y = packed_spmm(
+            x.reshape(-1, x.shape[-1]), w, b, alpha,
+            compute_dtype=compute_dtype, block_m=block_m, block_n=block_n,
+            block_k=block_k, decode=decode,
+        )
+        return y.reshape(*lead, y.shape[-1])
+    m, k = x.shape
+    if k != w.rows:
+        raise ValueError(f"x K dim {k} != weight rows {w.rows}")
+    if x.device.type == "cpu":
+        return packed_spmm_plain(x, w, b, alpha, compute_dtype=compute_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"packed_spmm runs on cuda or cpu, not {x.device}")
+    _check_cuda_args(x, w, b, compute_dtype)
+    if compute_dtype == torch.int8:
+        xq, scale = quantize_rows(x)
+    else:
+        xq, scale = x.to(compute_dtype).contiguous(), None
+    bias = None if b is None else b.to(torch.float32).contiguous()
+    out = torch.empty((m, w.cols), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    fn = _build.packed_spmm_lib().smmb_packed_spmm
+    with torch.cuda.device(x.device):
+        rc = fn(
+            xq.data_ptr(), w.data.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            out.data_ptr(),
+            m, k, w.cols, w.data.shape[0],
+            _X_MODE[compute_dtype], int(x.dtype == torch.bfloat16),
+            int(alpha is not None), 0.0 if alpha is None else float(alpha),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"packed_spmm kernel launch failed: CUDA error {rc}")
+    packed_spmm.launches += 1
+    return out
+
+
+packed_spmm.launches = 0
