@@ -1,7 +1,11 @@
-"""CLI: ``python -m smmb_tpu_torch {mlp,headline}`` — runs on the CUDA card.
+"""CLI: ``python -m smmb_tpu_torch {mlp,headline,lm,decode}`` — runs on the
+CUDA card.
 
 - ``mlp``: the packed MLP serving benchmark (bench/mlp_bench.py);
-- ``headline``: the packed SpMM headline JSON line (bench/headline.py).
+- ``headline``: the packed SpMM headline JSON line (bench/headline.py);
+- ``lm``: the ternary LM's ``generate``, µs/token (bench/lm_bench.py);
+- ``decode``: the block-level decode step and its roofline fraction
+  (bench/decode_bench.py).
 """
 
 import sys
@@ -15,6 +19,14 @@ def main():
         from smmb_tpu_torch.bench.mlp_bench import main as mlp_main
 
         mlp_main(rest)
+    elif mode == "lm":
+        from smmb_tpu_torch.bench.lm_bench import main as lm_main
+
+        lm_main(rest)
+    elif mode == "decode":
+        from smmb_tpu_torch.bench.decode_bench import main as decode_main
+
+        decode_main(rest)
     elif mode == "headline":
         from smmb_tpu_torch.bench.headline import main as headline_main
 

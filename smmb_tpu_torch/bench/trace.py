@@ -1,13 +1,17 @@
-"""Where the device time goes in the packed MLP forward (counterpart of
-smmb_tpu/bench/trace.py): ``torch.profiler`` over a short steady window.
+"""Where the device time goes (counterpart of smmb_tpu/bench/trace.py):
+``torch.profiler`` over a short steady window, for the packed MLP forward
+or, with ``--lm``, one decode step of the ternary LM.
 
-Reports, per forward: the device time and launch count of each kernel by
-name, their sum, the forward's time between CUDA events (bench/measure.py)
-and the device's busy share (kernel time over forward time; the rest is the
-card waiting on the host). Profiling adds host time, so the forward is
-timed without the profiler.
+Reports, per call: the device time and launch count of each kernel by
+name, their sum, the call's time between CUDA events (bench/measure.py)
+and the device's busy share (kernel time over call time; the rest is the
+card waiting on the host). Profiling adds host time, so the call is timed
+without the profiler.
 
 CLI: python -m smmb_tpu_torch.bench.trace [--depth 4] [--dim 4096] [--batch 256]
+     python -m smmb_tpu_torch.bench.trace --lm [lm flags of bench/lm_bench.py]
+The ``--lm`` step is ``lm_decode_step`` at position ``prompt_len`` of a
+prefilled bf16 cache, at the configuration of ``python -m smmb_tpu_torch lm``.
 """
 
 from __future__ import annotations
@@ -43,30 +47,68 @@ def kernel_breakdown(fn, *args, n_calls: int = 10) -> list[dict]:
     return sorted(rows, key=lambda r: -r["us"])
 
 
-def main(argv=None):
-    import argparse
+def lm_decode_step_fn(args):
+    """A call that runs one bf16 ``lm_decode_step`` at position
+    ``prompt_len`` of caches filled by ``lm_prefill`` (every call restarts
+    there), for the LM of ``python -m smmb_tpu_torch lm`` with ``args``."""
+    from smmb_tpu_torch.bench.lm_bench import build_lm, config_from_args
+    from smmb_tpu_torch.models.lm import lm_decode_step, lm_init_cache, lm_prefill
 
-    ap = argparse.ArgumentParser(description=__doc__)
+    cfg = config_from_args(args)
+    packed, prompt = build_lm(cfg, args.batch, args.prompt_len)
+    kw = dict(compute_dtype=torch.bfloat16)
+    cache = lm_init_cache(cfg, args.batch, dtype=torch.bfloat16, device=prompt.device)
+    logits, filled = lm_prefill(packed, prompt, cache, cfg, **kw)
+    tok = torch.argmax(logits, dim=-1)
+
+    def step():
+        return lm_decode_step(packed, tok, [dict(c) for c in filled], cfg, **kw)[0]
+
+    return step
+
+
+def report(fn, label: dict, *args) -> dict:
+    """Print the kernel rows and the summary line of ``fn(*args)``."""
+    t = measure(fn, *args, reps=5)
+    rows = kernel_breakdown(fn, *args)
+    for r in rows:
+        print(json.dumps(r))
+    kernel_us = sum(r["us"] for r in rows)
+    summary = {
+        "device": torch.cuda.get_device_name(0), **label,
+        "call_us": t.min_s * 1e6, "kernel_us": kernel_us,
+        "launches": sum(r["launches"] for r in rows),
+        "busy_share": kernel_us / (t.min_s * 1e6),
+    }
+    print(json.dumps(summary))
+    return summary
+
+
+def main(argv=None):
+    from smmb_tpu_torch.bench.lm_bench import parser
+
+    ap = parser()
+    ap.description = __doc__
+    ap.add_argument("--lm", action="store_true", help="one LM decode step")
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--dim", type=int, default=4096)
-    ap.add_argument("--batch", type=int, default=256)
+    ap.set_defaults(batch=None)  # 1 for --lm, 256 for the MLP
     args = ap.parse_args(argv)
+    if args.batch is None:
+        args.batch = 1 if args.lm else 256
+    if args.lm:
+        report(lm_decode_step_fn(args), {
+            "call": "lm_decode_step", "layers": args.layers, "d_model": args.d_model,
+            "d_ff": args.d_ff, "vocab": args.vocab, "batch": args.batch,
+            "pos": args.prompt_len})
+        return
     cfg, packed, x, _ = build_mlp(args.depth, args.dim, args.batch, 10)
 
     def forward(x):
         return mlp_forward(packed, x, cfg, compute_dtype=torch.bfloat16)
 
-    t = measure(forward, x, reps=5)
-    rows = kernel_breakdown(forward, x)
-    for r in rows:
-        print(json.dumps(r))
-    kernel_us = sum(r["us"] for r in rows)
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
-        "depth": args.depth, "dim": args.dim, "batch": args.batch,
-        "forward_us": t.min_s * 1e6, "kernel_us": kernel_us,
-        "busy_share": kernel_us / (t.min_s * 1e6),
-    }))
+    report(forward, {"call": "mlp_forward", "depth": args.depth, "dim": args.dim,
+                     "batch": args.batch}, x)
 
 
 if __name__ == "__main__":

@@ -61,3 +61,31 @@ def packed_mlp_from_jax(packed, device=None) -> dict:
             _tensor(np.asarray(s), dev, torch.float32) for s in packed["scale"]
         ]
     return out
+
+
+def _tree_from_jax(node, dev):
+    """A JAX parameter pytree (dicts, lists, packed planes, arrays) → the
+    same tree of the port's tensors and ``TernaryPacked`` planes on ``dev``.
+    Float arrays become f32 tensors; packed planes keep their int8 words."""
+    if isinstance(node, dict):
+        return {k: _tree_from_jax(v, dev) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tree_from_jax(v, dev) for v in node]
+    if all(hasattr(node, f) for f in ("data", "rows", "cols", "nnz")):
+        return packed_from_numpy(np.asarray(node.data), int(node.rows),
+                                 int(node.cols), int(node.nnz), dev)
+    return _tensor(np.asarray(node), dev, torch.float32)
+
+
+def lm_params_from_jax(params_np: dict, device=None) -> dict:
+    """A JAX ``init_lm`` master pytree (dense blocks) → the port's, as f32
+    tensors on ``device`` (None = the CUDA card)."""
+    return _tree_from_jax(params_np, resolve_device(device))
+
+
+def packed_lm_from_jax(packed, device=None) -> dict:
+    """A JAX ``pack_lm`` result (dense blocks) → the port's packed LM: the
+    blocks' packed planes (``wq``..``wo``, the fused ``wqkv``, ``w_up``,
+    ``w_down``) and the head keep their int8 words; scales, biases, norms
+    and embeddings become f32 tensors on ``device``."""
+    return _tree_from_jax(packed, resolve_device(device))

@@ -3,8 +3,8 @@
 Each source under ``csrc/`` becomes its own shared library with a plain C
 interface, compiled by ``nvcc`` for Hopper (``sm_90a``) into ``_build/``
 beside the package (listed in ``.gitignore``). The library name carries a
-hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded. Builds of several sources run in parallel.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header is rebuilt and a stale library is never loaded. Builds of several sources run in parallel.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -24,7 +24,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("packed_spmm.cu",)
+SOURCES = ("packed_spmm.cu", "fused_mlp.cu")
 
 
 def nvcc_path() -> str:
@@ -41,6 +41,8 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
@@ -80,19 +82,53 @@ def build_all(sources=SOURCES) -> dict[str, str]:
     return logs
 
 
+def _load(source: str, entries: dict) -> ctypes.CDLL:
+    """``source``'s library, built first if missing, with each C entry's
+    argument types declared (``{name: argtypes}``; every entry returns int)."""
+    build_all((source,))
+    lib = ctypes.CDLL(str(library_path(source)))
+    for name, argtypes in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
 @functools.cache
 def packed_spmm_lib() -> ctypes.CDLL:
-    """``packed_spmm.cu``, built first if missing, with its C entry's
-    argument types declared."""
-    build_all(("packed_spmm.cu",))
-    lib = ctypes.CDLL(str(library_path("packed_spmm.cu")))
-    fn = lib.smmb_packed_spmm
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,  # x, w, bias, scale, out
-        i32, i32, i32, i32,  # m, k, n, kp
-        i32, i32, i32, ctypes.c_float,  # x_mode, out_bf16, has_alpha, alpha
-        ptr,  # stream
-    ]
-    fn.restype = i32
-    return lib
+    """``packed_spmm.cu`` (B1)."""
+    return _load("packed_spmm.cu", {"smmb_packed_spmm": [
+        _P, _P, _P, _P, _P,  # x, w, bias, scale, out
+        _I, _I, _I, _I,  # m, k, n, kp
+        _I, _I, _I, _F,  # x_mode, out_bf16, has_alpha, alpha
+        _P,  # stream
+    ]})
+
+
+@functools.cache
+def fused_mlp_lib() -> ctypes.CDLL:
+    """``fused_mlp.cu`` (B3, B6, B5)."""
+    return _load("fused_mlp.cu", {
+        "smmb_fused_norm_qkv": [
+            _P, _I, _P, _P, _P, _P, _P,  # x, x_bf16, g, w, scale, bias, out
+            _I, _I, _I, _F, _I,  # m, d, n, eps, cbf16
+            _P,  # stream
+        ],
+        "smmb_fused_mlp": [
+            _P, _I, _P, _P, _P,  # x, x_bf16, wu, s_up, b_up
+            _P, _P, _P, _P, _P,  # wd, s_down, b_down, ws, out
+            _I, _I, _I, _I, _F, _I,  # m, k, h, kout, alpha, cbf16
+            _P,  # stream
+        ],
+        "smmb_fused_block_tail": [
+            _P, _I, _P, _I,  # att, att_bf16, x, x_bf16
+            _P, _P, _P, _P,  # wo, s_wo, b_wo, g2
+            _P, _P, _P, _P, _P, _P,  # wu, s_up, b_up, wd, s_down, b_down
+            _P, _P, _P,  # resid, ws, out
+            _I, _I, _I, _I, _F, _F, _I,  # m, a, dm, h, alpha, eps, cbf16
+            _P,  # stream
+        ],
+    })

@@ -3,10 +3,8 @@
 //   Y = PReLU(X · W + b, alpha),  W 2-bit packed, group-strided
 //
 // Replaces the Pallas TPU kernel smmb_tpu/kernels/packed_spmm.py::_kernel
-// (pallas_call at packed_spmm.py:388). Layout of W (formats/packed.py):
-// packed row p of group g holds logical rows g*512 + i*128 + p in its 2-bit
-// fields i = 0..3; field i of an int32-widened byte w is
-// (w << (30 - 2i)) >> 30. The planes are 128 rows apart, not interleaved.
+// (pallas_call at packed_spmm.py:388). The layout of W and its decode are
+// in packed_decode.cuh, shared with fused_mlp.cu.
 //
 // Design (first, simple version; CUDA cores only, no wgmma/TMA yet):
 //   * Each block owns a BM x BN output tile. A loop inside the block walks
@@ -33,9 +31,9 @@
 // (X, W, bias and Y read or written once, ~3.6 us at 3.35 TB/s) for bf16 and
 // int8; operations for f32, which has no tensor-core path without TF32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "packed_decode.cuh"
+
+using namespace smmb_packed;
 
 namespace {
 
@@ -46,37 +44,6 @@ constexpr int BK = 4 * PK;      // logical rows per K chunk (PK of each plane)
 constexpr int THREADS = 256;    // 16 x 16 threads
 constexpr int TM = 4;           // accumulator rows per thread
 constexpr int TN = 8;           // accumulator columns per thread (2 runs of 4)
-constexpr int SUB = 128;        // packed rows per group
-constexpr int GROUP_ROWS = 512; // logical rows per group
-
-__device__ __forceinline__ float load_as_float(const float* p) { return *p; }
-__device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// field i of a packed byte, sign-extended: (w << (30 - 2i)) >> 30
-__device__ __forceinline__ int decode_field(int w, int i) {
-  return static_cast<int>(static_cast<unsigned>(w) << (30 - 2 * i)) >> 30;
-}
-
-// all four fields of a packed byte as four signed int8 lanes (lane i = field
-// i), for dp4a: spread the 2-bit fields to bytes, then sign-extend each byte
-// by OR-ing 0xFC where the field's high bit is set (no carries cross lanes).
-__device__ __forceinline__ int decode_word(unsigned b) {
-  unsigned t = (b & 0x3u) | ((b & 0xCu) << 6) | ((b & 0x30u) << 12) |
-               ((b & 0xC0u) << 18);
-  return static_cast<int>(t | ((t & 0x02020202u) * 0x7Eu));
-}
-
-// logical column of X (row of W) for plane i, packed row pr of the matrix
-__device__ __forceinline__ int logical_row(int pr, int i) {
-  return (pr / SUB) * GROUP_ROWS + i * SUB + (pr % SUB);
-}
 
 // thread (ty, tx) owns rows ty*TM + r and columns tx*4 + c, 64 + tx*4 + c
 __device__ __forceinline__ int out_col(int tx, int c) {

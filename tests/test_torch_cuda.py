@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: each kernel against its plain PyTorch
-version, through the wrappers and the MLP path. Every test needs a CUDA
-device and skips without one (the kernel has no CPU mode).
+"""The port's CUDA kernels on the card: each kernel against its plain
+PyTorch version, through the wrappers, the MLP path and the LM path. Every
+test needs a CUDA device and skips without one (the kernels have no CPU
+mode).
 
 This file imports neither JAX nor smmb_tpu, so it also runs where only the
 port is installed: ``python -m pytest --noconftest -q tests/test_torch_cuda.py``
@@ -9,7 +10,8 @@ port is installed: ``python -m pytest --noconftest -q tests/test_torch_cuda.py``
 Tolerances, relative to max(1, max|Y|): f32 1e-4 (f32 sums in another
 order); bf16 compute with f32 X and Y 1e-5 (the same bf16 values summed in
 f32 in another order); int8 1e-6 (same codes, exact int32 sums, the same
-separately rounded epilogue).
+separately rounded epilogue). The fused kernels (B3, B5, B6): f32 1e-4
+and bf16 2**-7 (a staged value can round to the neighbouring bf16).
 """
 
 import numpy as np
@@ -17,7 +19,9 @@ import pytest
 import torch
 
 from smmb_tpu_torch.formats.packed import pack_ternary
+from smmb_tpu_torch.kernels import fused_mlp as fk
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
+from smmb_tpu_torch.models import lm as tlm
 from smmb_tpu_torch.models import mlp as tmlp
 from smmb_tpu_torch.nn import PackedTernaryDense
 from smmb_tpu_torch.utils import rng
@@ -106,3 +110,81 @@ def test_packed_ternary_dense_on_the_card(cuda):
     layer.use_kernel = False
     ref = layer(x)
     assert_close(y, ref, 1e-4 * max(1.0, float(ref.abs().max())), "dense layer")
+
+
+FUSED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+
+
+def _fused_args(name, seed, m, d, h, dev):
+    rs = np.random.default_rng(seed)
+
+    def dense(*shape):
+        return torch.from_numpy(rs.uniform(-1, 1, shape).astype(np.float32)).to(dev)
+
+    def plane(k, n):
+        return pack_ternary(rs.choice(np.array([-1.0, 0.0, 1.0], np.float32), (k, n)),
+                            device=dev)
+
+    s = torch.tensor(0.8, device=dev)
+    if name == "fused_norm_qkv":
+        return (dense(m, d), 1 + 0.1 * dense(d), plane(d, h), 0.5 + dense(h).abs(),
+                dense(h)), dict(eps=1e-6)
+    if name == "fused_mlp":
+        return (dense(m, d), plane(d, h), s, dense(h), plane(h, d), s * 1.5,
+                dense(d)), dict(alpha=ALPHA, block_h=512)
+    return (dense(m, d).to(torch.bfloat16), dense(m, d), plane(d, d), s, dense(d),
+            1 + 0.1 * dense(d), plane(d, h), s, dense(h), plane(h, d), s, dense(d)), \
+        dict(alpha=ALPHA, eps=1e-6, block_h=512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,m,d,h", [
+    ("fused_norm_qkv", 1, 1024, 3072), ("fused_norm_qkv", 5, 1024, 1536),
+    ("fused_norm_qkv", 2, 512, 1536), ("fused_mlp", 32, 1024, 4096),
+    ("fused_mlp", 1, 512, 2048), ("fused_block_tail", 1, 1024, 4096),
+    ("fused_block_tail", 9, 512, 1536),
+])
+def test_fused_kernel_matches_plain(cuda, cdt, name, m, d, h):
+    args, kw = _fused_args(name, m + d, m, d, h, cuda)
+    fn, plain = getattr(fk, name), getattr(fk, name + "_plain")
+    before = fn.launches
+    y = fn(*args, compute_dtype=cdt, **kw)
+    assert fn.launches == before + 1
+    ref = plain(*args, compute_dtype=cdt, **{k: v for k, v in kw.items() if k != "block_h"})
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape and y.dtype == ref.dtype
+    assert_close(y, ref, FUSED_TOL[cdt] * max(1.0, float(ref.abs().max())),
+                 f"{name} {cdt} M={m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["fused_norm_qkv", "fused_mlp", "fused_block_tail"])
+def test_fused_kernel_row_identity(cuda, cdt, name):
+    """Row r of an M=8 call is bitwise the M=1 call on row r."""
+    args, kw = _fused_args(name, 3, 8, 1024, 2048 if name != "fused_norm_qkv" else 3072,
+                           cuda)
+    n_act = 2 if name == "fused_block_tail" else 1
+    fn = getattr(fk, name)
+    chunk = fn(*args, compute_dtype=cdt, **kw)
+    for r in (0, 5):
+        one = tuple(a[r:r + 1] if i < n_act else a for i, a in enumerate(args))
+        assert torch.equal(chunk[r:r + 1], fn(*one, compute_dtype=cdt, **kw))
+
+
+@pytest.mark.cuda
+def test_generate_launch_counts_and_tokens(cuda):
+    cfg = tlm.TernaryLMConfig(vocab=512, d_model=512, n_heads=4, d_ff=1024,
+                              n_layers=2, max_len=32)
+    gen = rng.make_generator(0)
+    packed = tlm.pack_lm(tlm.init_lm(gen, cfg))
+    prompt = torch.randint(0, cfg.vocab, (1, 8), generator=gen, device=cuda)
+    counted = (packed_spmm, fk.fused_norm_qkv, fk.fused_block_tail, fk.fused_mlp)
+    for fn in counted:
+        fn.launches = 0
+    toks = tlm.generate(packed, prompt, cfg, 5)
+    assert [fn.launches for fn in counted] == [6 * 2 + 1 + 5, 2 * 5, 2 * 5, 2]
+    # f32 greedy tokens of the kernel path and the plain path agree
+    plain = tlm.generate(packed, prompt, cfg, 5, use_kernel=False)
+    assert torch.equal(toks, plain)
