@@ -30,7 +30,21 @@ which exits non-zero on failure:
    held against the plain path (the kernels' plain versions in their place)
    teacher-forced on its tokens, and µs/token from ``bench/lm_bench.py``;
 9. times of B3, B5 and B6 at the path's shapes: kernel, plain version,
-   bound, and ``torch.matmul`` on the pre-decoded dense bf16 weights.
+   bound, and ``torch.matmul`` on the pre-decoded dense bf16 weights;
+10. B4 (flash decode / chunk) against its plain version in f32 and bf16 at
+    the LM path's shapes, the decode bench's, GQA, a window and B = 4, each
+    call raising its launch count by one; chunk row c equals the decode
+    step at pos + c and row r of a B = 4 call the row served alone, bitwise;
+11. B9 (flash prefill) against its plain version in f32 and bf16: the LM
+    prefill, T = 512 causal, T = 200, GQA, a window, non-causal, hd = 64;
+12. the flash LM path: ``generate(use_flash=True)`` at the ``lm`` defaults
+    with every kernel's launch count, its teacher-forced logits against the
+    plain path, ``lm_prefill_chunked`` against ``lm_prefill``,
+    ``block_extend`` (C = 4) bitwise per row against four decode steps,
+    µs/token and the decode bench with and without flash, and the
+    ``bench/trace.py --lm`` step with and without flash;
+13. times of B4 and B9 at the path shapes and at one long shape each:
+    kernel, plain version, bound, and ``scaled_dot_product_attention``.
 
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
@@ -263,6 +277,9 @@ def main() -> int:
     fused = check_fused_kernels(torch, dev)
     lm = run_lm_path(torch, dev)
     fused_rows = time_fused_kernels(torch, dev, spec, fused, lm)
+    flash_err = check_flash_kernels(torch, dev)
+    flash = run_flash_lm_path(torch, dev, lm)
+    flash_rows = time_flash_kernels(torch, dev, spec, flash_err, flash)
 
     main_mode = per_mode["bf16"]  # the main path's mode and per-layer shape
     summary = {"kernels": [{
@@ -277,7 +294,7 @@ def main() -> int:
         "bound_ms": main_mode["bound_ms"],
         "bound_by": main_mode["bound_by"],
         "library_ms": main_mode["library_ms"],
-    }, *fused_rows]}
+    }, *fused_rows, *flash_rows]}
     log(f"all phases passed in {time.time() - T0:.1f}s")
     print(json.dumps(summary), flush=True)
     print(card_line(), flush=True)
@@ -478,14 +495,14 @@ def run_lm_path(torch, dev) -> dict:
                       "launches": launches}), flush=True)
     log(f"phase 8 passed: {r.per_token_s * 1e6:.1f} us/token, "
         f"{r.tokens_per_s:.0f} tok/s (plain path {rp * 1e6:.1f} us/token)")
-    return {"launches": launches}
+    return {"launches": launches, "cfg": cfg, "packed": packed, "prompt": prompt}
 
 
-def _teacher_forced(torch, cfg, packed, prompt, ids, cdt, use_kernel):
+def _teacher_forced(torch, cfg, packed, prompt, ids, cdt, use_kernel, use_flash=False):
     """(steps, vocab) f32 logits of lm_prefill then lm_decode_step on ``ids``."""
     from smmb_tpu_torch.models.lm import lm_decode_step, lm_init_cache, lm_prefill
 
-    kw = dict(compute_dtype=cdt, use_kernel=use_kernel)
+    kw = dict(compute_dtype=cdt, use_kernel=use_kernel, use_flash=use_flash)
     cache = lm_init_cache(cfg, prompt.shape[0], dtype=cdt, device=prompt.device)
     logits, cache = lm_prefill(packed, prompt, cache, cfg, **kw)
     out = [logits]
@@ -498,9 +515,11 @@ def _teacher_forced(torch, cfg, packed, prompt, ids, cdt, use_kernel):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The LM path's four kernels replaced by their plain versions, for the
-    reference run of phase 8 (the wrappers themselves launch on any CUDA
-    tensor); the launch counts do not move."""
+    """The LM path's kernels replaced by their plain versions, for the
+    reference runs of phases 8 and 12 (the wrappers themselves launch on any
+    CUDA tensor); the launch counts do not move."""
+    from smmb_tpu_torch.kernels import flash_attention as fa
+    from smmb_tpu_torch.kernels import flash_decode as fd
     from smmb_tpu_torch.kernels import fused_mlp as fk
     from smmb_tpu_torch.kernels.packed_spmm import packed_spmm_plain
     from smmb_tpu_torch.models import attention, lm, transformer
@@ -510,6 +529,9 @@ def plain_kernels():
 
     swaps = [(fk, n, plain_of(getattr(fk, n + "_plain")))
              for n in ("fused_norm_qkv", "fused_block_tail", "fused_mlp")]
+    swaps += [(fd, n, getattr(fd, n + "_plain"))
+              for n in ("flash_attention_decode", "flash_attention_chunk")]
+    swaps += [(fa, "flash_attention", fa.flash_attention_plain)]
     swaps += [(m, "packed_spmm", packed_spmm_plain) for m in (attention, transformer, lm)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -591,6 +613,308 @@ def time_fused_kernels(torch, dev, spec, path_err, lm) -> list:
         rows.append(row)
     log("phase 9 passed: fused kernels timed at the path shapes")
     return rows
+
+
+# ---------------------------------------------------------- flash slice
+# B4 at the shapes of the paths: (label, B, H, KVH, S, pos, window); hd 128
+FLASH_DECODE_SHAPES = [
+    ("lm path", 1, 8, 8, 224, 32, None), ("lm path", 1, 8, 8, 224, 95, None),
+    ("decode bench", 1, 8, 8, 1024, 512, None), ("GQA 8/2", 1, 8, 2, 1024, 512, None),
+    ("window 64", 1, 8, 8, 1024, 512, 64), ("B=4", 4, 8, 8, 1024, 512, None),
+]
+# B9: (label, B, H, KVH, T, hd, causal, window); hd 256 and 512 take the
+# kernel's 32- and 16-row tiles
+FLASH_PREFILL_SHAPES = [
+    ("lm prefill", 1, 8, 8, 32, 128, True, None),
+    ("T=512 causal", 1, 8, 8, 512, 128, True, None),
+    ("T=200", 1, 8, 8, 200, 128, True, None), ("GQA 8/2", 1, 8, 2, 512, 128, True, None),
+    ("window 64", 1, 8, 8, 512, 128, True, 64),
+    ("non-causal", 1, 8, 8, 256, 128, False, None), ("hd=64", 1, 8, 8, 256, 64, True, None),
+    ("hd=256", 1, 4, 4, 200, 256, True, None), ("hd=512", 1, 2, 2, 100, 512, True, None),
+]
+
+
+def _held(torch, name, y, ref, tol, what) -> float:
+    """Max abs error of a kernel's result against its plain version, checked
+    against ``tol`` relative to max(1, max|ref|)."""
+    torch.cuda.synchronize()
+    check(y.shape == ref.shape and y.dtype == ref.dtype, f"{name} shape/dtype {what}")
+    check(bool(torch.isfinite(y).all()), f"{name} non-finite {what}")
+    err = float((y.float() - ref.float()).abs().max())
+    lim = tol * max(1.0, float(ref.float().abs().max()))
+    check(err <= lim, f"{name} kernel vs plain {what}: err {err:.3e} > {lim:.3e}")
+    return err
+
+
+def _decode_inputs(torch, gen, b, nq, h, kvh, s, cache_dtype):
+    """q (B, nq, H, 128) f32 (as B3 gives it, scaled so that the softmax
+    has peaks) and random flat (B, S, KVH·128) caches."""
+    from smmb_tpu_torch.utils import rng
+
+    q = rng.rand_dense(gen, (b, nq, h, 128)) * 8.0
+    kc = rng.rand_dense(gen, (b, s, kvh * 128), dtype=cache_dtype)
+    vc = rng.rand_dense(gen, (b, s, kvh * 128), dtype=cache_dtype)
+    return q, kc, vc
+
+
+def check_flash_kernels(torch, dev) -> dict:
+    """Phases 10 and 11. Returns the max abs errors at the path shapes."""
+    from smmb_tpu_torch.kernels import flash_attention as fa
+    from smmb_tpu_torch.kernels import flash_decode as fd
+    from smmb_tpu_torch.utils import rng
+
+    # tolerances, relative to max(1, max|Y|): f32 1e-4 (f32 sums in another
+    # order than the plain version's exact products, exp2 within 2 ulp);
+    # bf16 2**-7 (a p or an output can round to the neighbouring bf16)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+    gen = rng.make_generator(91, dev)
+    dec = fd.flash_attention_decode
+    errs = {}
+    for label, b, h, kvh, s, pos, window in FLASH_DECODE_SHAPES:
+        for cdt in (torch.float32, torch.bfloat16):
+            q, kc, vc = _decode_inputs(torch, gen, b, 5, h, kvh, s, cdt)
+            kw = dict(window=window, compute_dtype=cdt)
+            what = f"{label} pos {pos} {cdt}"
+            before = dec.launches
+            y = dec(q[:, 0], kc, vc, pos, **kw)
+            check(dec.launches == before + 1, f"B4 launch count {what}")
+            err = _held(torch, "B4", y, fd.flash_attention_decode_plain(
+                q[:, 0], kc, vc, pos, **kw), tol[cdt], what)
+            if (label, pos, cdt) == ("lm path", 95, torch.bfloat16):
+                errs["flash_attention_decode"] = err
+            # chunk rows pos-4 .. pos against the decode steps, bitwise
+            chunk = fd.flash_attention_chunk(q, kc, vc, pos - 4, **kw)
+            check(dec.launches == before + 2, f"B4 chunk launch count {what}")
+            _held(torch, "B4 chunk", chunk, fd.flash_attention_chunk_plain(
+                q, kc, vc, pos - 4, **kw), tol[cdt], what)
+            for c in range(5):
+                solo = dec(q[:, c], kc, vc, pos - 4 + c, **kw)
+                check(torch.equal(chunk[:, c], solo), f"B4 chunk row {c} != decode {what}")
+            for r in range(b if b > 1 else 0):
+                row = dec(q[r:r + 1, 0], kc[r:r + 1], vc[r:r + 1], pos, **kw)
+                check(torch.equal(y[r:r + 1], row), f"B4 batch row {r} != alone {what}")
+        log(f"B4 == plain at {label}, B={b} H={h} KVH={kvh} S={s} pos={pos} "
+            f"window={window} in f32 and bf16; chunk and batch rows bitwise")
+    log("phase 10 passed: B4 agrees with its plain version, rows bitwise")
+
+    for label, b, h, kvh, t, hd, causal, window in FLASH_PREFILL_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = (rng.rand_dense(gen, (b, t, h, hd)) * 4.0).to(dt).permute(0, 2, 1, 3)
+            k = rng.rand_dense(gen, (b, kvh, t, hd), dtype=dt)
+            v = rng.rand_dense(gen, (b, kvh, t, hd), dtype=dt)
+            kw = dict(causal=causal, window=window)
+            before = fa.flash_attention.launches
+            y = fa.flash_attention(q, k, v, **kw)
+            check(fa.flash_attention.launches == before + 1, f"B9 launch count {label}")
+            err = _held(torch, "B9", y, fa.flash_attention_plain(q, k, v, **kw), tol[dt],
+                        f"{label} {dt}")
+            if (label, dt) == ("lm prefill", torch.float32):
+                errs["flash_attention"] = err
+        log(f"B9 == plain at {label} (B={b} H={h} KVH={kvh} T={t} hd={hd} "
+            f"causal={causal} window={window}) in f32 and bf16")
+    log("phase 11 passed: B9 agrees with its plain version")
+    return errs
+
+
+def run_flash_lm_path(torch, dev, lm) -> dict:
+    """Phase 12: the flash LM path at the ``lm`` defaults."""
+    from smmb_tpu_torch.bench.decode_bench import run_decode_bench
+    from smmb_tpu_torch.bench.lm_bench import parser, run_lm_bench
+    from smmb_tpu_torch.bench.trace import lm_decode_step_fn, report
+    from smmb_tpu_torch.kernels import flash_attention as fa
+    from smmb_tpu_torch.kernels import flash_decode as fd
+    from smmb_tpu_torch.kernels import fused_mlp as fk
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.lm import (
+        generate,
+        lm_init_cache,
+        lm_prefill,
+        lm_prefill_chunked,
+    )
+    from smmb_tpu_torch.models.transformer import (
+        block_decode_step,
+        block_extend,
+        block_prefill,
+        init_block_cache,
+    )
+    from smmb_tpu_torch.utils import rng
+
+    cfg, packed, prompt = lm["cfg"], lm["packed"], lm["prompt"]
+    layers, steps = cfg.n_layers, 64
+    bf16, f32 = torch.bfloat16, torch.float32
+    counted = (packed_spmm, fk.fused_norm_qkv, fk.fused_block_tail, fk.fused_mlp,
+               fa.flash_attention, fd.flash_attention_decode)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    toks = generate(packed, prompt, cfg, steps, compute_dtype=bf16, use_flash=True)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"generate(use_flash=True): launches {launches}")
+    check(toks.shape == (1, steps) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, "flash generate tokens shape / range")
+    check(launches["flash_attention"] == layers, "B9 once per layer in the prefill")
+    check(launches["flash_attention_decode"] == layers * steps, "B4 once per layer per step")
+    check(launches["fused_norm_qkv"] == layers * steps, "B3 once per layer per step")
+    check(launches["fused_block_tail"] == layers * steps, "B5 once per layer per step")
+    check(launches["fused_mlp"] == layers, "B6 once per layer in the prefill")
+    check(launches["packed_spmm"] == 6 * layers + 1 + steps, "B1 as without flash")
+
+    # teacher-forced logits against the plain path, bounded as in phase 8;
+    # the spread is the unfused plain path's (no kernel at all) distance
+    for cdt, tol in ((bf16, 2.0 ** -7), (f32, 1e-4)):
+        ids = toks if cdt == bf16 else generate(packed, prompt, cfg, steps,
+                                                compute_dtype=cdt, use_flash=True)
+        kern = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, True, True)
+        with plain_kernels():
+            plain = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, True, True)
+            unfused = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, False, True)
+        check(bool(torch.isfinite(kern).all()), "flash LM logits finite")
+        check(torch.equal(kern.argmax(-1), ids[0]),
+              "teacher-forced flash path reproduces generate's tokens")
+        scale = plain.abs().amax(-1).clamp_min(1.0)
+        err = (kern - plain).abs().amax(-1) / scale
+        spread = (unfused - plain).abs().amax(-1) / scale
+        med, worst = float(err.median()), float(err.max())
+        check(med <= tol, f"flash LM {cdt}: median step error {med:.3e} > {tol:.3e}")
+        check(worst <= max(tol, float(spread.max())),
+              f"flash LM {cdt}: worst step error {worst:.3e} beyond {tol:.3e} and the "
+              f"plain orders' spread {float(spread.max()):.3e}")
+        log(f"flash LM {cdt} logits vs plain over {steps} steps: median {med:.2e}, "
+            f"worst {worst:.2e} (spread {float(spread.max()):.2e}, tolerance {tol:.1e})")
+
+    # chunked prefill (B3, B4's chunk entry and B5 at M=8) against lm_prefill
+    def prefill(fn, *a, **kw):
+        cache = lm_init_cache(cfg, 1, dtype=f32, device=dev)
+        return fn(packed, prompt, cache, cfg, *a, compute_dtype=f32, **kw)[0].float()
+
+    before = fd.flash_attention_decode.launches
+    chunked = prefill(lm_prefill_chunked, 8, use_flash=True)
+    check(fd.flash_attention_decode.launches == before + layers * prompt.shape[1] // 8,
+          "lm_prefill_chunked runs B4's chunk entry once per layer per chunk")
+    whole = prefill(lm_prefill, use_flash=True)
+    with plain_kernels():
+        unfused = prefill(lm_prefill, use_kernel=False, use_flash=True)
+    scale = max(1.0, float(whole.abs().max()))
+    err, spread = float((chunked - whole).abs().max()) / scale, \
+        float((unfused - whole).abs().max()) / scale
+    check(torch.equal(chunked.argmax(-1), whole.argmax(-1)), "chunked prefill argmax")
+    check(err <= max(1e-4, spread), f"chunked prefill vs lm_prefill: {err:.3e} beyond "
+          f"1e-4 and the plain orders' spread {spread:.3e}")
+    log(f"lm_prefill_chunked(8, flash) vs lm_prefill, f32: {err:.2e} of max|logits| "
+        f"(spread {spread:.2e})")
+
+    # block_extend with C=4 against four decode steps: bitwise per row
+    bcfg, blk = cfg.block, packed["blocks"][0]
+    x = rng.rand_dense(rng.make_generator(17, dev), (1, 36, cfg.d_model))
+    kw = dict(compute_dtype=f32, use_flash=True)
+    c1 = init_block_cache(bcfg, 1, cfg.max_len, dtype=f32, device=dev)
+    _, c1 = block_prefill(blk, x[:, :32], c1, bcfg, **kw)
+    c2 = {**c1, "k": c1["k"].clone(), "v": c1["v"].clone()}
+    ext, c1 = block_extend(blk, x[:, 32:], c1, bcfg, **kw)
+    for i in range(4):
+        step, c2 = block_decode_step(blk, x[:, 32 + i:33 + i], c2, bcfg, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(ext[:, i], step[:, 0]), f"block_extend row {i} != decode step")
+    check(torch.equal(c1["k"], c2["k"]) and torch.equal(c1["v"], c2["v"]),
+          "block_extend and the decode steps write the same cache")
+    log("block_extend (C=4, flash, f32) equals four block_decode_steps bitwise per row")
+
+    out = {"launches": launches}
+    runs = {}
+    for flash in (False, True, True, False):  # alternating: the host's load drifts
+        r = run_lm_bench(cfg, 1, prompt.shape[1], steps, reps=3, device=dev,
+                         use_flash=flash)
+        runs.setdefault(flash, []).append(r.per_token_s * 1e6)
+    for flash in (False, True):
+        d = run_decode_bench(device=dev, use_flash=flash)
+        args = parser().parse_args(["--flash"] if flash else [])
+        tr = report(lm_decode_step_fn(args), {"call": "lm_decode_step", "flash": flash,
+                                              "pos": args.prompt_len})
+        row = {"flash": flash, "lm_us_per_token": runs[flash],
+               "decode_step_us": d.step_s * 1e6, "decode_frac_roofline": d.frac_roofline,
+               "decode_prefill_us": d.prefill_s * 1e6, "trace_launches": tr["launches"],
+               "trace_call_us": tr["call_us"], "trace_kernel_us": tr["kernel_us"],
+               "trace_busy_share": tr["busy_share"]}
+        print(json.dumps(row), flush=True)
+        out[flash] = row
+    log(f"phase 12 passed: flash step {out[True]['trace_launches']:.0f} launches, busy "
+        f"{out[True]['trace_busy_share']:.3f} (without flash "
+        f"{out[False]['trace_launches']:.0f}, {out[False]['trace_busy_share']:.3f})")
+    return out
+
+
+def time_flash_kernels(torch, dev, spec, errs, flash) -> list:
+    """Phase 13: B4 and B9 at the path shapes and one long shape each."""
+    import torch.nn.functional as F
+
+    from smmb_tpu_torch.bench.measure import measure
+    from smmb_tpu_torch.bench.roofline import roofline_bound
+    from smmb_tpu_torch.kernels import flash_attention as fa
+    from smmb_tpu_torch.kernels import flash_decode as fd
+    from smmb_tpu_torch.utils import rng
+
+    gen = rng.make_generator(23, dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows, summary = [], []
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # B4: bf16 cache and compute, q in f32 as B3 gives it
+    for label, b, h, kvh, s, pos in (("lm path", 1, 8, 8, 224, 95),
+                                     ("long", 1, 8, 8, 8192, 8191)):
+        q, kc, vc = _decode_inputs(torch, gen, b, 1, h, kvh, s, bf16)
+        q = q[:, 0]
+        kw = dict(compute_dtype=bf16)
+        t_k = measure(lambda: fd.flash_attention_decode(q, kc, vc, pos, **kw))
+        t_p = measure(lambda: fd.flash_attention_decode_plain(q, kc, vc, pos, **kw))
+        live = pos + 1
+        kl = kc[:, :live].view(b, live, kvh, 128).transpose(1, 2)
+        vl = vc[:, :live].view(b, live, kvh, 128).transpose(1, 2)
+        qb = q.to(bf16)[:, :, None]
+        gqa = {"enable_gqa": True} if kvh < h else {}
+        t_l = measure(lambda: F.scaled_dot_product_attention(qb, kl, vl, **gqa))
+        out = fd.flash_attention_decode(q, kc, vc, pos, **kw)
+        n_bytes = nbytes(q, kl, vl, out)
+        bound, by = roofline_bound(4.0 * b * h * live * 128, n_bytes, spec, "bf16")
+        rows.append({"kernel": "B4 flash_attention_decode", "shape": label,
+                     "B": b, "H": h, "KVH": kvh, "S": s, "pos": pos, "ms": t_k.min_s * 1e3,
+                     "mean_ms": t_k.mean_s * 1e3, "plain_ms": t_p.min_s * 1e3,
+                     "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes,
+                     "library_ms": t_l.min_s * 1e3})
+    # B9: the path's prefill in f32 (its projections are f32), the long in bf16
+    for label, b, h, t, dt in (("lm prefill", 1, 8, 32, f32), ("long", 1, 8, 4096, bf16)):
+        q = (rng.rand_dense(gen, (b, h, t, 128)) * 4.0).to(dt)
+        k = rng.rand_dense(gen, (b, h, t, 128), dtype=dt)
+        v = rng.rand_dense(gen, (b, h, t, 128), dtype=dt)
+        t_k = measure(lambda: fa.flash_attention(q, k, v))
+        t_p = measure(lambda: fa.flash_attention_plain(q, k, v))
+        t_l = measure(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        n_bytes = 2 * nbytes(q) + nbytes(k, v)
+        ops = 4.0 * b * h * 128 * t * (t + 1) / 2
+        bound, by = roofline_bound(ops, n_bytes, spec, "f32" if dt == f32 else "bf16")
+        rows.append({"kernel": "B9 flash_attention", "shape": label, "B": b, "H": h,
+                     "T": t, "dtype": str(dt), "ms": t_k.min_s * 1e3,
+                     "mean_ms": t_k.mean_s * 1e3, "plain_ms": t_p.min_s * 1e3,
+                     "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes,
+                     "ops": ops, "library_ms": t_l.min_s * 1e3})
+    for r in rows:
+        print(json.dumps({**r, "library": "torch.nn.functional.scaled_dot_product_attention"}),
+              flush=True)
+    for name, src, line, row in (
+            ("flash_attention_decode", "flash_decode", "flash_decode.py:412", rows[0]),
+            ("flash_attention", "flash_attention", "flash_attention.py:662", rows[2])):
+        summary.append({
+            "name": name, "route": "cuda",
+            "source": f"smmb_tpu_torch/kernels/csrc/{src}.cu",
+            "replaces": f"smmb_tpu/kernels/{line}",
+            "launches": flash["launches"][name], "max_abs_err": errs[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    log("phase 13 passed: B4 and B9 timed at the path and long shapes")
+    return summary
 
 
 if __name__ == "__main__":

@@ -6,13 +6,16 @@ the CUDA card unless the caller passes ``device="cpu"``; on a CPU tensor
 each kernel wrapper runs its plain PyTorch version.
 
 It carries the packed ternary MLP serving path and the ternary LM's
-serving path (dense blocks, float KV cache):
+serving path (dense blocks, float KV cache, flash attention, chunked
+extend):
 
 - ``formats``: the 2-bit ``TernaryPacked`` format, byte-identical to JAX's;
 - ``ops``: dense oracles and the plain decode-then-matmul packed SpMM;
 - ``kernels``: hand-written CUDA kernels for ``sm_90a`` built at first use:
   ``packed_spmm`` (``csrc/packed_spmm.cu``) and ``fused_norm_qkv``,
-  ``fused_mlp``, ``fused_block_tail`` (``csrc/fused_mlp.cu``);
+  ``fused_mlp``, ``fused_block_tail`` (``csrc/fused_mlp.cu``),
+  ``flash_attention_decode`` / ``flash_attention_chunk``
+  (``csrc/flash_decode.cu``) and ``flash_attention`` (``csrc/flash_attention.cu``);
 - ``models``: the packed ternary MLP (``mlp_forward``, ``PackedTernaryMLP``)
   and the LM (``attention``, ``transformer``, ``lm``: ``generate``);
 - ``nn``: the ``PackedTernaryDense`` serving layer;
@@ -29,6 +32,8 @@ from smmb_tpu_torch.formats.packed import (
     pack_ternary_device,
     unpack_ternary,
 )
+from smmb_tpu_torch.kernels.flash_attention import flash_attention
+from smmb_tpu_torch.kernels.flash_decode import flash_attention_chunk, flash_attention_decode
 from smmb_tpu_torch.kernels.fused_mlp import fused_block_tail, fused_mlp, fused_norm_qkv
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
 from smmb_tpu_torch.models.lm import (
@@ -36,8 +41,10 @@ from smmb_tpu_torch.models.lm import (
     generate,
     init_lm,
     lm_decode_step,
+    lm_extend,
     lm_forward,
     lm_prefill,
+    lm_prefill_chunked,
     pack_lm,
 )
 from smmb_tpu_torch.models.mlp import (

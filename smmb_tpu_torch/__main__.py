@@ -3,9 +3,10 @@ CUDA card.
 
 - ``mlp``: the packed MLP serving benchmark (bench/mlp_bench.py);
 - ``headline``: the packed SpMM headline JSON line (bench/headline.py);
-- ``lm``: the ternary LM's ``generate``, µs/token (bench/lm_bench.py);
+- ``lm``: the ternary LM's ``generate``, µs/token (bench/lm_bench.py;
+  ``--flash`` for the flash kernels B9 and B4);
 - ``decode``: the block-level decode step and its roofline fraction
-  (bench/decode_bench.py).
+  (bench/decode_bench.py; ``--flash`` reads the caches through B4).
 """
 
 import sys

@@ -1,5 +1,5 @@
 """Batch-1 incremental-decode benchmark on the CUDA card (counterpart of
-smmb_tpu/bench/decode_bench.py, without ``--flash``).
+smmb_tpu/bench/decode_bench.py).
 
 L packed transformer blocks (bf16 compute, ``quantize=True`` packing) are
 prefilled with a ``prompt_len`` prompt, then stepped one token at a time
@@ -8,11 +8,13 @@ from the slope between 16 and 48 steps (each run timed between CUDA
 events, bench/measure.py; every run restarts from the prefilled caches),
 the prefill time, and the byte-roofline fraction: per step the card must
 read every packed weight plane once and the live KV prefix (pos + 1 cached
-tokens), both at the memory rate.
+tokens), both at the memory rate. ``--flash`` reads the caches in the
+decode steps through the flash-decode kernel B4 (the prefill is unchanged,
+as in JAX).
 
 CLI: python -m smmb_tpu_torch decode [--layers 4] [--d-model 1024]
      [--d-ff 4096] [--batch 1] [--max-len 1024] [--prompt-len 512]
-     [--cache-dtype bf16]
+     [--cache-dtype bf16] [--flash]
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def step_bytes(layers, d_model, d_ff, batch, prompt_len, cache_itemsize) -> int:
 
 def build_decoder(layers=4, d_model=1024, n_heads=8, d_ff=4096, batch=1,
                   max_len=1024, prompt_len=512, *, cache_dtype=torch.bfloat16,
-                  compute_dtype=torch.bfloat16, device=None):
+                  compute_dtype=torch.bfloat16, device=None, use_flash=False):
     """(prefill, prompt, steps): packed blocks and a prompt from seed 0,
     ``prefill(x)`` that fills new caches, and ``steps(n)`` that runs n
     decode steps from the prompt's filled caches (each call restarts at the
@@ -83,7 +85,7 @@ def build_decoder(layers=4, d_model=1024, n_heads=8, d_ff=4096, batch=1,
         for _ in range(n):
             h, new = x, []
             for blk, c in zip(blocks, caches):
-                h, c = block_decode_step(blk, h, c, cfg, **kw)
+                h, c = block_decode_step(blk, h, c, cfg, use_flash=use_flash, **kw)
                 new.append(c)
             # the next step's input follows this one (JAX decode_bench.py)
             x, caches = x + h * 1e-6, new
@@ -94,10 +96,11 @@ def build_decoder(layers=4, d_model=1024, n_heads=8, d_ff=4096, batch=1,
 
 def run_decode_bench(layers=4, d_model=1024, n_heads=8, d_ff=4096, batch=1,
                      max_len=1024, prompt_len=512, *, cache_dtype=torch.bfloat16,
-                     reps=4, n0=16, device=None) -> DecodeBenchResult:
+                     reps=4, n0=16, device=None,
+                     use_flash: bool = False) -> DecodeBenchResult:
     prefill, prompt, steps = build_decoder(
         layers, d_model, n_heads, d_ff, batch, max_len, prompt_len,
-        cache_dtype=cache_dtype, device=device)
+        cache_dtype=cache_dtype, device=device, use_flash=use_flash)
     if prompt_len + 3 * n0 > max_len:
         raise ValueError(f"prompt_len + {3 * n0} steps exceeds max_len={max_len}")
     pre = measure(prefill, prompt, reps=reps)
@@ -127,17 +130,19 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=512)
     ap.add_argument("--cache-dtype", default="bf16", choices=["bf16", "f32"])
     ap.add_argument("--reps", type=int, default=4)
+    ap.add_argument("--flash", action="store_true",
+                    help="decode attention via the flash-decode kernel B4")
     args = ap.parse_args(argv)
     r = run_decode_bench(
         args.layers, args.d_model, args.n_heads, args.d_ff, args.batch,
         args.max_len, args.prompt_len,
         cache_dtype=torch.bfloat16 if args.cache_dtype == "bf16" else torch.float32,
-        reps=args.reps,
+        reps=args.reps, use_flash=args.flash,
     )
     print(
         f"decode on {torch.cuda.get_device_name(0)}: layers={args.layers} "
         f"d={args.d_model} ff={args.d_ff} batch={args.batch} "
-        f"ctx={args.prompt_len}/{args.max_len}  step={r.step_s * 1e6:.1f}us  "
+        f"ctx={args.prompt_len}/{args.max_len}{' flash' if args.flash else ''}  step={r.step_s * 1e6:.1f}us  "
         f"tok/s={r.tokens_per_s:.0f}  frac={r.frac_roofline:.3f} "
         f"(bound {r.bound_s * 1e6:.2f}us)  prefill={r.prefill_s * 1e6:.1f}us "
         f"({r.prefill_tokens_per_s / 1e6:.2f}M tok/s)"

@@ -11,9 +11,10 @@ call. The loop is eager, so launch gaps on the host count in the time.
 CLI: python -m smmb_tpu_torch lm [--layers 4] [--d-model 1024] [--n-heads 8]
      [--kv-heads N] [--d-ff 4096] [--vocab 8192] [--batch 1]
      [--prompt-len 32] [--steps 64] [--temperature T] [--reps 5]
-     [--rope] [--window W]
-The JAX CLI's --kv-quant, --flash, --experts and --top-k (experts per
-token) belong to later slices of the port.
+     [--rope] [--window W] [--flash]
+``--flash`` runs the prefill's attention as the flash kernel B9 and the
+decode steps' cache reads as B4. The JAX CLI's --kv-quant, --experts and
+--top-k (experts per token) belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -47,9 +48,10 @@ def build_lm(cfg: TernaryLMConfig, batch: int, prompt_len: int, seed: int = 0,
 
 def run_lm_bench(cfg: TernaryLMConfig, batch: int = 1, prompt_len: int = 32,
                  steps: int = 64, temperature: float = 0.0, reps: int = 3,
-                 seed: int = 0, device=None) -> LMBenchResult:
+                 seed: int = 0, device=None, use_flash: bool = False) -> LMBenchResult:
     """Per-token decode time: (t(3·steps) − t(steps)) / (2·steps), bf16
-    compute and cache, as ``python -m smmb_tpu lm`` serves."""
+    compute and cache, as ``python -m smmb_tpu lm`` serves (``use_flash``:
+    B9 and B4 in place of the torch attention math)."""
     packed, prompt = build_lm(cfg, batch, prompt_len, seed, device)
     sample_gen = rng.make_generator(seed + 2, prompt.device)
 
@@ -57,7 +59,8 @@ def run_lm_bench(cfg: TernaryLMConfig, batch: int = 1, prompt_len: int = 32,
         def fn():
             return generate(packed, prompt, cfg, n_steps,
                             compute_dtype=torch.bfloat16,
-                            temperature=temperature, generator=sample_gen)
+                            temperature=temperature, generator=sample_gen,
+                            use_flash=use_flash)
 
         return measure(fn, reps=reps).min_s
 
@@ -92,6 +95,8 @@ def parser():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--rope", action="store_true")
     ap.add_argument("--window", type=int, default=None)
+    ap.add_argument("--flash", action="store_true",
+                    help="flash attention: B9 in the prefill, B4 in the decode steps")
     return ap
 
 
@@ -99,12 +104,13 @@ def main(argv=None):
     args = parser().parse_args(argv)
     cfg = config_from_args(args)
     r = run_lm_bench(cfg, args.batch, args.prompt_len, args.steps,
-                     temperature=args.temperature, reps=args.reps)
+                     temperature=args.temperature, reps=args.reps,
+                     use_flash=args.flash)
     print(
         f"lm-generate on {torch.cuda.get_device_name(0)}: layers={args.layers} "
         f"d={args.d_model} ff={args.d_ff} vocab={args.vocab} batch={args.batch} "
         f"kv={cfg.block.attn.kv_heads}{' rope' if args.rope else ''}"
-        f"{f' win{args.window}' if args.window else ''}"
+        f"{f' win{args.window}' if args.window else ''}{' flash' if args.flash else ''}"
         f"  {r.per_token_s * 1e6:.1f}us/tok = {r.tokens_per_s:.0f} tok/s "
         f"(slope {args.steps}->{3 * args.steps} steps; "
         f"lo={r.lo_s * 1e3:.2f}ms hi={r.hi_s * 1e3:.2f}ms)"

@@ -24,7 +24,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("packed_spmm.cu", "fused_mlp.cu")
+SOURCES = ("packed_spmm.cu", "fused_mlp.cu", "flash_decode.cu", "flash_attention.cu")
 
 
 def nvcc_path() -> str:
@@ -94,7 +94,7 @@ def _load(source: str, entries: dict) -> ctypes.CDLL:
     return lib
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
 @functools.cache
@@ -132,3 +132,27 @@ def fused_mlp_lib() -> ctypes.CDLL:
             _P,  # stream
         ],
     })
+
+
+@functools.cache
+def flash_decode_lib() -> ctypes.CDLL:
+    """``flash_decode.cu`` (B4)."""
+    return _load("flash_decode.cu", {"smmb_flash_decode": [
+        _P, _I, _L, _L,  # q, q_bf16, q_sb, q_sc
+        _P, _P, _I, _P,  # k, v, cache_bf16, out
+        _I, _I, _I, _I, _I, _I, _I,  # b, nq, h, kvh, hd, s, pos
+        _I, _F, _I,  # window, qscale, cbf16
+        _P,  # stream
+    ]})
+
+
+@functools.cache
+def flash_attention_lib() -> ctypes.CDLL:
+    """``flash_attention.cu`` (B9)."""
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    return _load("flash_attention.cu", {"smmb_flash_attention": [
+        _P, strides, _P, strides, _P, strides, _P, strides,  # q, k, v, out
+        _I, _I, _I, _I, _I, _I, _I,  # bf16, b, t, s, h, kvh, hd
+        _I, _I, _F, _I,  # causal, window, qscale, tile
+        _P,  # stream
+    ]})

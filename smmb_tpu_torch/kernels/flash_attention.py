@@ -1,0 +1,172 @@
+"""Flash (online-softmax) prefill attention: the hand-written CUDA kernel B9
+and its plain PyTorch version.
+
+Replaces the Pallas TPU kernel of ``smmb_tpu/kernels/flash_attention.py``
+(``flash_attention``, ``pallas_call`` at :662 causal and :688 non-causal).
+The kernel is ``csrc/flash_attention.cu``, built with ``nvcc`` for
+``sm_90a`` at first use (``_build.py``) and called through ctypes: a block
+owns a tile of query rows of one KV head's query heads and walks the live
+kv tiles in ascending order, so the (T, S) score tensor never reaches device
+memory. Its tile is 64 rows and columns, or 32 / 16 where a wide head would
+not fit a block's shared memory; any hd is taken as it is (JAX pads to 128).
+
+Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs the
+plain version. There is no fallback from one to the other. Each call that
+reaches the kernel adds one to ``flash_attention.launches``.
+
+``pipeline_p=True`` (the TPU's software-pipelined variant at :607, whose
+Hopper counterpart is a warp-specialised tensor-core kernel) raises
+``NotImplementedError``: it belongs to B9's redesign PR.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from smmb_tpu_torch.kernels import _build
+from smmb_tpu_torch.kernels.flash_decode import LOG2E, MAX_SHARED_BYTES, NEG, _exp2
+
+KV_TILE = 64  # the kernel's widest tile
+TILES = (64, 32, 16)
+PIPELINE_SLICE = ("pipeline_p=True (B9's pipelined variant, "
+                  "smmb_tpu/kernels/flash_attention.py:607) belongs to B9's "
+                  "tensor-core redesign PR of the port")
+
+
+def shared_bytes(bt: int, hd: int) -> int:
+    """Shared memory of one kernel block with ``bt`` query rows and kv
+    columns (``smem_bytes`` in csrc/flash_attention.cu)."""
+    return 4 * (2 * bt * (hd + 1) + 2 * bt * hd + bt * (bt + 1) + 3 * bt)
+
+
+def kernel_tile(hd: int) -> int:
+    """The widest of the kernel's tiles whose block fits shared memory."""
+    for bt in TILES:
+        if shared_bytes(bt, hd) <= MAX_SHARED_BYTES:
+            return bt
+    raise ValueError(f"head_dim {hd} is too wide for the flash kernel's "
+                     "shared memory")
+
+
+def _check(q, k, v, causal, window, pipeline_p):
+    """JAX's checks (flash_attention.py:456-467)."""
+    b, h, t, hd = q.shape
+    bk, kvh, s_len, hdk = k.shape
+    if (bk, hdk) != (b, hd) or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)} vs v {tuple(v.shape)}")
+    if h % kvh:
+        raise ValueError(f"H {h} % KVH {kvh} != 0")
+    if window is not None and not causal:
+        raise ValueError("window requires causal=True")
+    if pipeline_p and not causal:
+        raise ValueError("pipeline_p is a causal (triangular-grid) variant")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if pipeline_p:
+        raise NotImplementedError(PIPELINE_SLICE)
+
+
+def _scaled_q(q, scale):
+    """q times scale·log2(e) rounded to q's dtype, the product rounded to
+    q's dtype (flash_attention.py:109)."""
+    return q * torch.tensor(scale * LOG2E, dtype=q.dtype, device=q.device)
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
+                          block_q=None, block_kv=None, pipeline_p=False):
+    """B9 in plain PyTorch, on any device: an online softmax over kv tiles
+    of ``block_kv`` columns (default the kernel's 64) with the kernel's
+    rounding points; the score and P·V products are f64 products rounded
+    once to f32. Rows visit every tile up to the last diagonal; a tile that
+    is fully masked for a row changes nothing of its result."""
+    _check(q, k, v, causal, window, pipeline_p)
+    b, h, t, hd = q.shape
+    kvh, s_len = k.shape[1], k.shape[2]
+    g = h // kvh
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    qs = _scaled_q(q, scale).reshape(b, kvh, g * t, hd).to(torch.float64)
+    tok = torch.arange(t, device=q.device).repeat(g)  # row (group, token)
+    bs = min(block_kv or KV_TILE, s_len)
+    ns = -(-s_len // bs)
+    if causal:
+        ns = min(ns, (t - 1) // bs + 1)
+    m = torch.full((b, kvh, g * t), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, g * t, hd), dtype=torch.float32, device=q.device)
+    for s in range(ns):
+        c0, c1 = s * bs, min((s + 1) * bs, s_len)
+        scores = torch.matmul(qs, k[:, :, c0:c1].to(torch.float64).transpose(-1, -2))
+        scores = scores.to(torch.float32)
+        col = torch.arange(c0, c1, device=q.device)[None, :]
+        if causal:
+            live = col <= tok[:, None]
+            if window is not None:
+                live = live & (col > tok[:, None] - window)
+            scores = torch.where(live, scores, torch.full_like(scores, NEG))
+        scores = scores.contiguous()
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        rescale, p = _exp2(m, m_new), _exp2(scores, m_new[..., None])
+        l = l * rescale + p.to(torch.float64).sum(dim=-1).to(torch.float32)
+        pv = torch.matmul(p.to(v.dtype).to(torch.float64),
+                          v[:, :, c0:c1].to(torch.float64)).to(torch.float32)
+        acc = acc * rescale[..., None] + pv
+        m = m_new
+    out = torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, 1.0)[..., None],
+                      torch.zeros_like(acc))
+    return out.to(q.dtype).reshape(b, h, t, hd)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None, block_q: int | None = None,
+                    block_kv: int | None = None,
+                    pipeline_p: bool = False) -> torch.Tensor:
+    """Scaled dot-product attention without a (T, S) score tensor.
+
+    q: (B, H, T, hd); k, v: (B, KVH, S, hd), H % KVH == 0 (query head h
+    reads KV head h // (H // KVH)); any strides with d contiguous, so head
+    views of the projections are read in place. ``causal``: row t attends
+    columns ≤ t (and > t − window under ``window``). ``scale`` defaults to
+    1/sqrt(hd). ``block_q`` / ``block_kv`` are the TPU kernel's tiles,
+    honoured by the plain version (``block_kv``); the CUDA kernel's tiles
+    follow hd. Returns (B, H, T, hd) in q's dtype (a head view of a
+    (B, T, H, hd) tensor on the card).
+    """
+    _check(q, k, v, causal, window, pipeline_p)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale, block_kv=block_kv)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}, "
+                         f"{k.device}, {v.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must all be f32 or all bf16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    b, h, t, hd = q.shape
+    kvh, s_len = k.shape[1], k.shape[2]
+    bt = kernel_tile(hd)
+    q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    qscale = torch.tensor(scale * LOG2E, dtype=q.dtype).item()
+    out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    strides = [(ctypes.c_longlong * 3)(*x.stride()[:3]) for x in (q, k, v, out)]
+    lib = _build.flash_attention_lib()
+    with torch.cuda.device(q.device):
+        rc = lib.smmb_flash_attention(
+            q.data_ptr(), strides[0], k.data_ptr(), strides[1], v.data_ptr(),
+            strides[2], out.data_ptr(), strides[3], int(q.dtype == torch.bfloat16),
+            b, t, s_len, h, kvh, hd, int(causal), window if window is not None else 0,
+            qscale, bt, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -3,9 +3,12 @@ smmb_tpu/models/attention.py).
 
 All four projections (Q, K, V, out) stream 2-bit ``TernaryPacked`` planes
 through ``packed_spmm`` (B1); the fused ``[Wq|Wk|Wv]`` plane serves the
-decode step in one call, with the pre-attention RMSNorm riding it through
-``fused_norm_qkv`` (B3) when the gate allows. The attention math (scores,
-masked softmax, weighted sum) is plain PyTorch, as it is plain jnp in JAX.
+decode and extend steps in one call, with the pre-attention RMSNorm riding it
+through ``fused_norm_qkv`` (B3) when the gate allows. The attention math is
+plain PyTorch by default, as it is plain jnp in JAX; ``use_flash=True``
+routes the prefill through the flash kernel B9 (kernels/flash_attention.py)
+and the decode and extend cache reads through B4 (kernels/flash_decode.py)
+under JAX's gates.
 
 The KV cache is a dict of flat (B, S, KVH·hd) float ``k``/``v`` tensors and
 a Python int ``pos``. Cache writes update the tensors in place (JAX returns
@@ -14,10 +17,9 @@ a new dict with ``pos`` advanced. The f32 einsums run in full f32 (TF32 off),
 which is JAX's ``Precision.HIGHEST``, so the port has no ``precision``
 argument.
 
-Left out of this slice, each with a ``NotImplementedError``: flash attention
-(``use_flash``, kernels B4 and B9), the int8 cache (``quantized``, B7 and
-B8), ragged caches (``ragged``) and LoRA adapters. Chunked extend
-(``attention_extend``) belongs to the serving-controls slice.
+Left out of this slice, each with a ``NotImplementedError``: the int8 cache
+(``quantized``, B7 and B8), ragged caches and ``valid`` masks (``ragged``)
+and LoRA adapters.
 """
 
 from __future__ import annotations
@@ -28,18 +30,26 @@ import math
 import torch
 
 from smmb_tpu_torch.formats.packed import concat_packed_cols, pack_ternary_device
+from smmb_tpu_torch.kernels import flash_attention as fa
+from smmb_tpu_torch.kernels import flash_decode as fd
+from smmb_tpu_torch.kernels.flash_decode import INT8_CACHE_SLICE
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
 from smmb_tpu_torch.models.train import absmean_scale, ternarize_ste
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
 
-FLASH_SLICE = ("use_flash=True needs the flash-attention kernels B4 (decode) "
-               "and B9 (prefill), which the next slice of the port brings")
-INT8_CACHE_SLICE = ("the int8 KV cache needs kernels B7 and B8, which the "
-                    "int8-cache slice of the port brings")
 RAGGED_SLICE = ("ragged batches (prompt_mask, ragged caches) belong to the "
                 "serving-controls slice of the port")
 LORA_SLICE = "LoRA adapters belong to the training-surface slice of the port"
+
+# The flash-decode gate for batch > 1, copied from JAX
+# (smmb_tpu/models/attention.py:44-45) so that the port takes JAX's route:
+# up to FLASH_DECODE_MAX_BATCH rows, and only when the layer's k+v buffers
+# hold at least FLASH_DECODE_MIN_CACHE_BYTES. The crossover these encode was
+# measured on a TPU v5e against XLA's fused einsum; it is not an H100 fact,
+# and the H100's crossover is still to be measured.
+FLASH_DECODE_MAX_BATCH = 8
+FLASH_DECODE_MIN_CACHE_BYTES = 32 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,16 +156,29 @@ def _check_lora(packed: dict, names) -> None:
         raise NotImplementedError(LORA_SLICE)
 
 
-def _attention_math(q, k, v, cfg: TernaryAttentionConfig, use_flash=False):
+def _attention_math(q, k, v, cfg: TernaryAttentionConfig, use_flash=False,
+                    valid=None):
     """(B, T, D) projections → multi-head causal attention, prefill-from-
     empty positions 0..T-1. Under GQA the query heads group over the KV
-    heads; the KV tensors are never repeated to the query head count."""
-    if use_flash:
-        raise NotImplementedError(FLASH_SLICE)
+    heads; the KV tensors are never repeated to the query head count.
+    ``use_flash`` runs the math as the flash kernel B9 on head views of the
+    projections (no (T, T) score tensor). ``valid`` (ragged batches) is not
+    in this slice."""
+    if valid is not None and use_flash:
+        raise ValueError("use_flash does not support ragged (valid) masks")
+    if valid is not None:
+        raise NotImplementedError(RAGGED_SLICE)
     b, t, d = q.shape
     h, hd, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     g = h // kvh
     q, k = _rope_qk(q, k, cfg, _positions(0, t, q.device))
+    if use_flash:
+        out = fa.flash_attention(
+            q.reshape(b, t, h, hd).permute(0, 2, 1, 3),
+            k.reshape(b, t, kvh, hd).permute(0, 2, 1, 3),
+            v.reshape(b, t, kvh, hd).permute(0, 2, 1, 3),
+            causal=cfg.causal, window=cfg.window)
+        return out.permute(0, 2, 1, 3).reshape(b, t, d)
     q = q.reshape(b, t, kvh, g, hd).permute(0, 2, 3, 1, 4)
     k = k.reshape(b, t, kvh, hd).permute(0, 2, 1, 3)
     v = v.reshape(b, t, kvh, hd).permute(0, 2, 1, 3)
@@ -202,15 +225,15 @@ def _proj_qkv(packed, inp, cfg, compute_dtype, use_kernel):
 
 def attention_forward(packed: dict, x: torch.Tensor, cfg: TernaryAttentionConfig,
                       *, compute_dtype=torch.float32, use_kernel: bool = True,
-                      use_flash: bool = False) -> torch.Tensor:
-    """Serving forward: packed projections around the attention math.
-    x: (B, T, d_model)."""
+                      use_flash: bool = False, valid=None) -> torch.Tensor:
+    """Serving forward: packed projections around the attention math
+    (the flash kernel B9 under ``use_flash``). x: (B, T, d_model)."""
 
     def proj(name, inp):
         return _proj(packed, name, inp, cfg, compute_dtype, use_kernel)
 
     att = _attention_math(proj("wq", x), proj("wk", x), proj("wv", x), cfg,
-                          use_flash=use_flash)
+                          use_flash=use_flash, valid=valid)
     return proj("wo", att)
 
 
@@ -264,9 +287,8 @@ def attention_prefill(packed: dict, x: torch.Tensor, cache: dict,
                       cfg: TernaryAttentionConfig, *, compute_dtype=torch.float32,
                       use_kernel: bool = True, use_flash: bool = False):
     """Whole prompt (B, T, D): full causal attention (as ``attention_forward``)
-    plus the cache fill. Returns (y, cache)."""
-    if use_flash:
-        raise NotImplementedError(FLASH_SLICE)
+    plus the cache fill. ``use_flash`` runs the attention as B9. Returns
+    (y, cache)."""
     b, t, _ = x.shape
     kw = dict(compute_dtype=compute_dtype, use_kernel=use_kernel)
     k = _split_heads(_proj(packed, "wk", x, cfg, **kw), cfg, cfg.kv_heads)
@@ -275,7 +297,7 @@ def attention_prefill(packed: dict, x: torch.Tensor, cache: dict,
     if cfg.rope:
         k = apply_rope(k, _positions(pos, t, x.device), cfg.rope_theta)
     cache = _cache_write(cache, k, v, pos)
-    y = attention_forward(packed, x, cfg, **kw)
+    y = attention_forward(packed, x, cfg, use_flash=use_flash, **kw)
     return y, cache
 
 
@@ -338,6 +360,63 @@ def _proj_qkv_prenorm(packed, x, cfg, prenorm, compute_dtype):
     return y[..., :d], y[..., d:d + kvd], y[..., d + kvd:]
 
 
+def _cache_code_bytes(cache: dict) -> int:
+    """Total k+v bytes in the cache (the flash gate's size signal)."""
+    return 2 * cache["k"].numel() * cache["k"].element_size()
+
+
+def _flash_decode_ok(cache: dict, cfg: TernaryAttentionConfig, b: int,
+                     use_flash: bool) -> bool:
+    """JAX's decode gate (smmb_tpu/models/attention.py:774-787) for a float
+    cache: ``use_flash``, no ragged ``valid`` mask, head_dim % 128 == 0, and
+    batch 1 or [batch ≤ FLASH_DECODE_MAX_BATCH and a cache of at least
+    FLASH_DECODE_MIN_CACHE_BYTES]."""
+    return bool(
+        use_flash
+        and cache.get("valid") is None
+        and cfg.head_dim % 128 == 0
+        and (b == 1 or (b <= FLASH_DECODE_MAX_BATCH
+                        and _cache_code_bytes(cache) >= FLASH_DECODE_MIN_CACHE_BYTES))
+    )
+
+
+def _flash_chunk_ok(cache: dict, cfg: TernaryAttentionConfig, c: int,
+                    use_flash: bool) -> bool:
+    """JAX's extend gate (smmb_tpu/models/attention.py:902-913): the decode
+    gate's semantic conditions without the batch rule, and a chunk whose
+    rows fit the kernel's block (``flash_decode.flash_chunk_rows_ok``, the
+    card's shared memory in place of JAX's VMEM budget)."""
+    kc = cache["k"]
+    return bool(
+        use_flash
+        and cache.get("valid") is None
+        and cfg.head_dim % 128 == 0
+        and fd.flash_chunk_rows_ok(c, cfg.n_heads, cfg.head_dim, kc.shape[-1],
+                                   kc.element_size())
+    )
+
+
+def _step_qkv(packed, x, cache, cfg, compute_dtype, use_kernel, prenorm):
+    """Q, K, V of a decode or extend step (B, C, ·): the fused projection
+    (with the norm inside B3 under ``prenorm``), rope at the cache position,
+    and the cache write. Returns (q (B, C, H, hd), cache)."""
+    if "valid" in cache:
+        raise NotImplementedError(RAGGED_SLICE)
+    pos = cache["pos"]
+    if prenorm is not None:
+        qf, kf, vf = _proj_qkv_prenorm(packed, x, cfg, prenorm, compute_dtype)
+    else:
+        qf, kf, vf = _proj_qkv(packed, x, cfg, compute_dtype, use_kernel)
+    q = _split_heads(qf, cfg)
+    k = _split_heads(kf, cfg, cfg.kv_heads)
+    v = _split_heads(vf, cfg, cfg.kv_heads)
+    if cfg.rope:
+        at = _positions(pos, x.shape[1], x.device)
+        q = apply_rope(q, at, cfg.rope_theta)
+        k = apply_rope(k, at, cfg.rope_theta)
+    return q, _cache_write(cache, k, v, pos)
+
+
 def attention_decode_core(packed: dict, x_t: torch.Tensor, cache: dict,
                           cfg: TernaryAttentionConfig, *,
                           compute_dtype=torch.float32, use_kernel: bool = True,
@@ -345,27 +424,20 @@ def attention_decode_core(packed: dict, x_t: torch.Tensor, cache: dict,
     """``attention_decode_step`` without the output projection: returns the
     pre-``wo`` mix (B, 1, H·hd) and the cache. With ``prenorm=(g, eps)``,
     x_t is the raw residual stream and the RMSNorm runs inside B3 (the
-    caller has checked ``_qkv_prenorm_fusable``)."""
-    if use_flash:
-        raise NotImplementedError(FLASH_SLICE)
+    caller has checked ``_qkv_prenorm_fusable``). Under ``use_flash`` and
+    JAX's gate (``_flash_decode_ok``) the cache read is the kernel B4."""
     b, one, _ = x_t.shape
     if one != 1:
         raise ValueError(f"decode step takes one token, got T={one}")
     pos = cache["pos"]
-    if prenorm is not None:
-        qf, kf, vf = _proj_qkv_prenorm(packed, x_t, cfg, prenorm, compute_dtype)
+    q, cache = _step_qkv(packed, x_t, cache, cfg, compute_dtype, use_kernel, prenorm)
+    if _flash_decode_ok(cache, cfg, b, use_flash):
+        out = fd.flash_attention_decode(
+            q[:, 0], cache["k"], cache["v"], pos, window=cfg.window,
+            compute_dtype=compute_dtype).reshape(b, 1, -1)
     else:
-        qf, kf, vf = _proj_qkv(packed, x_t, cfg, compute_dtype, use_kernel)
-    q = _split_heads(qf, cfg)
-    k = _split_heads(kf, cfg, cfg.kv_heads)
-    v = _split_heads(vf, cfg, cfg.kv_heads)
-    if cfg.rope:
-        at = _positions(pos, 1, x_t.device)
-        q = apply_rope(q, at, cfg.rope_theta)
-        k = apply_rope(k, at, cfg.rope_theta)
-    cache = _cache_write(cache, k, v, pos)
-    kc, vc = _cache_kv(cache, cfg.kv_heads)
-    out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window)
+        kc, vc = _cache_kv(cache, cfg.kv_heads)
+        out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window)
     return out, cache
 
 
@@ -377,5 +449,40 @@ def attention_decode_step(packed: dict, x_t: torch.Tensor, cache: dict,
     itself. Returns (y_t, cache)."""
     out, cache = attention_decode_core(
         packed, x_t, cache, cfg, compute_dtype=compute_dtype,
+        use_kernel=use_kernel, use_flash=use_flash)
+    return _proj(packed, "wo", out, cfg, compute_dtype, use_kernel), cache
+
+
+def attention_extend_core(packed: dict, x: torch.Tensor, cache: dict,
+                          cfg: TernaryAttentionConfig, *,
+                          compute_dtype=torch.float32, use_kernel: bool = True,
+                          use_flash: bool = False, prenorm=None):
+    """``attention_extend`` without the output projection (the decode
+    core's contract for a (B, C, D) chunk). Under ``use_flash`` and the
+    chunk gate (``_flash_chunk_ok``) the cache read is B4's chunk entry, so
+    a token's row equals its decode step's bitwise. Returns the pre-``wo``
+    mix (B, C, H·hd) and the cache."""
+    b, c, _ = x.shape
+    pos = cache["pos"]
+    q, cache = _step_qkv(packed, x, cache, cfg, compute_dtype, use_kernel, prenorm)
+    if _flash_chunk_ok(cache, cfg, c, use_flash):
+        out = fd.flash_attention_chunk(
+            q, cache["k"], cache["v"], pos, window=cfg.window,
+            compute_dtype=compute_dtype).reshape(b, c, -1)
+    else:
+        kc, vc = _cache_kv(cache, cfg.kv_heads)
+        out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window)
+    return out, cache
+
+
+def attention_extend(packed: dict, x: torch.Tensor, cache: dict,
+                     cfg: TernaryAttentionConfig, *, compute_dtype=torch.float32,
+                     use_kernel: bool = True, use_flash: bool = False):
+    """Chunked prefill: append a (B, C, D) chunk at the cache position and
+    attend each chunk token causally over everything cached so far; over
+    chunks from an empty cache this is ``attention_prefill``'s result.
+    Returns (y (B, C, D), cache)."""
+    out, cache = attention_extend_core(
+        packed, x, cache, cfg, compute_dtype=compute_dtype,
         use_kernel=use_kernel, use_flash=use_flash)
     return _proj(packed, "wo", out, cfg, compute_dtype, use_kernel), cache

@@ -3,16 +3,20 @@
 
 Token + learned-position embeddings, N pre-norm ternary transformer blocks
 (models/transformer.py), a final RMSNorm and a packed ternary LM head, with
-the serving entry points ``lm_prefill``, ``lm_decode_step`` and
-``generate``. JAX's ``generate`` is one jitted ``lax.scan``; here it is an
+the serving entry points ``lm_prefill``, ``lm_decode_step``, ``lm_extend``,
+``lm_prefill_chunked`` and ``generate``. JAX's ``generate`` is one jitted ``lax.scan``; here it is an
 eager loop over decode steps that keeps the tokens on the card (no host
 sync per step) and writes each block's preallocated ``max_len`` KV cache in
 place.
 
+``use_flash`` runs the prefill's attention as the flash kernel B9 and the
+decode and extend cache reads as B4 (kernels/flash_attention.py,
+kernels/flash_decode.py) under JAX's gates.
+
 Left out of this slice, each with a ``NotImplementedError``: MoE blocks
-(``n_experts``), ``use_flash`` (kernels B4, B9), ``kv_quant`` (B7, B8),
-``prompt_mask``, ``prefill_chunk``, ``lm_extend``, ``fork_cache``,
-``generate_beam`` and training (``qat_lm_forward``, ``make_lm_train_step``).
+(``n_experts``), ``kv_quant`` (B7, B8), ``prompt_mask`` and ``pos_ids``
+(ragged batches), ``fork_cache``, ``generate_beam`` and training
+(``qat_lm_forward``, ``make_lm_train_step``).
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from smmb_tpu_torch.formats.packed import pack_ternary_device
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
 from smmb_tpu_torch.models import transformer as tb
-from smmb_tpu_torch.models.attention import FLASH_SLICE, INT8_CACHE_SLICE, RAGGED_SLICE
+from smmb_tpu_torch.models.attention import INT8_CACHE_SLICE, RAGGED_SLICE
 from smmb_tpu_torch.models.train import absmean_scale, ternarize_ste
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
@@ -215,16 +219,17 @@ def generate(packed: dict, prompt: torch.Tensor, cfg: TernaryLMConfig,
     port's ``torch.Generator`` in place of JAX's key). The KV caches follow
     the compute dtype and are preallocated at ``cfg.max_len`` on the
     prompt's device; each step writes them in place. As in JAX, the last
-    step's logits pick no token.
+    step's logits pick no token. ``use_flash`` runs the prefill through B9
+    and the decode steps' cache reads through B4 (under JAX's gate).
+    ``prefill_chunk`` runs the prompt through ``lm_prefill_chunked`` (T %
+    chunk == 0); as in JAX it is not combinable with ``use_flash``.
     """
-    if use_flash:
-        raise NotImplementedError(FLASH_SLICE)
+    if prefill_chunk is not None and (prompt_mask is not None or use_flash):
+        raise ValueError("prefill_chunk is not combinable with prompt_mask/use_flash")
     if kv_quant:
         raise NotImplementedError(INT8_CACHE_SLICE)
     if prompt_mask is not None:
         raise NotImplementedError(RAGGED_SLICE)
-    if prefill_chunk is not None:
-        raise NotImplementedError(CONTROLS_SLICE.format("prefill_chunk"))
     if prompt.shape[1] + steps > cfg.max_len:
         raise ValueError(f"prompt_len={prompt.shape[1]} + steps={steps} exceeds "
                          f"max_len={cfg.max_len}")
@@ -234,18 +239,73 @@ def generate(packed: dict, prompt: torch.Tensor, cfg: TernaryLMConfig,
     kw = dict(compute_dtype=compute_dtype, use_kernel=use_kernel)
     cache = lm_init_cache(cfg, prompt.shape[0], dtype=compute_dtype,
                           device=prompt.device)
-    logits, cache = lm_prefill(packed, prompt, cache, cfg, **kw)
+    if prefill_chunk is not None:
+        logits, cache = lm_prefill_chunked(packed, prompt, cache, cfg, prefill_chunk, **kw)
+    else:
+        logits, cache = lm_prefill(packed, prompt, cache, cfg, use_flash=use_flash, **kw)
     tok = sampler(generator, logits)
     toks = []
     for _ in range(steps):
         toks.append(tok)
-        logits, cache = lm_decode_step(packed, tok, cache, cfg, **kw)
+        logits, cache = lm_decode_step(packed, tok, cache, cfg, use_flash=use_flash, **kw)
         tok = sampler(generator, logits)
     return torch.stack(toks, dim=1)
 
 
-def lm_extend(*args, **kwargs):
-    raise NotImplementedError(CONTROLS_SLICE.format("lm_extend"))
+def _chunk_embed(packed, tokens, pos: int, cfg: TernaryLMConfig):
+    """Token + learned-position embeddings of a (B, C) chunk at ``pos``."""
+    c = tokens.shape[1]
+    if pos + c > cfg.max_len:
+        raise ValueError(f"chunk of {c} at position {pos} exceeds max_len={cfg.max_len}")
+    return packed["embed"][tokens] + packed["pos"][None, pos:pos + c]
+
+
+def lm_extend(packed: dict, tokens: torch.Tensor, cache: list,
+              cfg: TernaryLMConfig, *, compute_dtype=torch.float32,
+              use_kernel: bool = True, use_flash: bool = False, pos_ids=None):
+    """Append a (B, C) token chunk at the cache position and return the
+    logits at every chunk position: ((B, C, vocab), cache). The multi-token
+    ``lm_decode_step``: each chunk token attends the cache plus its chunk
+    prefix. Under ``use_flash`` the caches are read by B4's chunk entry, the
+    decode step's kernel, so a token's logits equal its decode step's.
+    Per-row positions (``pos_ids``) serve ragged batches, a later slice."""
+    if pos_ids is not None:
+        raise NotImplementedError(RAGGED_SLICE)
+    if tokens.shape[1] > cfg.max_len:
+        raise ValueError(f"chunk {tokens.shape[1]} exceeds max_len={cfg.max_len}")
+    x = _chunk_embed(packed, tokens, cache[0]["pos"], cfg)
+    new_cache = []
+    for blk, ch in zip(packed["blocks"], cache):
+        x, ch = tb.block_extend(blk, x, ch, cfg.block, compute_dtype=compute_dtype,
+                                use_kernel=use_kernel, use_flash=use_flash)
+        new_cache.append(ch)
+    h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
+    return _head_logits(packed, h, cfg, compute_dtype, use_kernel), new_cache
+
+
+def lm_prefill_chunked(packed: dict, tokens: torch.Tensor, cache: list,
+                       cfg: TernaryLMConfig, chunk: int, *,
+                       compute_dtype=torch.float32, use_kernel: bool = True,
+                       use_flash: bool = False):
+    """Prompt pass in chunks of ``chunk`` tokens (T % chunk == 0), each
+    through ``block_extend`` over the cache filled so far: ``lm_prefill``'s
+    result without a (T, T) score tensor. The head runs once, on the last
+    position. Returns (last-position logits (B, vocab), filled cache)."""
+    b, t = tokens.shape
+    if t % chunk:
+        raise ValueError(f"prompt length {t} not divisible by chunk {chunk}")
+    if t > cfg.max_len:
+        raise ValueError(f"prompt length {t} exceeds max_len={cfg.max_len}")
+    for c0 in range(0, t, chunk):
+        x = _chunk_embed(packed, tokens[:, c0:c0 + chunk], cache[0]["pos"], cfg)
+        new_cache = []
+        for blk, ch in zip(packed["blocks"], cache):
+            x, ch = tb.block_extend(blk, x, ch, cfg.block, compute_dtype=compute_dtype,
+                                    use_kernel=use_kernel, use_flash=use_flash)
+            new_cache.append(ch)
+        cache = new_cache
+    h = tb.rmsnorm(x[:, -1:], packed["norm_f"], cfg.eps)
+    return _head_logits(packed, h, cfg, compute_dtype, use_kernel)[:, 0], cache
 
 
 def fork_cache(*args, **kwargs):

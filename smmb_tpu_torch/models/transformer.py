@@ -8,6 +8,9 @@ pre-attention norm rides the fused QKV call (B3); in a short prefill the
 MLP half runs as one ``fused_mlp`` call (B6); otherwise each projection is
 one ``packed_spmm`` call (B1). The gates keep JAX's semantic conditions;
 their size limits are re-derived from the CUDA kernels' shared memory.
+``block_extend`` (a C-token chunk) takes the decode step's routes at
+M = B·C rows, so a token's row is the same in a chunk as in its decode step;
+``use_flash`` sends the attention to B9 (prefill) and B4 (decode, extend).
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from smmb_tpu_torch.models.attention import (
     _qkv_prenorm_fusable,
     attention_decode_core,
     attention_decode_step,
+    attention_extend,
+    attention_extend_core,
     attention_forward,
     attention_prefill,
     init_attention,
@@ -258,4 +263,32 @@ def block_decode_step(packed: dict, x_t: torch.Tensor, cache: dict,
                                        use_flash=use_flash, **kw)
     x_t = x_t + att
     return _mlp_half(packed, x_t, cfg, _make_spmm(compute_dtype, use_kernel),
+                     compute_dtype, use_kernel), cache
+
+
+def block_extend(packed: dict, x: torch.Tensor, cache: dict,
+                 cfg: TernaryBlockConfig, *, compute_dtype=torch.float32,
+                 use_kernel: bool = True, use_flash: bool = False):
+    """Chunked-prefill step through the block: x (B, C, d_model) is
+    appended at the cache position and attends the cache plus its chunk
+    prefix (``attention_extend``). With the gates on, the block is B3, the
+    chunk attention (B4's chunk entry under ``use_flash``) and B5 at
+    M = B·C rows, the decode step's routes. Returns (y, cache)."""
+    kw = dict(compute_dtype=compute_dtype, use_kernel=use_kernel)
+    b, c, _ = x.shape
+    if _tail_fusable(packed, b * c, compute_dtype, use_kernel):
+        if _qkv_prenorm_fusable(packed["attn"], cfg.attn, compute_dtype, use_kernel):
+            out, cache = attention_extend_core(
+                packed["attn"], x, cache, cfg.attn, use_flash=use_flash,
+                prenorm=(packed["norm1"], cfg.eps), **kw)
+        else:
+            h = rmsnorm(x, packed["norm1"], cfg.eps)
+            out, cache = attention_extend_core(
+                packed["attn"], h, cache, cfg.attn, use_flash=use_flash, **kw)
+        return _fused_tail(packed, out, x, cfg, compute_dtype), cache
+    h = rmsnorm(x, packed["norm1"], cfg.eps)
+    att, cache = attention_extend(packed["attn"], h, cache, cfg.attn,
+                                  use_flash=use_flash, **kw)
+    x = x + att
+    return _mlp_half(packed, x, cfg, _make_spmm(compute_dtype, use_kernel),
                      compute_dtype, use_kernel), cache

@@ -10,8 +10,9 @@ port is installed: ``python -m pytest --noconftest -q tests/test_torch_cuda.py``
 Tolerances, relative to max(1, max|Y|): f32 1e-4 (f32 sums in another
 order); bf16 compute with f32 X and Y 1e-5 (the same bf16 values summed in
 f32 in another order); int8 1e-6 (same codes, exact int32 sums, the same
-separately rounded epilogue). The fused kernels (B3, B5, B6): f32 1e-4
-and bf16 2**-7 (a staged value can round to the neighbouring bf16).
+separately rounded epilogue). The fused kernels (B3, B5, B6) and the flash
+kernels (B4, B9): f32 1e-4 and bf16 2**-7 (a staged value can round to the
+neighbouring bf16).
 """
 
 import numpy as np
@@ -19,6 +20,8 @@ import pytest
 import torch
 
 from smmb_tpu_torch.formats.packed import pack_ternary
+from smmb_tpu_torch.kernels import flash_attention as fa
+from smmb_tpu_torch.kernels import flash_decode as fd
 from smmb_tpu_torch.kernels import fused_mlp as fk
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
 from smmb_tpu_torch.models import lm as tlm
@@ -186,5 +189,78 @@ def test_generate_launch_counts_and_tokens(cuda):
     toks = tlm.generate(packed, prompt, cfg, 5)
     assert [fn.launches for fn in counted] == [6 * 2 + 1 + 5, 2 * 5, 2 * 5, 2]
     # f32 greedy tokens of the kernel path and the plain path agree
+    plain = tlm.generate(packed, prompt, cfg, 5, use_kernel=False)
+    assert torch.equal(toks, plain)
+
+
+def _normal(rs, shape, dtype, dev, scale=1.0):
+    return (torch.from_numpy(rs.standard_normal(shape).astype(np.float32)) * scale).to(
+        device=dev, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,s,pos,window", [
+    (1, 8, 8, 224, 95, None), (1, 8, 2, 1024, 512, None), (2, 4, 4, 300, 260, 64),
+    (4, 8, 8, 1024, 512, None),
+])
+def test_flash_decode_matches_plain_rows_bitwise(cuda, cdt, b, h, kvh, s, pos, window):
+    rs = np.random.default_rng(pos + h)
+    q = _normal(rs, (b, 5, h, 128), torch.float32, cuda, 8.0)
+    kc = _normal(rs, (b, s, kvh * 128), cdt, cuda)
+    vc = _normal(rs, (b, s, kvh * 128), cdt, cuda)
+    kw = dict(window=window, compute_dtype=cdt)
+    before = fd.flash_attention_decode.launches
+    y = fd.flash_attention_decode(q[:, 0], kc, vc, pos, **kw)
+    assert fd.flash_attention_decode.launches == before + 1
+    ref = fd.flash_attention_decode_plain(q[:, 0], kc, vc, pos, **kw)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape and y.dtype == cdt
+    assert_close(y.float(), ref.float(),
+                 FUSED_TOL[cdt] * max(1.0, float(ref.float().abs().max())), "B4")
+    chunk = fd.flash_attention_chunk(q, kc, vc, pos - 4, **kw)
+    for c in range(5):
+        assert torch.equal(chunk[:, c], fd.flash_attention_decode(q[:, c], kc, vc,
+                                                                  pos - 4 + c, **kw))
+    for r in range(b):
+        assert torch.equal(y[r:r + 1], fd.flash_attention_decode(
+            q[r:r + 1, 0], kc[r:r + 1], vc[r:r + 1], pos, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,t,hd,causal,window", [
+    (1, 8, 8, 32, 128, True, None), (2, 8, 2, 200, 128, True, None),
+    (1, 4, 4, 300, 64, True, 64), (1, 4, 2, 130, 128, False, None),
+    (1, 2, 2, 70, 256, True, None),
+])
+def test_flash_attention_matches_plain(cuda, dt, b, h, kvh, t, hd, causal, window):
+    rs = np.random.default_rng(t + hd)
+    q = _normal(rs, (b, h, t, hd), dt, cuda, 4.0)
+    k = _normal(rs, (b, kvh, t, hd), dt, cuda)
+    v = _normal(rs, (b, kvh, t, hd), dt, cuda)
+    before = fa.flash_attention.launches
+    y = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.flash_attention.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape and y.dtype == dt
+    assert_close(y.float(), ref.float(),
+                 FUSED_TOL[dt] * max(1.0, float(ref.float().abs().max())), "B9")
+
+
+@pytest.mark.cuda
+def test_generate_flash_launch_counts_and_tokens(cuda):
+    cfg = tlm.TernaryLMConfig(vocab=512, d_model=512, n_heads=4, d_ff=1024,
+                              n_layers=2, max_len=32)
+    gen = rng.make_generator(0)
+    packed = tlm.pack_lm(tlm.init_lm(gen, cfg))
+    prompt = torch.randint(0, cfg.vocab, (1, 8), generator=gen, device=cuda)
+    counted = (packed_spmm, fk.fused_norm_qkv, fk.fused_block_tail, fk.fused_mlp,
+               fa.flash_attention, fd.flash_attention_decode)
+    for fn in counted:
+        fn.launches = 0
+    toks = tlm.generate(packed, prompt, cfg, 5, use_flash=True)
+    assert [fn.launches for fn in counted] == [6 * 2 + 1 + 5, 2 * 5, 2 * 5, 2, 2, 2 * 5]
     plain = tlm.generate(packed, prompt, cfg, 5, use_kernel=False)
     assert torch.equal(toks, plain)
