@@ -44,7 +44,21 @@ which exits non-zero on failure:
     µs/token and the decode bench with and without flash, and the
     ``bench/trace.py --lm`` step with and without flash;
 13. times of B4 and B9 at the path shapes and at one long shape each:
-    kernel, plain version, bound, and ``scaled_dot_product_attention``.
+    kernel, plain version, bound, and ``scaled_dot_product_attention``;
+14. B2 (BCSR block SpMM) against its plain version in f32 and bf16: the
+    tests' 8×128 blocks (both ``x_resident`` values bitwise equal), 128×128
+    blocks at M = 100, M = 140 with ``block_m`` = 64, the empty matrix (no
+    launch, the activated bias), the showcase's largest case and the
+    block-sparse shape, each call with blocks raising its launch count by
+    one;
+15. the reference-benchmark path: ``run_showcase()`` over all five
+    showcase cases (every row valid and timed, ``bcsr_kernel`` in each),
+    one ``run_sweep`` slice (one case per density) and the capacity case
+    64000×16384×4096 at 1/2 density through B1's stream, with the CSV rows
+    as JSON lines and the peak device memory;
+16. times of B2 at the showcase's largest case and the block-sparse shape,
+    f32 and bf16: kernel, plain version, bound, and ``torch.matmul`` on the
+    dense W.
 
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
@@ -280,6 +294,9 @@ def main() -> int:
     flash_err = check_flash_kernels(torch, dev)
     flash = run_flash_lm_path(torch, dev, lm)
     flash_rows = time_flash_kernels(torch, dev, spec, flash_err, flash)
+    bcsr_err = check_bcsr_kernel(torch, dev)
+    reference = run_reference_benchmark(torch, dev)
+    bcsr_rows = time_bcsr_kernel(torch, dev, spec, bcsr_err, reference)
 
     main_mode = per_mode["bf16"]  # the main path's mode and per-layer shape
     summary = {"kernels": [{
@@ -294,7 +311,7 @@ def main() -> int:
         "bound_ms": main_mode["bound_ms"],
         "bound_by": main_mode["bound_by"],
         "library_ms": main_mode["library_ms"],
-    }, *fused_rows, *flash_rows]}
+    }, *bcsr_rows, *fused_rows, *flash_rows]}
     log(f"all phases passed in {time.time() - T0:.1f}s")
     print(json.dumps(summary), flush=True)
     print(card_line(), flush=True)
@@ -915,6 +932,171 @@ def time_flash_kernels(torch, dev, spec, errs, flash) -> list:
         })
     log("phase 13 passed: B4 and B9 timed at the path and long shapes")
     return summary
+
+# ------------------------------------------------ reference-benchmark slice
+def _bcsr_case(torch, gen, k, n, r, c, keep, non_zero, dev):
+    """A block-sparse ternary (K, N) matrix, its prepared BCSR, and a bias."""
+    from smmb_tpu_torch.formats.bcsr import bcsr_from_dense
+    from smmb_tpu_torch.kernels.bcsr_spmm import bcsr_prepare
+    from smmb_tpu_torch.utils import rng
+
+    w = rng.rand_block_ternary(gen, (k, n), block=(r, c), keep=keep, non_zero=non_zero)
+    prep = bcsr_prepare(bcsr_from_dense(w, r, c, device=dev), device=dev)
+    return w, prep, rng.rand_dense(gen, (n,))
+
+
+# B2's shapes: (label, M, K, N, r, c, keep, non_zero, block_m)
+BCSR_SHAPES = [
+    ("test 8x128 blocks", 16, 512, 512, 8, 128, 0.3, 2, 256),
+    ("128x128 blocks, M=100", 100, 512, 1024, 128, 128, 0.4, 2, 256),
+    ("M=140, block_m=64", 140, 256, 512, 8, 128, 0.3, 2, 64),
+    ("showcase 256x1024x4096", 256, 1024, 4096, 128, 128, 1.0, 2, 256),
+    ("block-sparse 256x4096x4096", 256, 4096, 4096, 128, 128, 0.3, 10, 256),
+]
+
+
+def check_bcsr_kernel(torch, dev) -> dict:
+    """Phase 14. Returns {(label, dtype): max abs error with bias and PReLU}."""
+    from smmb_tpu_torch.formats.bcsr import bcsr_from_dense
+    from smmb_tpu_torch.kernels.bcsr_spmm import (
+        bcsr_prepare,
+        bcsr_spmm_kernel,
+        bcsr_spmm_kernel_plain,
+    )
+    from smmb_tpu_torch.utils import rng
+
+    # tolerances, relative to max(1, max|Y|): f32 1e-4 (exact products
+    # summed in f32 in another order than the plain version's product);
+    # bf16 2**-7 (the same f32 sums rounded once to bf16 differ by at most
+    # one bf16 ulp)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+    gen = rng.make_generator(55, dev)
+    errs = {}
+    for label, m, k, n, r, c, keep, nz, block_m in BCSR_SHAPES:
+        _, prep, b = _bcsr_case(torch, gen, k, n, r, c, keep, nz, dev)
+        check(prep.k > 0, f"B2 {label}: no stored block")
+        for dt in (torch.float32, torch.bfloat16):
+            x = rng.rand_dense(gen, (m, k), dtype=dt)
+            for bias, alpha in ((b, ALPHA), (None, None)):
+                what = f"{label} {dt} bias={bias is not None}"
+                before = bcsr_spmm_kernel.launches
+                y = bcsr_spmm_kernel(x, prep, bias, alpha, block_m=block_m)
+                check(bcsr_spmm_kernel.launches == before + 1, f"B2 launch count {what}")
+                err = _held(torch, "B2", y, bcsr_spmm_kernel_plain(x, prep, bias, alpha),
+                            tol[dt], what)
+                if bias is not None:
+                    errs[(label, dt)] = err
+                for resident in (True, False):
+                    again = bcsr_spmm_kernel(x, prep, bias, alpha, block_m=block_m,
+                                             x_resident=resident)
+                    torch.cuda.synchronize()
+                    check(torch.equal(again, y), f"B2 x_resident={resident} != default {what}")
+        log(f"B2 == plain at {label} (M={m}, K={k}, N={n}, {r}x{c} blocks, "
+            f"{prep.k} stored) in f32 and bf16; x_resident bitwise")
+    # the empty matrix: no launch, the activated bias
+    prep = bcsr_prepare(bcsr_from_dense(torch.zeros(256, 256), 8, 128, device=dev), device=dev)
+    b = torch.arange(256, dtype=torch.float32, device=dev) - 128.0
+    before = bcsr_spmm_kernel.launches
+    y = bcsr_spmm_kernel(torch.ones(4, 256, device=dev), prep, b, alpha=ALPHA)
+    check(bcsr_spmm_kernel.launches == before, "B2 launched on an empty matrix")
+    check(torch.equal(y, torch.where(b > 0, b, ALPHA * b).expand(4, 256)),
+          "B2 empty matrix gives the activated bias")
+    log("phase 14 passed: B2 agrees with its plain version; the empty matrix "
+        "launches nothing")
+    return errs
+
+
+def run_reference_benchmark(torch, dev) -> dict:
+    """Phase 15: the showcase (counted), a sweep slice, the capacity case."""
+    import dataclasses
+
+    from smmb_tpu_torch.bench import capacity, sweep
+    from smmb_tpu_torch.kernels.bcsr_spmm import bcsr_spmm_kernel
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+
+    def held(results, what):
+        for r in results:
+            row = dataclasses.asdict(r)
+            print(json.dumps({"bench": what, **row}), flush=True)
+            check(r.valid and r.time_s == r.time_s and r.time_s > 0,
+                  f"{what}: row {r.case} {r.kernel} invalid or untimed")
+
+    counted = (bcsr_spmm_kernel, packed_spmm)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    t = time.time()
+    results = sweep.run_showcase()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"showcase: {len(results)} rows in {time.time() - t:.1f}s, launches {launches}")
+    held(results, "showcase")
+    cases = [f"{m}x{k}x{n}@0.50" for m, k, n in sweep.SHOWCASE_CASES]
+    for case in cases:
+        names = {r.kernel for r in results if r.case == case}
+        check("bcsr_kernel" in names, f"showcase {case} has no bcsr_kernel row")
+    check(all(v > 0 for v in launches.values()), f"showcase launches {launches}")
+    showcase_b2 = {r.case: r for r in results if r.kernel == "bcsr_kernel"}
+
+    t = time.time()
+    held(sweep.run_sweep(ms=[64], ks=[1024], ns=[2048], reps=3), "sweep")
+    log(f"sweep slice (64x1024x2048 at 1/2, 1/8, 1/16) in {time.time() - t:.1f}s")
+
+    t = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    held(capacity.run_capacity_case(64000, 16384, 4096, 2), "capacity")
+    stats = capacity.hbm_stats()
+    log(f"capacity 64000x16384x4096@1/2 in {time.time() - t:.1f}s; {stats}")
+    log("phase 15 passed: the showcase, a sweep slice and the capacity case, "
+        "every row valid and timed")
+    return {"launches": launches, "showcase_b2": showcase_b2}
+
+
+def time_bcsr_kernel(torch, dev, spec, errs, reference) -> list:
+    """Phase 16: B2 at the showcase's largest case and the block-sparse shape."""
+    from smmb_tpu_torch.bench.measure import measure
+    from smmb_tpu_torch.bench.roofline import roofline_bound
+    from smmb_tpu_torch.kernels.bcsr_spmm import bcsr_spmm_kernel, bcsr_spmm_kernel_plain
+    from smmb_tpu_torch.utils import rng
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = rng.make_generator(8, dev)
+    rows = []
+    for label, m, k, n, r, c, keep, nz, _ in BCSR_SHAPES[3:]:
+        w, prep, b = _bcsr_case(torch, gen, k, n, r, c, keep, nz, dev)
+        nnz = int(torch.count_nonzero(w))
+        for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = rng.rand_dense(gen, (m, k), dtype=dt)
+            t_k = measure(lambda: bcsr_spmm_kernel(x, prep, b, ALPHA))
+            t_p = measure(lambda: bcsr_spmm_kernel_plain(x, prep, b, ALPHA))
+            wd = w.to(dt)
+            t_l = measure(torch.matmul, x, wd)
+            out = bcsr_spmm_kernel(x, prep, b, ALPHA)
+            n_bytes = sum(t.numel() * t.element_size()
+                          for t in (x, prep.values, prep.blk_row, prep.col_start, b, out))
+            ops = 2.0 * m * nnz  # the ±1 entries this data holds, per row
+            bound, by = roofline_bound(ops, n_bytes, spec, name)
+            rows.append({"kernel": "B2 bcsr_spmm_kernel", "shape": label, "dtype": name,
+                         "stored_blocks": prep.k, "nnz": nnz, "ms": t_k.min_s * 1e3,
+                         "mean_ms": t_k.mean_s * 1e3, "plain_ms": t_p.min_s * 1e3,
+                         "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes,
+                         "ops": ops, "executed_ops": 2.0 * m * prep.k * r * c,
+                         "library_ms": t_l.min_s * 1e3,
+                         "library": f"torch.matmul {name} on the dense W"
+                                    + (" (TF32 off)" if name == "f32" else "")})
+            print(json.dumps(rows[-1]), flush=True)
+    main_row = rows[0]  # the showcase's largest case in f32, as the showcase runs it
+    log("phase 16 passed: B2 timed at the showcase and block-sparse shapes")
+    return [{
+        "name": "bcsr_spmm_kernel", "route": "cuda",
+        "source": "smmb_tpu_torch/kernels/csrc/bcsr_spmm.cu",
+        "replaces": "smmb_tpu/kernels/bcsr_spmm.py:260",
+        "launches": reference["launches"]["bcsr_spmm_kernel"],
+        "max_abs_err": errs[("showcase 256x1024x4096", torch.float32)],
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"],
+    }]
 
 
 if __name__ == "__main__":

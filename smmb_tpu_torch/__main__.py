@@ -1,6 +1,13 @@
-"""CLI: ``python -m smmb_tpu_torch {mlp,headline,lm,decode}`` — runs on the
-CUDA card.
+"""CLI: ``python -m smmb_tpu_torch
+{showcase,sweep,capacity,mlp,headline,lm,decode}`` — runs on the CUDA card.
 
+- ``showcase`` (the default) and ``sweep``: the reference
+  benchmark, every format and kernel row validated against the dense oracle,
+  then timed (bench/sweep.py; ``--csv``, ``--plot``, ``--iters``,
+  ``--reps``, ``--seed``, ``--kernels``, ``--cases``, ``--config``);
+- ``capacity``: the reference's original full-size grid with streamed M
+  tiles through B1 (bench/capacity.py; ``--bm``, ``--max-m``,
+  ``--non-zeros``, ``--reps``, ``--csv``, ``--plot``);
 - ``mlp``: the packed MLP serving benchmark (bench/mlp_bench.py);
 - ``headline``: the packed SpMM headline JSON line (bench/headline.py);
 - ``lm``: the ternary LM's ``generate``, µs/token (bench/lm_bench.py;
@@ -14,9 +21,17 @@ import sys
 
 def main():
     args = sys.argv[1:]
-    mode = args[0] if args else ""
+    mode = args[0] if args else "showcase"
     rest = args[1:]
-    if mode == "mlp":
+    if mode in ("showcase", "sweep"):
+        from smmb_tpu_torch.bench.sweep import main as sweep_main
+
+        sys.exit(sweep_main([mode] + rest))
+    elif mode == "capacity":
+        from smmb_tpu_torch.bench.capacity import main as capacity_main
+
+        sys.exit(capacity_main(rest))
+    elif mode == "mlp":
         from smmb_tpu_torch.bench.mlp_bench import main as mlp_main
 
         mlp_main(rest)

@@ -32,8 +32,12 @@ class Measurement:
     reps: int
 
 
-def measure(fn, *args, reps: int = DEFAULT_REPS) -> Measurement:
-    """Per-call device time of ``fn(*args)`` on the current CUDA device."""
+def measure(fn, *args, reps: int = DEFAULT_REPS, calls: int | None = None) -> Measurement:
+    """Per-call device time of ``fn(*args)`` on the current CUDA device.
+
+    ``calls`` fixes the calls per timed batch (the counterpart of JAX's
+    ``iters``, the length of its device loop); None calibrates it.
+    """
     if not torch.cuda.is_available():
         raise RuntimeError("measure() times the CUDA card and there is none")
 
@@ -52,12 +56,14 @@ def measure(fn, *args, reps: int = DEFAULT_REPS) -> Measurement:
         fn(*args)
     torch.cuda.synchronize()
 
-    calls = 1
-    while True:
-        t = run_batch(calls)
-        if t >= MIN_BATCH_S or calls >= 1 << 20:
-            break
-        calls = max(calls * 2, int(calls * MIN_BATCH_S / max(t, 1e-9)) + 1)
+    if calls is not None and calls < 1:
+        raise ValueError(f"calls={calls} must be at least 1")
+    n = 1
+    while calls is None:
+        t = run_batch(n)
+        if t >= MIN_BATCH_S or n >= 1 << 20:
+            calls = n
+        n = max(n * 2, int(n * MIN_BATCH_S / max(t, 1e-9)) + 1)
 
     times = np.array([run_batch(calls) / calls for _ in range(reps)])
     return Measurement(

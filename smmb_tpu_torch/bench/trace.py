@@ -1,6 +1,7 @@
 """Where the device time goes (counterpart of smmb_tpu/bench/trace.py):
-``torch.profiler`` over a short steady window, for the packed MLP forward
-or, with ``--lm``, one decode step of the ternary LM.
+``torch.profiler`` over a short steady window, for the packed MLP forward,
+with ``--lm`` one decode step of the ternary LM, or with ``--showcase``
+every row of the reference showcase.
 
 Reports, per call: the device time and launch count of each kernel by
 name, their sum, the call's time between CUDA events (bench/measure.py)
@@ -10,6 +11,7 @@ without the profiler.
 
 CLI: python -m smmb_tpu_torch.bench.trace [--depth 4] [--dim 4096] [--batch 256]
      python -m smmb_tpu_torch.bench.trace --lm [lm flags of bench/lm_bench.py]
+     python -m smmb_tpu_torch.bench.trace --showcase
 The ``--lm`` step is ``lm_decode_step`` at position ``prompt_len`` of a
 prefilled bf16 cache, at the configuration of ``python -m smmb_tpu_torch lm``;
 with ``--flash`` its cache reads are the flash-decode kernel B4.
@@ -86,16 +88,48 @@ def report(fn, label: dict, *args) -> dict:
     return summary
 
 
+def showcase_breakdown(cases=None, seed: int = 0) -> list[dict]:
+    """One line per showcase row (the inputs of ``run_case`` at ``seed``):
+    its call time between CUDA events, the device time and launches of its
+    kernels, the busy share and the kernel that takes the most time."""
+    from smmb_tpu_torch.bench.sweep import SHOWCASE_CASES, _kernels_for_case
+    from smmb_tpu_torch.utils import rng
+
+    out = []
+    for m, k, n in cases or SHOWCASE_CASES:
+        gen = rng.make_generator(seed, "cuda")
+        x = rng.rand_dense(gen, (m, k))
+        w = rng.rand_ternary(gen, (k, n), non_zero=2)
+        b = rng.rand_dense(gen, (n,))
+        rows, _ = _kernels_for_case(x, w.cpu().numpy(), b, True)
+        for name, fn, args, _, _ in rows:
+            call_us = measure(fn, *args, reps=3).min_s * 1e6
+            kernels = kernel_breakdown(fn, *args)
+            kernel_us = sum(r["us"] for r in kernels)
+            line = {"case": f"{m}x{k}x{n}", "row": name, "call_us": call_us,
+                    "kernel_us": kernel_us,
+                    "launches": sum(r["launches"] for r in kernels),
+                    "busy_share": kernel_us / call_us,
+                    "top": kernels[0]["name"][:60] if kernels else None}
+            print(json.dumps(line), flush=True)
+            out.append(line)
+    return out
+
+
 def main(argv=None):
     from smmb_tpu_torch.bench.lm_bench import parser
 
     ap = parser()
     ap.description = __doc__
     ap.add_argument("--lm", action="store_true", help="one LM decode step")
+    ap.add_argument("--showcase", action="store_true", help="every showcase row")
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--dim", type=int, default=4096)
     ap.set_defaults(batch=None)  # 1 for --lm, 256 for the MLP
     args = ap.parse_args(argv)
+    if args.showcase:
+        showcase_breakdown()
+        return
     if args.batch is None:
         args.batch = 1 if args.lm else 256
     if args.lm:

@@ -1,18 +1,23 @@
 """Carry parameters from the JAX package into the port.
 
 The JAX package's parameters arrive as numpy arrays (``np.asarray`` of each
-leaf) or as objects with the ``TernaryPacked`` fields; this module never
-imports JAX. With these, both packages compute the same thing on the same
-arrays, and a plane packed by either serves in the other (the packed bytes
-are identical).
+leaf) or as objects with the fields of a format (``TernaryPacked``,
+``TCSC``, ``BCSR``, ``BCSRPrepared``); this module never imports JAX. With
+these, both packages compute the same thing on the same arrays, and a
+matrix built by either serves in the other (the arrays are identical).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from smmb_tpu_torch.formats.bcsr import BCSR
 from smmb_tpu_torch.formats.packed import TernaryPacked
+from smmb_tpu_torch.formats.tcsc import TCSC
+from smmb_tpu_torch.kernels.bcsr_spmm import BCSRPrepared, col_starts
 from smmb_tpu_torch.utils.device import resolve_device
 
 
@@ -89,3 +94,42 @@ def packed_lm_from_jax(packed, device=None) -> dict:
     ``w_down``) and the head keep their int8 words; scales, biases, norms
     and embeddings become f32 tensors on ``device``."""
     return _tree_from_jax(packed, resolve_device(device))
+
+
+def _fields(obj, cls, dev, dtypes: dict):
+    """The dataclass ``cls`` from ``obj``'s same-named fields: arrays become
+    tensors on ``dev`` in ``dtypes[name]``, the rest ints."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name in dtypes:
+            kw[f.name] = _tensor(np.asarray(getattr(obj, f.name)), dev, dtypes[f.name])
+        elif hasattr(obj, f.name):
+            kw[f.name] = int(getattr(obj, f.name))
+    return kw
+
+
+def tcsc_from_jax(t, device=None) -> TCSC:
+    """A JAX ``TCSC`` (or anything with its fields) → the port's, on
+    ``device`` (None = the CUDA card); the index planes stay int32."""
+    i32 = torch.int32
+    return TCSC(**_fields(t, TCSC, resolve_device(device), {
+        "col_start_pos": i32, "col_start_neg": i32,
+        "row_index_pos": i32, "row_index_neg": i32}))
+
+
+def bcsr_from_jax(m, device=None) -> BCSR:
+    """A JAX ``BCSR`` → the port's, on ``device`` (f32 block values)."""
+    return BCSR(**_fields(m, BCSR, resolve_device(device), {
+        "b_row_start": torch.int32, "b_col_idx": torch.int32,
+        "b_values": torch.float32}))
+
+
+def bcsr_prepared_from_jax(p, device=None) -> BCSRPrepared:
+    """A JAX ``BCSRPrepared`` → the port's, on ``device``; the port's own
+    ``col_start`` is derived from ``blk_col``."""
+    dev = resolve_device(device)
+    kw = _fields(p, BCSRPrepared, dev, {
+        "blk_row": torch.int32, "blk_col": torch.int32, "values": torch.int8,
+        "col_has_blocks": torch.float32})
+    cs = col_starts(np.asarray(p.blk_col), int(p.k), int(p.cols) // int(p.c))
+    return BCSRPrepared(**kw, col_start=_tensor(cs, dev, torch.int32))

@@ -24,7 +24,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("packed_spmm.cu", "fused_mlp.cu", "flash_decode.cu", "flash_attention.cu")
+SOURCES = (
+    "packed_spmm.cu", "fused_mlp.cu", "flash_decode.cu", "flash_attention.cu",
+    "bcsr_spmm.cu",
+)
 
 
 def nvcc_path() -> str:
@@ -104,6 +107,17 @@ def packed_spmm_lib() -> ctypes.CDLL:
         _P, _P, _P, _P, _P,  # x, w, bias, scale, out
         _I, _I, _I, _I,  # m, k, n, kp
         _I, _I, _I, _F,  # x_mode, out_bf16, has_alpha, alpha
+        _P,  # stream
+    ]})
+
+
+@functools.cache
+def bcsr_spmm_lib() -> ctypes.CDLL:
+    """``bcsr_spmm.cu`` (B2)."""
+    return _load("bcsr_spmm.cu", {"smmb_bcsr_spmm": [
+        _P, _I, _P, _P, _P, _P, _P,  # x, x_bf16, values, blk_row, col_start, bias, out
+        _I, _I, _I, _I, _I,  # m, k, n, r, c
+        _I, _F,  # has_alpha, alpha
         _P,  # stream
     ]})
 

@@ -45,3 +45,17 @@ def rand_ternary(
         torch.where(u < p_one + p_zero, 0.0, 1.0),
     )
     return out.to(dtype)
+
+
+def rand_block_ternary(
+    gen: torch.Generator, shape, block=128, keep: float = 0.3, non_zero: int = 10,
+) -> torch.Tensor:
+    """Block-sparse ternary matrix: each block (``block`` = r or (r, c)) is
+    kept with probability ``keep`` and holds ``rand_ternary(non_zero)``
+    entries; the others are zero (the block-sparse workload of
+    smmb_tpu/bench/scaling.py:97-103 at 128×128, keep 0.3, 1/10)."""
+    r, c = (block, block) if isinstance(block, int) else block
+    k, n = shape
+    w = rand_ternary(gen, shape, non_zero=non_zero)
+    mask = (_uniform(gen, (k // r, n // c)) < keep).to(w.dtype)
+    return w * mask.repeat_interleave(r, 0).repeat_interleave(c, 1)

@@ -11,15 +11,19 @@ Tolerances, relative to max(1, max|Y|): f32 1e-4 (f32 sums in another
 order); bf16 compute with f32 X and Y 1e-5 (the same bf16 values summed in
 f32 in another order); int8 1e-6 (same codes, exact int32 sums, the same
 separately rounded epilogue). The fused kernels (B3, B5, B6) and the flash
-kernels (B4, B9): f32 1e-4 and bf16 2**-7 (a staged value can round to the
-neighbouring bf16).
+kernels (B4, B9) and the BCSR kernel (B2): f32 1e-4 and bf16 2**-7 (a staged
+value, or B2's f32 sum rounded once to bf16, can round to the neighbouring
+bf16).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from smmb_tpu_torch.bench import sweep as tsweep
+from smmb_tpu_torch.formats.bcsr import bcsr_from_dense
 from smmb_tpu_torch.formats.packed import pack_ternary
+from smmb_tpu_torch.kernels import bcsr_spmm as bk
 from smmb_tpu_torch.kernels import flash_attention as fa
 from smmb_tpu_torch.kernels import flash_decode as fd
 from smmb_tpu_torch.kernels import fused_mlp as fk
@@ -264,3 +268,60 @@ def test_generate_flash_launch_counts_and_tokens(cuda):
     assert [fn.launches for fn in counted] == [6 * 2 + 1 + 5, 2 * 5, 2 * 5, 2, 2, 2 * 5]
     plain = tlm.generate(packed, prompt, cfg, 5, use_kernel=False)
     assert torch.equal(toks, plain)
+
+
+def _bcsr_case(seed, m, k, n, r, c, keep, dt, dev):
+    gen = rng.make_generator(seed, dev)
+    w = rng.rand_block_ternary(gen, (k, n), block=(r, c), keep=keep, non_zero=2)
+    prep = bk.bcsr_prepare(bcsr_from_dense(w, r, c, device=dev), device=dev)
+    return rng.rand_dense(gen, (m, k), dtype=dt), w, prep, rng.rand_dense(gen, (n,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,r,c,keep,block_m", [
+    (16, 512, 512, 8, 128, 0.3, 256), (100, 512, 1024, 128, 128, 0.4, 256),
+    (140, 256, 512, 8, 128, 0.3, 64), (3, 512, 512, 4, 256, 0.5, 256),
+    (256, 1024, 4096, 128, 128, 1.0, 256),
+])
+def test_bcsr_kernel_matches_plain(cuda, dt, m, k, n, r, c, keep, block_m):
+    x, _, prep, b = _bcsr_case(m + k, m, k, n, r, c, keep, dt, cuda)
+    assert prep.k > 0
+    for bias, alpha in ((b, ALPHA), (None, None)):
+        before = bk.bcsr_spmm_kernel.launches
+        y = bk.bcsr_spmm_kernel(x, prep, bias, alpha, block_m=block_m)
+        assert bk.bcsr_spmm_kernel.launches == before + 1
+        ref = bk.bcsr_spmm_kernel_plain(x, prep, bias, alpha)
+        torch.cuda.synchronize()
+        assert y.shape == (m, n) and y.dtype == dt
+        assert_close(y.float(), ref.float(),
+                     FUSED_TOL[dt] * max(1.0, float(ref.float().abs().max())), "B2")
+        for resident in (True, False):
+            assert torch.equal(y, bk.bcsr_spmm_kernel(x, prep, bias, alpha, block_m=16,
+                                                      x_resident=resident))
+
+
+@pytest.mark.cuda
+def test_bcsr_kernel_empty_and_bad_inputs(cuda):
+    prep = bk.bcsr_prepare(bcsr_from_dense(torch.zeros(256, 256), 8, 128, device=cuda),
+                           device=cuda)
+    b = torch.arange(256, dtype=torch.float32, device=cuda) - 128.0
+    before = bk.bcsr_spmm_kernel.launches
+    y = bk.bcsr_spmm_kernel(torch.ones(4, 256, device=cuda), prep, b, ALPHA)
+    assert bk.bcsr_spmm_kernel.launches == before
+    assert torch.equal(y, torch.where(b > 0, b, ALPHA * b).expand(4, 256))
+    x, _, prep, b = _bcsr_case(1, 4, 256, 256, 8, 128, 1.0, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        bk.bcsr_spmm_kernel(x.half(), prep, b)
+    with pytest.raises(ValueError):
+        bk.bcsr_spmm_kernel(x, prep, b[:100])
+    with pytest.raises(ValueError):
+        bk.bcsr_spmm_kernel(x[:, :128], prep, b)
+
+
+@pytest.mark.cuda
+def test_run_case_on_the_card_times_every_row(cuda):
+    rows = tsweep.run_case(16, 512, 2048, 2, reps=2)
+    names = [r.kernel for r in rows]
+    assert "bcsr_kernel" in names and "packed_kernel_w2a8_prelu" in names
+    assert all(r.valid and np.isfinite(r.time_s) and r.time_s > 0 for r in rows)

@@ -14,9 +14,14 @@ import pytest
 import torch
 
 from smmb_tpu_torch import convert
+from smmb_tpu_torch import io as tio
 from smmb_tpu_torch.bench import mlp_bench
+from smmb_tpu_torch.bench import sweep as tsweep
+from smmb_tpu_torch.formats import bcsr as tbcsr
 from smmb_tpu_torch.formats import packed as tpacked
+from smmb_tpu_torch.formats import tcsc as ttcsc
 from smmb_tpu_torch.kernels import _build
+from smmb_tpu_torch.kernels import bcsr_spmm as tbk
 from smmb_tpu_torch.models import mlp as tmlp
 from smmb_tpu_torch.nn import PackedTernaryDense
 from smmb_tpu_torch.utils import rng
@@ -59,10 +64,15 @@ def test_imports_no_jax_and_no_smmb_tpu():
                                 compute_dtype=cdt)
             assert y.shape == (4, 32)
         assert packed_spmm.launches == 0, packed_spmm.launches
+        from smmb_tpu_torch.bench.sweep import run_case
+        from smmb_tpu_torch.kernels.bcsr_spmm import bcsr_spmm_kernel
+        rows = run_case(2, 128, 128, 2, reps=1, device="cpu", use_kernels=True)
+        assert "bcsr_kernel" in [r.kernel for r in rows] and all(r.valid for r in rows)
+        assert bcsr_spmm_kernel.launches == 0 and packed_spmm.launches == 0
         print("modules", len(names))
     """)
     assert r.returncode == 0, r.stderr[-2000:]
-    assert int(r.stdout.split()[-1]) >= 20
+    assert int(r.stdout.split()[-1]) >= 43
 
 
 @pytest.fixture
@@ -87,9 +97,15 @@ def test_resolve_device(no_cuda):
         lambda: convert.mlp_params_from_jax(
             {"w": [np.ones((2, 2), np.float32)], "b": [np.zeros(2, np.float32)]}),
         lambda: mlp_bench.run_mlp_bench(1, 64, 4, reps=1),
+        lambda: ttcsc.tcsc_from_dense(np.eye(4, dtype=np.float32)),
+        lambda: tbk.bcsr_prepare(tbcsr.bcsr_from_dense(np.eye(8, 128, dtype=np.float32),
+                                                       8, 128, device="cpu")),
+        lambda: tsweep.run_case(1, 128, 128, 2, reps=1),
+        lambda: tio.load("no_such_file.npz"),
     ],
     ids=["make_generator", "pack_ternary", "PackedTernaryDense",
-         "mlp_params_from_jax", "run_mlp_bench"],
+         "mlp_params_from_jax", "run_mlp_bench", "tcsc_from_dense", "bcsr_prepare",
+         "run_case", "io_load"],
 )
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
