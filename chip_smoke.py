@@ -58,7 +58,26 @@ which exits non-zero on failure:
     as JSON lines and the peak device memory;
 16. times of B2 at the showcase's largest case and the block-sparse shape,
     f32 and bf16: kernel, plain version, bound, and ``torch.matmul`` on the
-    dense W.
+    dense W;
+17. the int8 cache's kernels against their plain versions in f32 and bf16:
+    B7 (norm + QKV with the int8 K/V epilogue) at the LM shape, at GQA
+    (N = 1536) and at hd 256 (a head across two column tiles), its q bitwise
+    B3's, its codes and scales bitwise the plain quantize of B3's f32 output
+    (within 1 code of a bf16 output's), row 0 of M = 8 bitwise M = 1; B8
+    (flash decode / chunk over the int8 cache) at the path shape, GQA, a
+    window and B = 4, chunk rows (C = 4) bitwise the decode rows and batch
+    rows the rows served alone, and within 2e-2 of B4 on the dequantized
+    cache; each call raising its launch count by one;
+18. the int8 LM path at the ``lm`` defaults: ``generate(kv_quant=True,
+    use_flash=True)`` and ``generate(kv_quant=True)`` with every kernel's
+    launch count, their teacher-forced logits against the same routing with
+    plain versions, ``lm_prefill_chunked`` (B7, B8's chunk entry) against
+    the plain routing, ``block_extend`` (C = 4) bitwise per row against
+    four decode steps, µs/token of ``lm --kv-quant`` with and without
+    ``--flash``, and the traced int8 decode step;
+19. times of B7 and B8 at the path shapes and B8 at pos 8191: kernel, plain
+    version, bound, ``torch.matmul`` on the dense Wqkv (B7) and
+    ``scaled_dot_product_attention`` on the dequantized bf16 cache (B8).
 
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
@@ -297,6 +316,9 @@ def main() -> int:
     bcsr_err = check_bcsr_kernel(torch, dev)
     reference = run_reference_benchmark(torch, dev)
     bcsr_rows = time_bcsr_kernel(torch, dev, spec, bcsr_err, reference)
+    int8_err = check_int8_kernels(torch, dev)
+    int8 = run_int8_lm_path(torch, dev, lm)
+    int8_rows = time_int8_kernels(torch, dev, spec, int8_err, int8)
 
     main_mode = per_mode["bf16"]  # the main path's mode and per-layer shape
     summary = {"kernels": [{
@@ -311,7 +333,7 @@ def main() -> int:
         "bound_ms": main_mode["bound_ms"],
         "bound_by": main_mode["bound_by"],
         "library_ms": main_mode["library_ms"],
-    }, *bcsr_rows, *fused_rows, *flash_rows]}
+    }, *bcsr_rows, *fused_rows, *flash_rows, *int8_rows]}
     log(f"all phases passed in {time.time() - T0:.1f}s")
     print(json.dumps(summary), flush=True)
     print(card_line(), flush=True)
@@ -515,25 +537,44 @@ def run_lm_path(torch, dev) -> dict:
     return {"launches": launches, "cfg": cfg, "packed": packed, "prompt": prompt}
 
 
-def _teacher_forced(torch, cfg, packed, prompt, ids, cdt, use_kernel, use_flash=False):
-    """(steps, vocab) f32 logits of lm_prefill then lm_decode_step on ``ids``."""
+def _teacher_forced(torch, cfg, packed, prompt, ids, cdt, use_kernel, use_flash=False,
+                    kv_quant=False, caches=None):
+    """(steps, vocab) f32 logits of lm_prefill then lm_decode_step on ``ids``
+    (the final caches appended to ``caches`` when it is a list)."""
     from smmb_tpu_torch.models.lm import lm_decode_step, lm_init_cache, lm_prefill
 
     kw = dict(compute_dtype=cdt, use_kernel=use_kernel, use_flash=use_flash)
-    cache = lm_init_cache(cfg, prompt.shape[0], dtype=cdt, device=prompt.device)
+    cache = lm_init_cache(cfg, prompt.shape[0], dtype=cdt, quantized=kv_quant,
+                          device=prompt.device)
     logits, cache = lm_prefill(packed, prompt, cache, cfg, **kw)
     out = [logits]
     for i in range(ids.shape[1] - 1):
         logits, cache = lm_decode_step(packed, ids[:, i], cache, cfg, **kw)
         out.append(logits)
     torch.cuda.synchronize()
+    if caches is not None:
+        caches.append(cache)
     return torch.stack(out, 1)[0].float()
+
+
+INT8_REL = 2e-2  # the int8 cache's relative error bound (tests/test_kv_quant.py)
+
+
+def _code_steps(torch, got, want) -> int:
+    """Codes that differ between two int8 LM caches. Layer 0 sees the same
+    embeddings on both paths, so each of its codes may differ by one step
+    at most (checked): a value whose f32 sums, taken in two orders, fall on
+    either side of a rounding edge. Later layers see the upstream
+    difference as well."""
+    d0 = (got[0]["kv"].int() - want[0]["kv"].int()).abs()
+    check(int(d0.max()) <= 1, f"layer 0's int8 caches differ by {int(d0.max())} codes")
+    return sum(int((g["kv"] != w["kv"]).sum()) for g, w in zip(got, want))
 
 
 @contextlib.contextmanager
 def plain_kernels():
     """The LM path's kernels replaced by their plain versions, for the
-    reference runs of phases 8 and 12 (the wrappers themselves launch on any
+    reference runs of phases 8, 12 and 18 (the wrappers themselves launch on any
     CUDA tensor); the launch counts do not move."""
     from smmb_tpu_torch.kernels import flash_attention as fa
     from smmb_tpu_torch.kernels import flash_decode as fd
@@ -545,9 +586,11 @@ def plain_kernels():
         return lambda *a, block_h=None, block_n=None, **k: fn(*a, **k)
 
     swaps = [(fk, n, plain_of(getattr(fk, n + "_plain")))
-             for n in ("fused_norm_qkv", "fused_block_tail", "fused_mlp")]
+             for n in ("fused_norm_qkv", "fused_norm_qkv_quant", "fused_block_tail",
+                       "fused_mlp")]
     swaps += [(fd, n, getattr(fd, n + "_plain"))
-              for n in ("flash_attention_decode", "flash_attention_chunk")]
+              for n in ("flash_attention_decode", "flash_attention_chunk",
+                        "flash_attention_decode_quant", "flash_attention_chunk_quant")]
     swaps += [(fa, "flash_attention", fa.flash_attention_plain)]
     swaps += [(m, "packed_spmm", packed_spmm_plain) for m in (attention, transformer, lm)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -1097,6 +1140,370 @@ def time_bcsr_kernel(torch, dev, spec, errs, reference) -> list:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
     }]
+
+
+# ------------------------------------------------------ int8-cache slice
+# B7: (label, M, d, KVH, hd); N = d + 2·KVH·hd
+QUANT_QKV_SHAPES = [
+    ("lm path", 1, 1024, 8, 128), ("GQA 8/2", 1, 1024, 2, 128), ("hd 256", 1, 1024, 4, 256),
+    ("M=8", 8, 1024, 8, 128),
+]
+# B8: (label, B, H, KVH, S, pos, window); hd 128
+QUANT_DECODE_SHAPES = [
+    ("lm path", 1, 8, 8, 224, 95, None), ("GQA 8/2", 1, 8, 2, 1024, 512, None),
+    ("window 64", 1, 8, 8, 1024, 512, 64), ("B=4", 4, 8, 8, 1024, 512, None),
+]
+
+
+def _b7_inputs(torch, gen, m, d, kvh, hd, dev, x_dtype=None):
+    args = _fused_inputs(torch, gen, "fused_norm_qkv", m, d, d + 2 * kvh * hd, dev, x_dtype)
+    return args, dict(eps=1e-6, d_model=d, kv_heads=kvh, head_dim=hd)
+
+
+def _int8_cache(torch, gen, b, s, kvh, n, dev):
+    """An int8 cache of S slots with the first n written by the port's own
+    post-hoc quantize from random f32 k and v."""
+    from smmb_tpu_torch.models import attention
+    from smmb_tpu_torch.utils import rng
+
+    cfg = attention.TernaryAttentionConfig(d_model=kvh * 128, n_heads=kvh)
+    cache = attention.init_kv_cache(cfg, b, s, quantized=True, device=dev)
+    k = rng.rand_dense(gen, (b, n, kvh, 128))
+    v = rng.rand_dense(gen, (b, n, kvh, 128))
+    return attention._cache_write(cache, k, v, 0)
+
+
+def check_int8_kernels(torch, dev) -> dict:
+    """Phase 17. Returns the max abs errors at the path shapes (bf16)."""
+    from smmb_tpu_torch.kernels import flash_decode as fd
+    from smmb_tpu_torch.kernels import fused_mlp as fk
+    from smmb_tpu_torch.models import attention
+    from smmb_tpu_torch.utils import rng
+
+    # tolerances as phases 6 and 10, relative to max(1, max|Y|): f32 1e-4,
+    # bf16 2**-7; B7's codes within 1 of the plain version's (its y's f32
+    # sums run in another order, which can move a value across a .5) and its
+    # scales within 1e-5 relative; B8 within 2e-2 relative of B4 on the f32
+    # dequantized cache (B8 scales the f32 scores and p, B4 rounds the
+    # dequantized values to the compute dtype)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+    gen = rng.make_generator(171, dev)
+    errs = {}
+    for label, m, d, kvh, hd in QUANT_QKV_SHAPES:
+        for x_dtype in (torch.float32, torch.bfloat16):
+            args, kw = _b7_inputs(torch, gen, m, d, kvh, hd, dev, x_dtype)
+            for cdt in (torch.float32, torch.bfloat16):
+                what = f"{label} x {x_dtype} compute {cdt}"
+                before = fk.fused_norm_qkv_quant.launches
+                q, codes, scales = fk.fused_norm_qkv_quant(*args, compute_dtype=cdt, **kw)
+                check(fk.fused_norm_qkv_quant.launches == before + 1, f"B7 launch count {what}")
+                y = fk.fused_norm_qkv(*args, eps=1e-6, compute_dtype=cdt)
+                pq, pcodes, pscales = fk.fused_norm_qkv_quant_plain(*args, compute_dtype=cdt,
+                                                                    **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(q, y[:, :d]), f"B7 q != B3's columns {what}")
+                want_codes, want_scales = fk.quantize_heads(y, d, kvh, hd)
+                if x_dtype == torch.float32:  # B3's output is its f32 y
+                    check(torch.equal(codes, want_codes) and torch.equal(scales, want_scales),
+                          f"B7 codes/scales != the quantize of B3's f32 y {what}")
+                else:  # B3's output is y rounded to bf16
+                    check(int((codes.int() - want_codes.int()).abs().max()) <= 1,
+                          f"B7 codes beyond 1 of the quantize of B3's bf16 y {what}")
+                q_err = _held(torch, "B7 q", q, pq, tol[cdt], what)
+                check(int((codes.int() - pcodes.int()).abs().max()) <= 1,
+                      f"B7 codes beyond 1 of the plain version {what}")
+                s_err = float((scales - pscales).abs().max())
+                check(s_err <= 1e-5 * float(pscales.abs().max()), f"B7 scales {what}: {s_err:.3e}")
+                deq = float((codes.float() * scales.repeat_interleave(hd, 1)
+                             - pcodes.float() * pscales.repeat_interleave(hd, 1)).abs().max())
+                if (label, x_dtype, cdt) == ("lm path", torch.float32, torch.bfloat16):
+                    errs["fused_norm_qkv_quant"] = max(q_err, deq)
+                if m > 1:
+                    one = fk.fused_norm_qkv_quant(args[0][:1], *args[1:], compute_dtype=cdt, **kw)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a[:1], b) for a, b in zip((q, codes, scales), one)),
+                          f"B7 row 0 of M={m} != M=1 {what}")
+        log(f"B7 == plain at {label} (M={m}, d={d}, KVH={kvh}, hd={hd}) in f32 and bf16; "
+            f"q bitwise B3's, codes bitwise the quantize of B3's f32 y")
+
+    dec = fd.flash_attention_decode_quant
+    for label, b, h, kvh, s, pos, window in QUANT_DECODE_SHAPES:
+        cache = _int8_cache(torch, gen, b, s, kvh, pos + 1, dev)
+        kv, sc = cache["kv"], cache["kv_scale"]
+        kc, vc = (t.reshape(b, s, kvh * 128).contiguous()
+                  for t in attention._cache_kv(cache, kvh))
+        q = rng.rand_dense(gen, (b, 4, h, 128)) * 8.0
+        for cdt in (torch.float32, torch.bfloat16):
+            kw = dict(window=window, compute_dtype=cdt)
+            what = f"{label} pos {pos} {cdt}"
+            before = dec.launches
+            y = dec(q[:, 0], kv, sc, pos, **kw)
+            check(dec.launches == before + 1, f"B8 launch count {what}")
+            err = _held(torch, "B8", y, fd.flash_attention_decode_quant_plain(
+                q[:, 0], kv, sc, pos, **kw), tol[cdt], what)
+            if (label, cdt) == ("lm path", torch.bfloat16):
+                errs["flash_attention_decode_quant"] = err
+            b4 = fd.flash_attention_decode(q[:, 0], kc, vc, pos, **kw)
+            torch.cuda.synchronize()
+            rel = float((y.float() - b4.float()).abs().max()) / max(1.0, float(
+                b4.float().abs().max()))
+            check(rel <= 2e-2, f"B8 vs B4 on the dequantized cache {what}: {rel:.3e}")
+            chunk = fd.flash_attention_chunk_quant(q, kv, sc, pos - 3, **kw)
+            check(dec.launches == before + 2, f"B8 chunk launch count {what}")
+            _held(torch, "B8 chunk", chunk, fd.flash_attention_chunk_quant_plain(
+                q, kv, sc, pos - 3, **kw), tol[cdt], what)
+            for c in range(4):
+                solo = dec(q[:, c], kv, sc, pos - 3 + c, **kw)
+                check(torch.equal(chunk[:, c], solo), f"B8 chunk row {c} != decode {what}")
+            for r in range(b if b > 1 else 0):
+                row = dec(q[r:r + 1, 0], kv[r:r + 1], sc[r:r + 1], pos, **kw)
+                check(torch.equal(y[r:r + 1], row), f"B8 batch row {r} != alone {what}")
+        log(f"B8 == plain at {label}, B={b} H={h} KVH={kvh} S={s} pos={pos} "
+            f"window={window} in f32 and bf16; within 2e-2 of B4; chunk and batch rows "
+            "bitwise")
+    log("phase 17 passed: B7 and B8 agree with their plain versions")
+    return errs
+
+
+def run_int8_lm_path(torch, dev, lm) -> dict:
+    """Phase 18: the int8 LM path at the ``lm`` defaults."""
+    from smmb_tpu_torch.bench.lm_bench import parser, run_lm_bench
+    from smmb_tpu_torch.bench.trace import lm_decode_step_fn, report
+    from smmb_tpu_torch.kernels import flash_attention as fa
+    from smmb_tpu_torch.kernels import flash_decode as fd
+    from smmb_tpu_torch.kernels import fused_mlp as fk
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.lm import generate, lm_init_cache, lm_prefill_chunked
+    from smmb_tpu_torch.models.transformer import (
+        block_decode_step,
+        block_extend,
+        block_prefill,
+        init_block_cache,
+    )
+    from smmb_tpu_torch.utils import rng
+
+    cfg, packed, prompt = lm["cfg"], lm["packed"], lm["prompt"]
+    layers, steps = cfg.n_layers, 64
+    bf16, f32 = torch.bfloat16, torch.float32
+    counted = (packed_spmm, fk.fused_norm_qkv, fk.fused_norm_qkv_quant, fk.fused_block_tail,
+               fk.fused_mlp, fa.flash_attention, fd.flash_attention_decode,
+               fd.flash_attention_decode_quant)
+    out, toks = {}, {}
+    for flash in (True, False):
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        toks[flash] = generate(packed, prompt, cfg, steps, compute_dtype=bf16, kv_quant=True,
+                               use_flash=flash)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        log(f"generate(kv_quant=True, use_flash={flash}): launches {launches}")
+        t = toks[flash]
+        check(t.shape == (1, steps) and int(t.min()) >= 0 and int(t.max()) < cfg.vocab,
+              "int8 generate tokens shape / range")
+        want = {"packed_spmm": 6 * layers + 1 + steps, "fused_norm_qkv": 0,
+                "fused_norm_qkv_quant": layers * steps, "fused_block_tail": layers * steps,
+                "fused_mlp": layers, "flash_attention": layers if flash else 0,
+                "flash_attention_decode": 0,
+                "flash_attention_decode_quant": layers * steps if flash else 0}
+        check(launches == want, f"int8 generate(use_flash={flash}) launches {launches} != "
+              f"{want}")
+        out[flash] = {"launches": launches}
+
+    # teacher-forced logits against the same routing with plain versions,
+    # bounded as in phase 8 by the unfused plain path's spread (here it also
+    # quantizes k and v after their cast to the compute dtype, B7 before).
+    # The quantizer is a step function: where the kernel's and the plain
+    # version's f32 sums straddle a rounding edge, a code differs by one
+    # step, and that step is the int8 cache's own error, which JAX's tests
+    # bound at INT8_REL. The caches are compared code by code (layer 0's,
+    # whose inputs are the same on both paths, to one step), and only a run
+    # whose caches differ is held to that bound.
+    for flash in (True, False):
+        for cdt, tol in ((bf16, 2.0 ** -7), (f32, 1e-4)):
+            ids = toks[flash] if cdt == bf16 else generate(
+                packed, prompt, cfg, steps, compute_dtype=cdt, kv_quant=True, use_flash=flash)
+            caches = []
+            kern = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, True, flash, True,
+                                   caches)
+            with plain_kernels():
+                plain = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, True, flash, True,
+                                        caches)
+                unfused = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, False, flash,
+                                          True)
+            flips = _code_steps(torch, caches[0], caches[1])
+            check(bool(torch.isfinite(kern).all()), "int8 LM logits finite")
+            check(torch.equal(kern.argmax(-1), ids[0]),
+                  "teacher-forced int8 path reproduces generate's tokens")
+            scale = plain.abs().amax(-1).clamp_min(1.0)
+            err = (kern - plain).abs().amax(-1) / scale
+            spread = (unfused - plain).abs().amax(-1) / scale
+            med, worst = float(err.median()), float(err.max())
+            bound = max(tol, float(spread.max()), INT8_REL if flips else 0.0)
+            what = f"int8 LM flash={flash} {cdt}"
+            check(med <= tol, f"{what}: median step error {med:.3e} > {tol:.3e}")
+            check(worst <= bound,
+                  f"{what}: worst step error {worst:.3e} beyond {bound:.3e} (tolerance "
+                  f"{tol:.1e}, plain orders' spread {float(spread.max()):.3e}, {flips} codes "
+                  "differ)")
+            log(f"{what} logits vs plain over {steps} steps: median {med:.2e}, worst "
+                f"{worst:.2e} (spread {float(spread.max()):.2e}, tolerance {tol:.1e}); "
+                f"{flips} of {sum(c['kv'].numel() for c in caches[0])} cache codes differ")
+
+    # chunked prefill over int8 (B7, B8's chunk entry and B5 at M=8) against
+    # the same routing with plain versions, f32
+    def chunked(use_kernel=True):
+        cache = lm_init_cache(cfg, 1, dtype=f32, quantized=True, device=dev)
+        logits, cache = lm_prefill_chunked(packed, prompt, cache, cfg, 8, compute_dtype=f32,
+                                           use_kernel=use_kernel, use_flash=True)
+        return logits[0].float(), cache
+
+    before = (fd.flash_attention_decode_quant.launches, fk.fused_norm_qkv_quant.launches)
+    got, got_cache = chunked()
+    n_chunks = layers * prompt.shape[1] // 8
+    check((fd.flash_attention_decode_quant.launches, fk.fused_norm_qkv_quant.launches)
+          == (before[0] + n_chunks, before[1] + n_chunks),
+          "int8 lm_prefill_chunked runs B7 and B8's chunk entry once per layer per chunk")
+    with plain_kernels():
+        (plain, plain_cache), (unfused, _) = chunked(), chunked(use_kernel=False)
+    flips = _code_steps(torch, got_cache, plain_cache)
+    scale = max(1.0, float(plain.abs().max()))
+    err, spread = float((got - plain).abs().max()) / scale, \
+        float((unfused - plain).abs().max()) / scale
+    bound = max(1e-4, spread, INT8_REL if flips else 0.0)
+    top2 = torch.topk(plain, 2).values
+    check(bool(got.argmax() == plain.argmax()) or float(top2[0] - top2[1]) <= bound * scale,
+          "int8 chunked prefill argmax differs beyond a near tie")
+    check(err <= bound, f"int8 chunked prefill vs plain: {err:.3e} beyond {bound:.3e} "
+          f"(1e-4, the plain orders' spread {spread:.3e}, {flips} codes differ)")
+    log(f"lm_prefill_chunked(8, flash, int8) vs plain, f32: {err:.2e} of max|logits| "
+        f"(spread {spread:.2e}; {flips} cache codes differ)")
+
+    # block_extend with C=4 over int8 against four decode steps: bitwise per row
+    bcfg, blk = cfg.block, packed["blocks"][0]
+    x = rng.rand_dense(rng.make_generator(18, dev), (1, 36, cfg.d_model))
+    for cdt in (f32, bf16):
+        kw = dict(compute_dtype=cdt, use_flash=True)
+        c1 = init_block_cache(bcfg, 1, cfg.max_len, quantized=True, device=dev)
+        _, c1 = block_prefill(blk, x[:, :32], c1, bcfg, **kw)
+        c2 = {**c1, "kv": c1["kv"].clone(), "kv_scale": c1["kv_scale"].clone()}
+        ext, c1 = block_extend(blk, x[:, 32:], c1, bcfg, **kw)
+        for i in range(4):
+            step, c2 = block_decode_step(blk, x[:, 32 + i:33 + i], c2, bcfg, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(ext[:, i], step[:, 0]), f"int8 block_extend row {i} != decode "
+                  f"step ({cdt})")
+        check(torch.equal(c1["kv"], c2["kv"]) and torch.equal(c1["kv_scale"], c2["kv_scale"]),
+              f"int8 block_extend and the decode steps write the same cache ({cdt})")
+    log("int8 block_extend (C=4, flash, f32 and bf16) equals four block_decode_steps "
+        "bitwise per row")
+
+    runs = {}
+    for flash in (False, True, True, False):  # alternating: the host's load drifts
+        r = run_lm_bench(cfg, 1, prompt.shape[1], steps, reps=3, device=dev,
+                         use_flash=flash, kv_quant=True)
+        runs.setdefault(flash, []).append(r.per_token_s * 1e6)
+    for flash in (False, True):
+        args = parser().parse_args(["--kv-quant"] + (["--flash"] if flash else []))
+        tr = report(lm_decode_step_fn(args), {"call": "lm_decode_step", "kv_quant": True,
+                                              "flash": flash, "pos": args.prompt_len})
+        row = {"kv_quant": True, "flash": flash, "lm_us_per_token": runs[flash],
+               "trace_launches": tr["launches"], "trace_call_us": tr["call_us"],
+               "trace_kernel_us": tr["kernel_us"], "trace_busy_share": tr["busy_share"]}
+        print(json.dumps(row), flush=True)
+        out[flash].update(row)
+    log(f"phase 18 passed: int8 flash step {out[True]['trace_launches']:.0f} launches, "
+        f"{out[True]['trace_kernel_us']:.1f} us of device time, busy "
+        f"{out[True]['trace_busy_share']:.3f} (without flash "
+        f"{out[False]['trace_launches']:.0f}, {out[False]['trace_kernel_us']:.1f} us, "
+        f"{out[False]['trace_busy_share']:.3f})")
+    return out
+
+
+def time_int8_kernels(torch, dev, spec, errs, int8) -> list:
+    """Phase 19: B7 at the path shape, B8 at the path shape and pos 8191."""
+    import torch.nn.functional as F
+
+    from smmb_tpu_torch.bench.measure import measure
+    from smmb_tpu_torch.bench.roofline import roofline_bound
+    from smmb_tpu_torch.formats.packed import unpack_ternary
+    from smmb_tpu_torch.kernels import flash_decode as fd
+    from smmb_tpu_torch.kernels import fused_mlp as fk
+    from smmb_tpu_torch.models import attention
+    from smmb_tpu_torch.utils import rng
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = rng.make_generator(19, dev)
+    bf16 = torch.bfloat16
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    rows = []
+    # B7: M=1, 1024 x 3072, bf16 compute, x in f32 as the LM's residual stream
+    args, kw = _b7_inputs(torch, gen, 1, 1024, 8, 128, dev)
+    kw["compute_dtype"] = bf16
+    plane = args[2]
+    t_k = measure(lambda: fk.fused_norm_qkv_quant(*args, **kw))
+    t_p = measure(lambda: fk.fused_norm_qkv_quant_plain(*args, **kw))
+    outs = fk.fused_norm_qkv_quant(*args, **kw)
+    n_bytes = plane.weight_bytes() + nbytes(*(a for a in args if isinstance(a, torch.Tensor)),
+                                            *outs)
+    ops = 2.0 * int(torch.count_nonzero(unpack_ternary(plane)))
+    bound, by = roofline_bound(ops, n_bytes, spec, "bf16")
+    dense = unpack_ternary(plane, bf16)
+    a = rng.rand_dense(gen, (1, 1024), dtype=bf16)
+    t_l = measure(torch.matmul, a, dense)
+    rows.append({"kernel": "B7 fused_norm_qkv_quant", "shape": [1, 1024, 3072],
+                 "ms": t_k.min_s * 1e3, "mean_ms": t_k.mean_s * 1e3,
+                 "plain_ms": t_p.min_s * 1e3, "bound_ms": bound * 1e3, "bound_by": by,
+                 "bytes": n_bytes, "ops": ops, "library_ms": t_l.min_s * 1e3,
+                 "library": "torch.matmul bf16 on the pre-decoded dense Wqkv"})
+    # B8: bf16 compute, q in f32 as B7 gives it
+    for label, b, h, kvh, s, pos in (("lm path", 1, 8, 8, 224, 95),
+                                     ("long", 1, 8, 8, 8192, 8191)):
+        cache = _int8_cache(torch, gen, b, s, kvh, pos + 1, dev)
+        kv, sc = cache["kv"], cache["kv_scale"]
+        q = rng.rand_dense(gen, (b, h, 128)) * 8.0
+        kw = dict(compute_dtype=bf16)
+        t_k = measure(lambda: fd.flash_attention_decode_quant(q, kv, sc, pos, **kw))
+        t_p = measure(lambda: fd.flash_attention_decode_quant_plain(q, kv, sc, pos, **kw))
+        live = pos + 1
+        # the library call reads the live prefix of the dequantized bf16 cache;
+        # the dequantization itself is not timed
+        kd, vd = attention._cache_kv(cache, kvh)
+        kl = kd[:, :live].to(bf16).transpose(1, 2).contiguous()
+        vl = vd[:, :live].to(bf16).transpose(1, 2).contiguous()
+        qb = q.to(bf16)[:, :, None]
+        gqa = {"enable_gqa": True} if kvh < h else {}
+        t_l = measure(lambda: F.scaled_dot_product_attention(qb, kl, vl, **gqa))
+        out = fd.flash_attention_decode_quant(q, kv, sc, pos, **kw)
+        n_bytes = nbytes(q, kv[:, :live], sc[..., :live], out)
+        bound, by = roofline_bound(4.0 * b * h * live * 128, n_bytes, spec, "bf16")
+        rows.append({"kernel": "B8 flash_attention_decode_quant", "shape": label, "B": b,
+                     "H": h, "KVH": kvh, "S": s, "pos": pos, "ms": t_k.min_s * 1e3,
+                     "mean_ms": t_k.mean_s * 1e3, "plain_ms": t_p.min_s * 1e3,
+                     "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes,
+                     "library_ms": t_l.min_s * 1e3,
+                     "library": "torch.nn.functional.scaled_dot_product_attention on the "
+                                "dequantized bf16 live prefix (dequantization not timed)"})
+    for r in rows:
+        print(json.dumps(r), flush=True)
+    launches = int8[True]["launches"]
+    summary = []
+    for name, src, line, row in (
+            ("fused_norm_qkv_quant", "fused_mlp", "fused_mlp.py:489", rows[0]),
+            ("flash_attention_decode_quant", "flash_decode", "flash_decode.py:412", rows[1])):
+        summary.append({
+            "name": name, "route": "cuda",
+            "source": f"smmb_tpu_torch/kernels/csrc/{src}.cu",
+            "replaces": f"smmb_tpu/kernels/{line}",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    log("phase 19 passed: B7 and B8 timed at the path shapes and B8 at pos 8191")
+    return summary
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@
 - ``mlp``: the packed MLP serving benchmark (bench/mlp_bench.py);
 - ``headline``: the packed SpMM headline JSON line (bench/headline.py);
 - ``lm``: the ternary LM's ``generate``, µs/token (bench/lm_bench.py;
-  ``--flash`` for the flash kernels B9 and B4);
+  ``--flash`` for the flash kernels B9 and B4, ``--kv-quant`` for the int8
+  KV cache through B7 and B8);
 - ``decode``: the block-level decode step and its roofline fraction
   (bench/decode_bench.py; ``--flash`` reads the caches through B4).
 """

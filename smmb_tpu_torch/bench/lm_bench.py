@@ -11,10 +11,12 @@ call. The loop is eager, so launch gaps on the host count in the time.
 CLI: python -m smmb_tpu_torch lm [--layers 4] [--d-model 1024] [--n-heads 8]
      [--kv-heads N] [--d-ff 4096] [--vocab 8192] [--batch 1]
      [--prompt-len 32] [--steps 64] [--temperature T] [--reps 5]
-     [--rope] [--window W] [--flash]
+     [--rope] [--window W] [--flash] [--kv-quant]
 ``--flash`` runs the prefill's attention as the flash kernel B9 and the
-decode steps' cache reads as B4. The JAX CLI's --kv-quant, --experts and
---top-k (experts per token) belong to later slices of the port.
+decode steps' cache reads as B4. ``--kv-quant`` stores the KV caches as int8
+codes and per-token scales: B7 writes them each step and, with ``--flash``,
+B8 reads them. The JAX CLI's --experts and --top-k (experts per token)
+belong to a later slice of the port.
 """
 
 from __future__ import annotations
@@ -48,10 +50,12 @@ def build_lm(cfg: TernaryLMConfig, batch: int, prompt_len: int, seed: int = 0,
 
 def run_lm_bench(cfg: TernaryLMConfig, batch: int = 1, prompt_len: int = 32,
                  steps: int = 64, temperature: float = 0.0, reps: int = 3,
-                 seed: int = 0, device=None, use_flash: bool = False) -> LMBenchResult:
+                 seed: int = 0, device=None, use_flash: bool = False,
+                 kv_quant: bool = False) -> LMBenchResult:
     """Per-token decode time: (t(3·steps) − t(steps)) / (2·steps), bf16
     compute and cache, as ``python -m smmb_tpu lm`` serves (``use_flash``:
-    B9 and B4 in place of the torch attention math)."""
+    B9 and B4 in place of the torch attention math; ``kv_quant``: the int8
+    cache, written by B7 and read by B8 under ``use_flash``)."""
     packed, prompt = build_lm(cfg, batch, prompt_len, seed, device)
     sample_gen = rng.make_generator(seed + 2, prompt.device)
 
@@ -60,7 +64,7 @@ def run_lm_bench(cfg: TernaryLMConfig, batch: int = 1, prompt_len: int = 32,
             return generate(packed, prompt, cfg, n_steps,
                             compute_dtype=torch.bfloat16,
                             temperature=temperature, generator=sample_gen,
-                            use_flash=use_flash)
+                            use_flash=use_flash, kv_quant=kv_quant)
 
         return measure(fn, reps=reps).min_s
 
@@ -97,6 +101,8 @@ def parser():
     ap.add_argument("--window", type=int, default=None)
     ap.add_argument("--flash", action="store_true",
                     help="flash attention: B9 in the prefill, B4 in the decode steps")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV cache: B7 writes it, B8 reads it under --flash")
     return ap
 
 
@@ -105,12 +111,13 @@ def main(argv=None):
     cfg = config_from_args(args)
     r = run_lm_bench(cfg, args.batch, args.prompt_len, args.steps,
                      temperature=args.temperature, reps=args.reps,
-                     use_flash=args.flash)
+                     use_flash=args.flash, kv_quant=args.kv_quant)
     print(
         f"lm-generate on {torch.cuda.get_device_name(0)}: layers={args.layers} "
         f"d={args.d_model} ff={args.d_ff} vocab={args.vocab} batch={args.batch} "
         f"kv={cfg.block.attn.kv_heads}{' rope' if args.rope else ''}"
-        f"{f' win{args.window}' if args.window else ''}{' flash' if args.flash else ''}"
+        f"{f' win{args.window}' if args.window else ''}{' kvq' if args.kv_quant else ''}"
+        f"{' flash' if args.flash else ''}"
         f"  {r.per_token_s * 1e6:.1f}us/tok = {r.tokens_per_s:.0f} tok/s "
         f"(slope {args.steps}->{3 * args.steps} steps; "
         f"lo={r.lo_s * 1e3:.2f}ms hi={r.hi_s * 1e3:.2f}ms)"

@@ -14,7 +14,8 @@ CLI: python -m smmb_tpu_torch.bench.trace [--depth 4] [--dim 4096] [--batch 256]
      python -m smmb_tpu_torch.bench.trace --showcase
 The ``--lm`` step is ``lm_decode_step`` at position ``prompt_len`` of a
 prefilled bf16 cache, at the configuration of ``python -m smmb_tpu_torch lm``;
-with ``--flash`` its cache reads are the flash-decode kernel B4.
+with ``--flash`` its cache reads are the flash-decode kernel B4, with
+``--kv-quant`` the cache is int8 (B7 writes it, B8 reads it under ``--flash``).
 """
 
 from __future__ import annotations
@@ -54,14 +55,16 @@ def lm_decode_step_fn(args):
     """A call that runs one bf16 ``lm_decode_step`` at position
     ``prompt_len`` of caches filled by ``lm_prefill`` (every call restarts
     there), for the LM of ``python -m smmb_tpu_torch lm`` with ``args``
-    (``args.flash``: the prefill through B9, the step's cache reads B4)."""
+    (``args.flash``: the prefill through B9, the step's cache reads B4;
+    ``args.kv_quant``: int8 caches)."""
     from smmb_tpu_torch.bench.lm_bench import build_lm, config_from_args
     from smmb_tpu_torch.models.lm import lm_decode_step, lm_init_cache, lm_prefill
 
     cfg = config_from_args(args)
     packed, prompt = build_lm(cfg, args.batch, args.prompt_len)
     kw = dict(compute_dtype=torch.bfloat16, use_flash=args.flash)
-    cache = lm_init_cache(cfg, args.batch, dtype=torch.bfloat16, device=prompt.device)
+    cache = lm_init_cache(cfg, args.batch, dtype=torch.bfloat16,
+                          quantized=args.kv_quant, device=prompt.device)
     logits, filled = lm_prefill(packed, prompt, cache, cfg, **kw)
     tok = torch.argmax(logits, dim=-1)
 
@@ -136,7 +139,7 @@ def main(argv=None):
         report(lm_decode_step_fn(args), {
             "call": "lm_decode_step", "layers": args.layers, "d_model": args.d_model,
             "d_ff": args.d_ff, "vocab": args.vocab, "batch": args.batch,
-            "pos": args.prompt_len, "flash": args.flash})
+            "pos": args.prompt_len, "flash": args.flash, "kv_quant": args.kv_quant})
         return
     cfg, packed, x, _ = build_mlp(args.depth, args.dim, args.batch, 10)
 

@@ -124,11 +124,17 @@ def bcsr_spmm_lib() -> ctypes.CDLL:
 
 @functools.cache
 def fused_mlp_lib() -> ctypes.CDLL:
-    """``fused_mlp.cu`` (B3, B6, B5)."""
+    """``fused_mlp.cu`` (B3, B7, B6, B5)."""
     return _load("fused_mlp.cu", {
         "smmb_fused_norm_qkv": [
             _P, _I, _P, _P, _P, _P, _P,  # x, x_bf16, g, w, scale, bias, out
             _I, _I, _I, _F, _I,  # m, d, n, eps, cbf16
+            _P,  # stream
+        ],
+        "smmb_fused_norm_qkv_quant": [
+            _P, _I, _P, _P, _P, _P,  # x, x_bf16, g, w, scale, bias
+            _P, _P, _P,  # q_out, codes, scales
+            _I, _I, _I, _I, _I, _F, _I,  # m, d, n, kvh, hd, eps, cbf16
             _P,  # stream
         ],
         "smmb_fused_mlp": [
@@ -150,14 +156,22 @@ def fused_mlp_lib() -> ctypes.CDLL:
 
 @functools.cache
 def flash_decode_lib() -> ctypes.CDLL:
-    """``flash_decode.cu`` (B4)."""
-    return _load("flash_decode.cu", {"smmb_flash_decode": [
-        _P, _I, _L, _L,  # q, q_bf16, q_sb, q_sc
-        _P, _P, _I, _P,  # k, v, cache_bf16, out
-        _I, _I, _I, _I, _I, _I, _I,  # b, nq, h, kvh, hd, s, pos
-        _I, _F, _I,  # window, qscale, cbf16
-        _P,  # stream
-    ]})
+    """``flash_decode.cu`` (B4, and B8 in its int8 mode)."""
+    shape = [_I, _I, _I, _I, _I, _I, _I,  # b, nq, h, kvh, hd, s, pos
+             _I, _F, _I,  # window, qscale, cbf16
+             _P]  # stream
+    return _load("flash_decode.cu", {
+        "smmb_flash_decode": [
+            _P, _I, _L, _L,  # q, q_bf16, q_sb, q_sc
+            _P, _P, _I, _P,  # k, v, cache_bf16, out
+            *shape,
+        ],
+        "smmb_flash_decode_quant": [
+            _P, _I, _L, _L,  # q, q_bf16, q_sb, q_sc
+            _P, _P, _P,  # kv, kv_scale, out
+            *shape,
+        ],
+    })
 
 
 @functools.cache

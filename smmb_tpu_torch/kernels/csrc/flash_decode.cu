@@ -1,20 +1,26 @@
-// Flash decode / chunk attention over the flat float KV cache for Hopper
-// (sm_90a): B4.
+// Flash decode / chunk attention over the flat KV cache for Hopper (sm_90a):
+// B4 (float cache) and B8 (the merged int8 cache).
 //
 // Replaces the Pallas TPU kernel of smmb_tpu/kernels/flash_decode.py
-// (_decode_kernel :91, pallas_call at :412), which serves both
-// flash_attention_decode (:462, nq = 1) and flash_attention_chunk (:533).
+// (_decode_kernel :91, pallas_call at :412), which serves
+// flash_attention_decode (:462, nq = 1) and flash_attention_chunk (:533) and,
+// through its quant arms (:129-133, :150-151, :165-169, :196-198),
+// flash_attention_decode_quant (:505) and flash_attention_chunk_quant (:565).
 //
 //   q (B, nq, H, hd) at positions pos .. pos + nq - 1, row strides given;
-//   k, v (B, S, KVH * hd) flat caches, f32 or bf16, read in place;
+//   float mode: k, v (B, S, KVH * hd) flat caches, f32 or bf16, read in place;
+//   int8 mode:  kv (B, S, 2 * KVH * hd) int8 codes, KV head h's k at slot 2h
+//               and its v at slot 2h + 1 of a row; kv_scale (B, 2 * KVH, S)
+//               f32 per-token absmax scales in the same interleave;
 //   query head h reads KV head h / g (g = H / KVH, contiguous grouping);
 //   row (token c, head h) attends columns col <= pos + c, and under a window
 //   col > pos + c - window;
 //   out (B, nq, H, hd) in the compute dtype.
 //
 // What bounds it on the card: the live cache prefix, (pos + 1) * 2 * KVH * hd
-// * itemsize bytes per batch row, over the memory rate. The products are a
-// few FLOPs per byte.
+// * itemsize bytes per batch row (plus 8 bytes of scales per KV head and
+// column in the int8 mode), over the memory rate. The products are a few
+// FLOPs per byte.
 //
 // Design (first, simple version; CUDA cores, no split of the cache across
 // blocks):
@@ -27,6 +33,14 @@
 //     from the tile holding the window's lower edge of token 0 (0 without a
 //     window) up to the tile holding column pos + nq - 1. No other tile is
 //     read. Each K and V tile is cast to the compute dtype as it is staged.
+//   * The int8 mode is another tile loader: one 16-byte load gives 16 codes
+//     of a row's k (or v) span, each converted to float as it is staged (an
+//     int8 code is exact in bf16 and f32); the tile's TK k scales and TK v
+//     scales are staged beside it. A score is multiplied by its column's k
+//     scale after the Q.K sum (flash_decode.py:169; linear, so it commutes
+//     with the fold on q), and p by its column's v scale before it is rounded
+//     for P.V (:198), while l sums the unscaled p (:190-194). The walk, the
+//     sums and the rescale are the float mode's.
 //   * Scores accumulate in f32 (fmaf, never TF32 or bf16 sums); masked
 //     scores are the finite -1e30, never -inf; the softmax runs in base 2
 //     (exp2f). p is rounded to the compute dtype before P.V, l sums the
@@ -39,11 +53,9 @@
 //     masked for a row is a bitwise no-op for it (rescale exp2(0) = 1, p = 0;
 //     before the row's first live tile, everything it added is multiplied by
 //     exp2(-1e30 - m) = 0). So a token's row is the same at nq = 1 and inside
-//     a chunk, at B = 1 and inside a batch.
-//   * The int8 cache (B8) is another mode of the tile loader (codes and
-//     per-token scales); this source has only the float mode.
+//     a chunk, at B = 1 and inside a batch, in both modes.
 //   * Kernels allocate nothing, launch on the caller's stream and do not
-//     synchronise; the C entry returns cudaGetLastError().
+//     synchronise; the C entries return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,17 +95,30 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* dst) {
   }
 }
 
-size_t smem_bytes(int rows, int hd) {
-  return sizeof(float) *
-         (static_cast<size_t>(rows) * (2 * hd + TK + 3) + 2 * static_cast<size_t>(TK) * hd);
+// 16 bytes of the int8 cache: 16 codes
+__device__ __forceinline__ void load16(const int8_t* p, float* dst) {
+  const int4 u = __ldg(reinterpret_cast<const int4*>(p));
+  const int8_t* c = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(c[i]);
 }
 
+size_t smem_bytes(int rows, int hd, bool quant) {
+  return sizeof(float) * (static_cast<size_t>(rows) * (2 * hd + TK + 3) +
+                          2 * static_cast<size_t>(TK) * hd + (quant ? 2 * TK : 0));
+}
+
+// CT is the cache's element type: float or bf16 (float mode, kc and vc the
+// two caches), int8_t (int8 mode, kc the merged codes, vc unused, kvs the
+// scales).
 template <typename QT, typename CT>
 __global__ void __launch_bounds__(THREADS)
     flash_decode_kernel(const QT* __restrict__ q, long long q_sb, long long q_sc,
                         const CT* __restrict__ kc, const CT* __restrict__ vc,
-                        void* __restrict__ out, int nq, int h, int kvh, int hd,
-                        int s, int pos, int window, float qscale, int cbf16) {
+                        const float* __restrict__ kvs, void* __restrict__ out,
+                        int nq, int h, int kvh, int hd, int s, int pos, int window,
+                        float qscale, int cbf16) {
+  constexpr bool QUANT = sizeof(CT) == 1;
   constexpr int VEC = 16 / sizeof(CT);
   extern __shared__ float smem[];
   const int g = h / kvh, rows = nq * g;
@@ -105,6 +130,8 @@ __global__ void __launch_bounds__(THREADS)
   float* mrow = acc + rows * hd;
   float* lrow = mrow + rows;
   float* resc = lrow + rows;
+  float* kss = resc + rows;      // int8 mode: the tile's TK k scales
+  float* vss = kss + TK;         //            and TK v scales
   const int kh = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -125,30 +152,42 @@ __global__ void __launch_bounds__(THREADS)
     const int edge = pos - window + 1;  // token 0's lowest live column
     lo = edge > 0 ? edge / TK : 0;
   }
-  const size_t width = static_cast<size_t>(kvh) * hd;
-  const size_t base = static_cast<size_t>(b) * s * width + static_cast<size_t>(kh) * hd;
+  // a row of the cache: KVH * hd values (float mode) or 2 * KVH * hd codes
+  // (int8 mode: k at slot 2 kh, v at slot 2 kh + 1)
+  const size_t width = static_cast<size_t>(QUANT ? 2 * kvh : kvh) * hd;
+  const size_t kbase = static_cast<size_t>(b) * s * width +
+                       static_cast<size_t>(QUANT ? 2 * kh : kh) * hd;
+  const size_t vbase = QUANT ? kbase + hd : kbase;
+  const CT* vsrc = QUANT ? kc : vc;
+  const float* ksrow = QUANT ? kvs + (static_cast<size_t>(b) * 2 * kvh + 2 * kh) * s : nullptr;
   const int vecs_per_row = hd / VEC;
 
   for (int t = lo; t <= top; ++t) {
     const int c0 = t * TK;
-    __syncthreads();  // the previous tile's reads of ks, vs, ps are done
+    __syncthreads();  // the previous tile's reads of ks, vs, ps, kss, vss are done
 #pragma unroll 4
     for (int i = tid; i < TK * vecs_per_row; i += THREADS) {
       const int j = i / vecs_per_row, d = (i - j * vecs_per_row) * VEC;
       float kv[VEC], vv[VEC];
       if (c0 + j < s) {
-        const size_t off = base + static_cast<size_t>(c0 + j) * width + d;
-        load16(kc + off, kv);
-        load16(vc + off, vv);
+        const size_t row = static_cast<size_t>(c0 + j) * width + d;
+        load16(kc + kbase + row, kv);
+        load16(vsrc + vbase + row, vv);
       } else {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) kv[e] = vv[e] = 0.f;
       }
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
-        ks[j * hd + d + e] = to_compute(kv[e], cbf16);
-        vs[j * hd + d + e] = to_compute(vv[e], cbf16);
+        // codes are exact in either compute dtype
+        ks[j * hd + d + e] = QUANT ? kv[e] : to_compute(kv[e], cbf16);
+        vs[j * hd + d + e] = QUANT ? vv[e] : to_compute(vv[e], cbf16);
       }
+    }
+    if (QUANT && tid < TK) {
+      const bool in = c0 + tid < s;
+      kss[tid] = in ? ksrow[c0 + tid] : 0.f;
+      vss[tid] = in ? ksrow[s + c0 + tid] : 0.f;
     }
     __syncthreads();
 
@@ -164,7 +203,7 @@ __global__ void __launch_bounds__(THREADS)
       if (lane == 0) {
         const int col = c0 + j, rp = pos + r / g;
         const bool live = col <= rp && (window <= 0 || col > rp - window);
-        ps[pr] = live ? sum : NEG;
+        ps[pr] = live ? (QUANT ? __fmul_rn(sum, kss[j]) : sum) : NEG;
       }
     }
     __syncthreads();
@@ -182,8 +221,10 @@ __global__ void __launch_bounds__(THREADS)
       float sum = __fadd_rn(p0, p1);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum = __fadd_rn(sum, __shfl_xor_sync(FULL, sum, o));
-      ps[r * TK + lane] = to_compute(p0, cbf16);
-      ps[r * TK + lane + 32] = to_compute(p1, cbf16);
+      // int8 mode: p times its column's v scale, after l's sum
+      ps[r * TK + lane] = to_compute(QUANT ? __fmul_rn(p0, vss[lane]) : p0, cbf16);
+      ps[r * TK + lane + 32] =
+          to_compute(QUANT ? __fmul_rn(p1, vss[lane + 32]) : p1, cbf16);
       __syncwarp();
       if (lane == 0) {
         mrow[r] = m_new;
@@ -219,10 +260,10 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename QT, typename CT>
 int launch(const void* q, long long q_sb, long long q_sc, const void* k,
-           const void* v, void* out, int b, int nq, int h, int kvh, int hd,
-           int s, int pos, int window, float qscale, int cbf16,
+           const void* v, const float* kvs, void* out, int b, int nq, int h,
+           int kvh, int hd, int s, int pos, int window, float qscale, int cbf16,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(nq * (h / kvh), hd);
+  const size_t smem = smem_bytes(nq * (h / kvh), hd, sizeof(CT) == 1);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   auto kernel = flash_decode_kernel<QT, CT>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -230,37 +271,61 @@ int launch(const void* q, long long q_sb, long long q_sc, const void* k,
   if (e != cudaSuccess) return e;
   kernel<<<dim3(kvh, b), THREADS, smem, stream>>>(
       static_cast<const QT*>(q), q_sb, q_sc, static_cast<const CT*>(k),
-      static_cast<const CT*>(v), out, nq, h, kvh, hd, s, pos, window, qscale,
+      static_cast<const CT*>(v), kvs, out, nq, h, kvh, hd, s, pos, window, qscale,
       cbf16);
   return cudaGetLastError();
+}
+
+bool bad_shape(int b, int nq, int h, int kvh, int hd, int s, int pos) {
+  return b <= 0 || nq <= 0 || kvh <= 0 || h % kvh || hd <= 0 || hd % 128 || pos < 0 ||
+         pos + nq > s;
 }
 
 }  // namespace
 
 // q (B, nq, H, hd) with element strides q_sb, q_sc for b and c (h and d
-// contiguous), f32 (q_bf16 = 0) or bf16; k, v (B, S, KVH * hd) contiguous,
-// f32 or bf16 (cache_bf16), 16-byte aligned; out (B, nq, H, hd) contiguous in
-// the compute dtype (cbf16). pos + nq <= S; window <= 0 means none; qscale is
+// contiguous), f32 (q_bf16 = 0) or bf16; out (B, nq, H, hd) contiguous in the
+// compute dtype (cbf16). pos + nq <= S; window <= 0 means none; qscale is
 // sm_scale * log2(e) as an f32. hd % 128 == 0 and H % KVH == 0.
+
+// B4: k, v (B, S, KVH * hd) contiguous, f32 or bf16 (cache_bf16), 16-byte
+// aligned.
 extern "C" int smmb_flash_decode(const void* q, int q_bf16, long long q_sb,
                                  long long q_sc, const void* k, const void* v,
                                  int cache_bf16, void* out, int b, int nq,
                                  int h, int kvh, int hd, int s, int pos,
                                  int window, float qscale, int cbf16,
                                  void* stream) {
-  if (b <= 0 || nq <= 0 || kvh <= 0 || h % kvh || hd <= 0 || hd % 128 ||
-      pos < 0 || pos + nq > s)
-    return cudaErrorInvalidValue;
+  if (bad_shape(b, nq, h, kvh, hd, s, pos)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_bf16)
     return cache_bf16
-               ? launch<__nv_bfloat16, __nv_bfloat16>(q, q_sb, q_sc, k, v, out, b, nq, h, kvh,
-                                                      hd, s, pos, window, qscale, cbf16, st)
-               : launch<__nv_bfloat16, float>(q, q_sb, q_sc, k, v, out, b, nq, h, kvh, hd,
-                                              s, pos, window, qscale, cbf16, st);
+               ? launch<__nv_bfloat16, __nv_bfloat16>(q, q_sb, q_sc, k, v, nullptr, out, b,
+                                                      nq, h, kvh, hd, s, pos, window,
+                                                      qscale, cbf16, st)
+               : launch<__nv_bfloat16, float>(q, q_sb, q_sc, k, v, nullptr, out, b, nq, h,
+                                              kvh, hd, s, pos, window, qscale, cbf16, st);
   return cache_bf16
-             ? launch<float, __nv_bfloat16>(q, q_sb, q_sc, k, v, out, b, nq, h, kvh, hd, s,
-                                            pos, window, qscale, cbf16, st)
-             : launch<float, float>(q, q_sb, q_sc, k, v, out, b, nq, h, kvh, hd, s, pos,
-                                    window, qscale, cbf16, st);
+             ? launch<float, __nv_bfloat16>(q, q_sb, q_sc, k, v, nullptr, out, b, nq, h,
+                                            kvh, hd, s, pos, window, qscale, cbf16, st)
+             : launch<float, float>(q, q_sb, q_sc, k, v, nullptr, out, b, nq, h, kvh, hd,
+                                    s, pos, window, qscale, cbf16, st);
+}
+
+// B8: kv (B, S, 2 * KVH * hd) int8 codes, contiguous and 16-byte aligned;
+// kv_scale (B, 2 * KVH, S) f32, contiguous.
+extern "C" int smmb_flash_decode_quant(const void* q, int q_bf16, long long q_sb,
+                                       long long q_sc, const void* kv,
+                                       const void* kv_scale, void* out, int b,
+                                       int nq, int h, int kvh, int hd, int s,
+                                       int pos, int window, float qscale,
+                                       int cbf16, void* stream) {
+  if (bad_shape(b, nq, h, kvh, hd, s, pos)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* kvs = static_cast<const float*>(kv_scale);
+  if (q_bf16)
+    return launch<__nv_bfloat16, int8_t>(q, q_sb, q_sc, kv, kv, kvs, out, b, nq, h, kvh,
+                                         hd, s, pos, window, qscale, cbf16, st);
+  return launch<float, int8_t>(q, q_sb, q_sc, kv, kv, kvs, out, b, nq, h, kvh, hd, s,
+                               pos, window, qscale, cbf16, st);
 }

@@ -1,9 +1,14 @@
 // Fused packed-ternary kernels of the LM decode and prefill path for Hopper
-// (sm_90a): B3 fused_norm_qkv, B6 fused_mlp and B5 fused_block_tail.
+// (sm_90a): B3 fused_norm_qkv, B7 fused_norm_qkv_quant, B6 fused_mlp and B5
+// fused_block_tail.
 //
 // Replaces the Pallas TPU kernels of smmb_tpu/kernels/fused_mlp.py:
 //   B3 fused_norm_qkv   (_norm_qkv_kernel, pallas_call at :332)
 //        y = (rmsnorm(x; g, eps) . Wqkv) * scale[col] + bias[col]
+//   B7 fused_norm_qkv_quant (_norm_qkv_quant_kernel, pallas_call at :489)
+//        B3's y; q = y[:, :d]; per (row, KV head h, plane k|v) of the f32 y:
+//        s = absmax / 127, codes = round_half_even(y / (s > 0 ? s : 1)),
+//        written in the per-head [k_h | v_h] interleave of the int8 cache
 //   B6 fused_mlp        (_kernel, pallas_call at :195)
 //        y = (PReLU(s_up (x . Wup) + b_up) . Wdown) * s_down + b_down
 //   B5 fused_block_tail (_tail_kernel, pallas_call at :707)
@@ -34,6 +39,15 @@
 //     that tile's product with the matching 32 packed rows of Wdown, and
 //     writes one f32 partial per tile to a workspace. A second launch sums
 //     the partials in tile order and applies the epilogue.
+//   * B7 is B3 plus a second kind of block. Its q-column blocks are B3's
+//     blocks over the first d columns. A K/V block owns one (plane, KV head)
+//     span of hd columns: hd = 256 spans two of B3's 128-column tiles, so it
+//     walks hd / 128 sub-tiles with B3's fixed K split (every y is bitwise
+//     B3's), keeping the warps' partial sums apart from the staged rows that
+//     each sub-tile reads again. It stages the span's f32 y in shared memory
+//     and takes each row's absmax (exact in any order); the scale and the
+//     codes use the IEEE __fdiv_rn and __float2int_rn (round half to even,
+//     as jnp.round), never roundf, a bare cast or a multiply by 1/127.
 //   * B5's phase 0 (wo, residual) is its own launch, so the RMSNorm over
 //     full rows sees every column before any tile reads h. Each tile block
 //     recomputes the norm of its rows from the f32 residual in a fixed order.
@@ -247,6 +261,80 @@ norm_qkv_kernel(const void* __restrict__ x, int x_bf16,
   }
 }
 
+// ---------------------------------------------------------------- B7
+// shared memory of a B7 block: MT rows of width d, the warps' partial sums,
+// one span's MT x hd f32 y, the norm's inverse, the absmax scales and the
+// norm's scratch
+template <int MT>
+size_t quant_smem_bytes(int d, int hd) {
+  return sizeof(float) *
+         (static_cast<size_t>(MT) * d + WARPS * MT * TILE_N + MT * hd + 2 * MT + WARPS * MT);
+}
+
+template <int MT>
+__global__ void __launch_bounds__(THREADS)
+norm_qkv_quant_kernel(const void* __restrict__ x, int x_bf16,
+                      const float* __restrict__ g, const int8_t* __restrict__ w,
+                      const float* __restrict__ scale, const float* __restrict__ bias,
+                      void* __restrict__ q_out, int8_t* __restrict__ codes,
+                      float* __restrict__ scales, int m, int d, int n, int kvh, int hd,
+                      float eps, int cbf16) {
+  extern __shared__ __align__(16) float smem[];
+  float* act = smem;                      // MT x d staged rows
+  float* red = act + MT * d;              // WARPS x MT x TILE_N partial sums
+  float* ys = red + WARPS * MT * TILE_N;  // MT x hd: one span's f32 y
+  float* inv = ys + MT * hd;              // MT
+  float* qsc = inv + MT;                  // MT: the span's scales
+  float* scratch = qsc + MT;              // WARPS x MT
+  const int m0 = blockIdx.y * MT, q_tiles = d / TILE_N;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  stage_rows<MT>(act, x, x_bf16, m, m0, d, 0);  // the norm reads x in f32
+  norm_rows<MT>(act, d, g, eps, inv, scratch, cbf16);
+  if (static_cast<int>(blockIdx.x) < q_tiles) {  // B3's block over q columns
+    const int n0 = blockIdx.x * TILE_N;
+    block_dot<MT>(act, d, w, n, n0 + lane * 4, red);
+    for (int idx = threadIdx.x; idx < MT * TILE_N; idx += THREADS) {
+      const int r = idx / TILE_N, c = idx % TILE_N, col = n0 + c;
+      if (m0 + r >= m) continue;
+      const float v = __fadd_rn(__fmul_rn(warp_sum<MT>(red, r, c), scale[col]), bias[col]);
+      store_elem(q_out, static_cast<size_t>(m0 + r) * d + col, v, x_bf16);
+    }
+    return;
+  }
+  // slot 2 h + plane of the interleave: KV head h's k (plane 0) or v span
+  const int slot = blockIdx.x - q_tiles, kh = slot >> 1, plane = slot & 1;
+  const int span0 = d + plane * kvh * hd + kh * hd;
+  for (int t = 0; t < hd; t += TILE_N) {
+    // block_dot's first barrier orders these reads of red before its writes
+    block_dot<MT>(act, d, w, n, span0 + t + lane * 4, red);
+    for (int idx = threadIdx.x; idx < MT * TILE_N; idx += THREADS) {
+      const int r = idx / TILE_N, c = idx % TILE_N, col = span0 + t + c;
+      ys[r * hd + t + c] =
+          __fadd_rn(__fmul_rn(warp_sum<MT>(red, r, c), scale[col]), bias[col]);
+    }
+  }
+  __syncthreads();
+  for (int r = warp; r < MT; r += WARPS) {
+    float a = 0.f;
+    for (int c = lane; c < hd; c += 32) a = fmaxf(a, fabsf(ys[r * hd + c]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+    if (lane == 0) qsc[r] = __fdiv_rn(a, 127.f);
+  }
+  __syncthreads();
+  const int row_codes = 2 * kvh * hd;
+  for (int r = threadIdx.x; r < MT; r += THREADS)
+    if (m0 + r < m) scales[static_cast<size_t>(m0 + r) * 2 * kvh + slot] = qsc[r];
+  for (int idx = threadIdx.x; idx < MT * hd; idx += THREADS) {
+    const int r = idx / hd, c = idx - r * hd;
+    if (m0 + r >= m) continue;
+    const float safe = qsc[r] > 0.f ? qsc[r] : 1.f;
+    codes[static_cast<size_t>(m0 + r) * row_codes + slot * hd + c] =
+        static_cast<int8_t>(__float2int_rn(__fdiv_rn(ys[idx], safe)));
+  }
+}
+
 // ------------------------------------------------- B6 / B5 hidden tiles
 // One hidden tile t of 128 units: units g*512 + i*128 + pb + j for the 4
 // planes i and j < 32, where g = t / 4 and pb = (t % 4) * 32. The staged
@@ -422,6 +510,24 @@ int norm_qkv(const void* x, int x_bf16, const void* g, const void* w,
 }
 
 template <int MT>
+int norm_qkv_quant(const void* x, int x_bf16, const void* g, const void* w,
+                   const void* scale, const void* bias, void* q_out, void* codes,
+                   void* scales, int m, int d, int n, int kvh, int hd, float eps,
+                   int cbf16, cudaStream_t stream) {
+  const size_t smem = quant_smem_bytes<MT>(d, hd);
+  if (smem > MAX_SMEM || bad_rows(m, MT)) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(norm_qkv_quant_kernel<MT>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(d / TILE_N + 2 * kvh, (m + MT - 1) / MT);
+  norm_qkv_quant_kernel<MT><<<grid, THREADS, smem, stream>>>(
+      x, x_bf16, static_cast<const float*>(g), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scale), static_cast<const float*>(bias), q_out,
+      static_cast<int8_t*>(codes), static_cast<float*>(scales), m, d, n, kvh, hd, eps,
+      cbf16);
+  return cudaGetLastError();
+}
+
+template <int MT>
 int mlp(const void* x, int x_bf16, const void* wu, const void* s_up,
         const void* b_up, const void* wd, const void* s_down,
         const void* b_down, void* ws, void* out, int m, int k, int h, int kout,
@@ -508,6 +614,24 @@ extern "C" int smmb_fused_norm_qkv(const void* x, int x_bf16, const void* g,
                               cbf16, s)
                 : norm_qkv<8>(x, x_bf16, g, w, scale, bias, out, m, d, n, eps,
                               cbf16, s);
+}
+
+// B7: q_out (m, d) = B3's first d columns, in x's dtype; codes (m, 2 kvh hd)
+// int8 and scales (m, 2 kvh) f32 of the K and V columns, slot 2 h + plane;
+// n = d + 2 kvh hd, d % 512 == 0, hd % 128 == 0.
+extern "C" int smmb_fused_norm_qkv_quant(const void* x, int x_bf16, const void* g,
+                                         const void* w, const void* scale,
+                                         const void* bias, void* q_out, void* codes,
+                                         void* scales, int m, int d, int n, int kvh,
+                                         int hd, float eps, int cbf16, void* stream) {
+  if (d <= 0 || d % GROUP_ROWS || kvh <= 0 || hd <= 0 || hd % TILE_N ||
+      n != d + 2 * kvh * hd)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return m == 1 ? norm_qkv_quant<1>(x, x_bf16, g, w, scale, bias, q_out, codes, scales,
+                                    m, d, n, kvh, hd, eps, cbf16, s)
+                : norm_qkv_quant<8>(x, x_bf16, g, w, scale, bias, q_out, codes, scales,
+                                    m, d, n, kvh, hd, eps, cbf16, s);
 }
 
 // B6: out (m, kout) = (PReLU(s_up (x . wu) + b_up) . wd) * s_down + b_down;

@@ -1,23 +1,28 @@
-"""Flash decode / chunk attention over the flat float KV cache: the
-hand-written CUDA kernel B4 and its plain PyTorch version.
+"""Flash decode / chunk attention over the flat KV cache: the hand-written
+CUDA kernels B4 (float cache) and B8 (merged int8 cache) and their plain
+PyTorch version.
 
 Replaces the Pallas TPU kernel of ``smmb_tpu/kernels/flash_decode.py``
 (``_decode_kernel``, ``pallas_call`` at :412), which serves the decode step
-(``flash_attention_decode``, nq = 1) and the C-token extend chunk
-(``flash_attention_chunk``). The kernel is ``csrc/flash_decode.cu``, built
-with ``nvcc`` for ``sm_90a`` at first use (``_build.py``) and called through
-ctypes: one block per (KV head, batch row) walks the live cache tiles in
-ascending order with an online softmax in base 2. A row's result depends on
-its own position, S, hd and the window only, never on the other rows of the
-call (chunk row c equals the decode step at pos + c, bitwise).
+(``flash_attention_decode``, nq = 1), the C-token extend chunk
+(``flash_attention_chunk``) and, in its quant arms, both over the int8 cache
+(``flash_attention_decode_quant``, ``flash_attention_chunk_quant``). The
+kernel is ``csrc/flash_decode.cu``, built with ``nvcc`` for ``sm_90a`` at
+first use (``_build.py``) and called through ctypes: one block per (KV
+head, batch row) walks the live cache tiles in ascending order with an
+online softmax in base 2. A row's result depends on its own position, S, hd
+and the window only, never on the other rows of the call (chunk row c equals
+the decode step at pos + c, bitwise). The int8 mode is the same walk with
+another tile loader: codes cast to the compute dtype as they are staged,
+each score times its column's k scale after QKᵀ, and p times the column's v
+scale before P·V (``l`` sums p before that multiply).
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs the
 plain version. There is no fallback from one to the other. Each call that
-reaches the kernel adds one to ``flash_attention_decode.launches`` (the
-chunk entry counts there too: it is the same kernel).
-
-The int8 cache (B8: ``flash_attention_decode_quant`` and
-``flash_attention_chunk_quant``) belongs to the int8-cache slice of the port.
+reaches the float kernel adds one to ``flash_attention_decode.launches``,
+each that reaches the int8 kernel one to
+``flash_attention_decode_quant.launches`` (the chunk entries count with
+their decode entries: each pair is one kernel).
 """
 
 from __future__ import annotations
@@ -32,50 +37,66 @@ NEG = -1e30  # a masked score: exp2(NEG - m) underflows to 0
 LOG2E = 1.4426950408889634  # the softmax runs in base 2
 KV_TILE = 64  # cache columns per tile of the CUDA kernel
 MAX_SHARED_BYTES = 232448  # dynamic shared memory a Hopper block may use
-INT8_CACHE_SLICE = ("the int8 KV cache needs kernels B7 and B8, which the "
-                    "int8-cache slice of the port brings")
 
 
-def shared_bytes(rows: int, hd: int) -> int:
+def shared_bytes(rows: int, hd: int, quant: bool = False) -> int:
     """Shared memory of one kernel block holding ``rows`` = nq·(H/KVH) query
     rows: the rows, their scores and accumulators, m, l and the rescale,
-    and one K and one V tile of KV_TILE columns, all f32 (``smem_bytes`` in
+    one K and one V tile of KV_TILE columns and, in the int8 mode, the
+    tile's KV_TILE k and v scales, all f32 (``smem_bytes`` in
     csrc/flash_decode.cu)."""
-    return 4 * (rows * (2 * hd + KV_TILE + 3) + 2 * KV_TILE * hd)
+    scales = 2 * KV_TILE if quant else 0
+    return 4 * (rows * (2 * hd + KV_TILE + 3) + 2 * KV_TILE * hd + scales)
 
 
 def flash_chunk_rows_ok(c: int, h: int, hd: int, kvd: int, cache_itemsize: int,
                         compute_itemsize: int = 4) -> bool:
     """Can a C-token chunk of H query heads run through the kernel? Its
     block stages all C·(H/KVH) rows of one KV head in shared memory, so the
-    limit is that block's shared memory (at hd = 128: C·g ≤ 129 rows).
-    ``cache_itemsize`` and ``compute_itemsize`` are accepted for JAX's
-    signature; the kernel stages every value as f32, so neither moves the
-    limit. The extend gate (models/attention.attention_extend_core) sends a
-    larger chunk to the plain chunk math."""
-    kvh = max(1, kvd // hd)
-    return shared_bytes(c * (h // kvh), hd) <= MAX_SHARED_BYTES
+    limit is that block's shared memory (at hd = 128: C·g ≤ 129 rows over a
+    float cache, ≤ 128 over the int8 cache). ``kvd`` is the cache's last
+    width as JAX passes it: KVH·hd for a float cache, 2·KVH·hd for the
+    merged int8 cache, which is the one with ``cache_itemsize`` 1.
+    ``compute_itemsize`` is accepted for JAX's signature; the kernel stages
+    every value as f32, so it does not move the limit. The extend gate
+    (models/attention.attention_extend_core) sends a larger chunk to the
+    plain chunk math."""
+    quant = cache_itemsize == 1
+    kvh = max(1, kvd // (2 * hd if quant else hd))
+    return shared_bytes(c * (h // kvh), hd, quant) <= MAX_SHARED_BYTES
 
 
-def _check(q4, kc, vc, compute_dtype):
-    """JAX's checks (flash_decode.py:272-299), with its messages. Returns
-    (kvh, compute dtype)."""
+def _check(q4, kc, vc, compute_dtype, kv_scale=None):
+    """JAX's checks (flash_decode.py:272-299), with its messages. ``kv_scale``
+    selects the merged int8 mode (``kc`` the codes, ``vc`` None). Returns
+    (kvh, compute dtype): the default is the cache's dtype, q's in the int8
+    mode (flash_decode.py:304)."""
+    quant = kv_scale is not None
     b, nq, h, hd = q4.shape
-    bk, _, width = kc.shape
-    if bk != b or vc.shape != kc.shape:
+    bk, s_len, width = kc.shape
+    if bk != b or (not quant and vc.shape != kc.shape):
         raise ValueError(f"q {tuple(q4.shape)} vs kc {tuple(kc.shape)}")
     if hd % 128:
         raise ValueError(f"head_dim {hd} % 128 != 0 — use the jnp path")
     if width % hd:
         raise ValueError(f"cache width {width} not a multiple of hd {hd}")
-    kvh = width // hd
+    kvh = width // (2 * hd) if quant else width // hd
     if kvh < 1 or h % kvh:
         raise ValueError(f"H {h} % KVH {kvh} != 0")
+    if quant:
+        if vc is not None or kc.dtype != torch.int8:
+            raise ValueError("merged-quant mode takes int8 codes and no separate v")
+        if tuple(kv_scale.shape) != (b, 2 * kvh, s_len):
+            raise ValueError(
+                f"kv_scale must be (B, 2·KVH, S)=({b}, {2 * kvh}, {s_len}) "
+                f"as stored by init_kv_cache, got {tuple(kv_scale.shape)}")
     if compute_dtype is not None and not compute_dtype.is_floating_point:
         # the sm_scale*log2e fold shrinks q by ~10x before the cast; an
         # integer compute_dtype would silently round it to near-zero
         raise ValueError(f"compute_dtype must be floating, got {compute_dtype}")
-    return kvh, compute_dtype if compute_dtype is not None else kc.dtype
+    if compute_dtype is None:
+        compute_dtype = q4.dtype if quant else kc.dtype
+    return kvh, compute_dtype
 
 
 def _exp2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -91,11 +112,30 @@ def _exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.float32)
 
 
+def _tiles(kc, vc, kv_scale, c0, c1, kvh, hd, cdt):
+    """Columns c0..c1-1 of the cache as (B, KVH, n, hd) K and V tiles in the
+    compute dtype, and (B, KVH, n) f32 k and v scales (None for a float
+    cache). The merged int8 row holds KV head h's k codes at slot 2h and its
+    v codes at slot 2h+1; every code is exact in the compute dtype."""
+    b, n = kc.shape[0], c1 - c0
+    if kv_scale is None:
+        k = kc[:, c0:c1].reshape(b, n, kvh, hd)
+        v = vc[:, c0:c1].reshape(b, n, kvh, hd)
+        ks = vs = None
+    else:
+        kv = kc[:, c0:c1].reshape(b, n, kvh, 2, hd)
+        k, v = kv[:, :, :, 0], kv[:, :, :, 1]
+        sc = kv_scale[:, :, c0:c1].reshape(b, kvh, 2, n)
+        ks, vs = sc[:, :, 0], sc[:, :, 1]
+    return (k.permute(0, 2, 1, 3).to(cdt), v.permute(0, 2, 1, 3).to(cdt), ks, vs)
+
+
 def _cache_attention_plain(q4, kc, vc, pos, window, sm_scale, block_kv,
-                           compute_dtype):
-    """B4 in plain PyTorch: the kernel's tiles, order and rounding points.
-    q4 (B, nq, H, hd) → (B, nq, H, hd) in the compute dtype."""
-    kvh, cdt = _check(q4, kc, vc, compute_dtype)
+                           compute_dtype, kv_scale=None):
+    """B4 (and B8, given ``kv_scale``) in plain PyTorch: the kernel's tiles,
+    order and rounding points. q4 (B, nq, H, hd) → (B, nq, H, hd) in the
+    compute dtype."""
+    kvh, cdt = _check(q4, kc, vc, compute_dtype, kv_scale)
     b, nq, h, hd = q4.shape
     s_len = kc.shape[1]
     if pos < 0 or pos + nq > s_len:
@@ -114,9 +154,10 @@ def _cache_attention_plain(q4, kc, vc, pos, window, sm_scale, block_kv,
     acc = torch.zeros((b, kvh, nq * g, hd), dtype=torch.float32, device=q4.device)
     for t in range(lo, top + 1):
         c0, c1 = t * bs, min((t + 1) * bs, s_len)
-        k = kc[:, c0:c1].reshape(b, c1 - c0, kvh, hd).permute(0, 2, 1, 3).to(cdt)
-        v = vc[:, c0:c1].reshape(b, c1 - c0, kvh, hd).permute(0, 2, 1, 3).to(cdt)
+        k, v, k_scale, v_scale = _tiles(kc, vc, kv_scale, c0, c1, kvh, hd, cdt)
         scores = _exact(qs, k.transpose(-1, -2))
+        if k_scale is not None:  # per column, after QKᵀ (commutes with the fold)
+            scores = scores * k_scale[:, :, None, :]
         col = torch.arange(c0, c1, device=q4.device)[None, :]
         live = col <= row_pos[:, None]
         if window is not None:
@@ -125,6 +166,8 @@ def _cache_attention_plain(q4, kc, vc, pos, window, sm_scale, block_kv,
         m_new = torch.maximum(m, scores.amax(dim=-1))
         rescale, p = _exp2(m, m_new), _exp2(scores, m_new[..., None])
         l = l * rescale + p.to(torch.float64).sum(dim=-1).to(torch.float32)
+        if v_scale is not None:  # l sums p before the v scale
+            p = p * v_scale[:, :, None, :]
         acc = acc * rescale[..., None] + _exact(p.to(cdt), v)
         m = m_new
     out = torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, 1.0)[..., None],
@@ -132,52 +175,65 @@ def _cache_attention_plain(q4, kc, vc, pos, window, sm_scale, block_kv,
     return out.reshape(b, kvh, nq, g, hd).permute(0, 2, 1, 3, 4).reshape(b, nq, h, hd)
 
 
-def _cache_attention(q4, kc, vc, pos, window, sm_scale, block_kv, compute_dtype):
+def _cache_attention(q4, kc, vc, pos, window, sm_scale, block_kv, compute_dtype,
+                     kv_scale=None):
     """The shared entry: the plain version for CPU tensors, the kernel for
-    CUDA tensors."""
+    CUDA tensors (the float kernel B4, or B8 given ``kv_scale``)."""
     pos = int(pos)
+    quant = kv_scale is not None
     if q4.device.type == "cpu":
         return _cache_attention_plain(q4, kc, vc, pos, window, sm_scale, block_kv,
-                                      compute_dtype)
-    if q4.device.type != "cuda" or kc.device != q4.device or vc.device != q4.device:
+                                      compute_dtype, kv_scale)
+    bufs = (kc, kv_scale) if quant else (kc, vc)
+    if q4.device.type != "cuda" or any(t.device != q4.device for t in bufs):
         raise ValueError(f"flash attention runs on cuda or cpu, got q on {q4.device} "
                          f"and the cache on {kc.device}")
-    kvh, cdt = _check(q4, kc, vc, compute_dtype)
+    kvh, cdt = _check(q4, kc, vc, compute_dtype, kv_scale)
     b, nq, h, hd = q4.shape
     s_len = kc.shape[1]
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the kernel computes in f32 or bf16, not {cdt}")
-    for name, t in (("q", q4), ("kc", kc), ("vc", vc)):
+    for name, t in (("q", q4),) if quant else (("q", q4), ("kc", kc), ("vc", vc)):
         if t.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"{name} must be f32 or bf16, got {t.dtype}")
-    if kc.dtype != vc.dtype:
+    if quant and kv_scale.dtype != torch.float32:
+        raise TypeError(f"kv_scale must be f32, got {kv_scale.dtype}")
+    if not quant and kc.dtype != vc.dtype:
         raise TypeError(f"kc {kc.dtype} and vc {vc.dtype} differ")
-    if not (kc.is_contiguous() and vc.is_contiguous()):
+    if not all(t.is_contiguous() for t in bufs):
         raise ValueError("the flat caches are read in place and must be contiguous")
-    if kc.data_ptr() % 16 or vc.data_ptr() % 16:
+    if any(t.data_ptr() % 16 for t in bufs):
         raise ValueError("the caches must be 16-byte aligned")
     if pos < 0 or pos + nq > s_len:
         raise ValueError(f"rows at {pos}..{pos + nq - 1} outside the cache of {s_len}")
     rows = nq * (h // kvh)
-    if shared_bytes(rows, hd) > MAX_SHARED_BYTES:
+    if shared_bytes(rows, hd, quant) > MAX_SHARED_BYTES:
         raise ValueError(f"chunk rows {rows} (C={nq}, H={h}) need "
-                         f"{shared_bytes(rows, hd)} bytes of shared memory — too "
+                         f"{shared_bytes(rows, hd, quant)} bytes of shared memory — too "
                          "large for the flash cache kernel; use the chunk math")
     if q4.stride(3) != 1 or q4.stride(2) != hd:
         q4 = q4.contiguous()
     scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty((b, nq, h, hd), dtype=cdt, device=q4.device)
     lib = _build.flash_decode_lib()
+    q_args = (q4.data_ptr(), int(q4.dtype == torch.bfloat16), q4.stride(0), q4.stride(1))
+    shape = (b, nq, h, kvh, hd, s_len, pos, window if window is not None else 0,
+             scale * LOG2E, int(cdt == torch.bfloat16))
     with torch.cuda.device(q4.device):
-        rc = lib.smmb_flash_decode(
-            q4.data_ptr(), int(q4.dtype == torch.bfloat16), q4.stride(0), q4.stride(1),
-            kc.data_ptr(), vc.data_ptr(), int(kc.dtype == torch.bfloat16),
-            out.data_ptr(), b, nq, h, kvh, hd, s_len, pos,
-            window if window is not None else 0, scale * LOG2E,
-            int(cdt == torch.bfloat16), torch.cuda.current_stream(q4.device).cuda_stream)
+        stream = torch.cuda.current_stream(q4.device).cuda_stream
+        if quant:
+            rc = lib.smmb_flash_decode_quant(*q_args, kc.data_ptr(), kv_scale.data_ptr(),
+                                             out.data_ptr(), *shape, stream)
+        else:
+            rc = lib.smmb_flash_decode(*q_args, kc.data_ptr(), vc.data_ptr(),
+                                       int(kc.dtype == torch.bfloat16), out.data_ptr(),
+                                       *shape, stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error {rc}")
-    flash_attention_decode.launches += 1
+    if quant:
+        flash_attention_decode_quant.launches += 1
+    else:
+        flash_attention_decode.launches += 1
     return out
 
 
@@ -229,9 +285,48 @@ def flash_attention_chunk_plain(q, kc, vc, pos, *, window=None, sm_scale=None,
                                   compute_dtype)
 
 
-def flash_attention_decode_quant(*args, **kwargs):
-    raise NotImplementedError(INT8_CACHE_SLICE)
+def flash_attention_decode_quant(q: torch.Tensor, kv: torch.Tensor,
+                                 kv_scale: torch.Tensor, pos: int, *,
+                                 window: int | None = None,
+                                 sm_scale: float | None = None,
+                                 block_kv: int | None = None,
+                                 compute_dtype=None) -> torch.Tensor:
+    """``flash_attention_decode`` over the merged int8 cache (B8): ``kv``
+    (B, S, 2·KVH·hd) int8 codes with KV head h's k at slot 2h and its v at
+    slot 2h+1, ``kv_scale`` (B, 2·KVH, S) f32 absmax scales in the same
+    interleave, as ``models/attention.init_kv_cache(quantized=True)`` stores
+    them. The codes are read as int8 and cast on the card. The default
+    compute dtype is q's. Returns (B, H, hd) in the compute dtype."""
+    return _cache_attention(q[:, None], kv, None, pos, window, sm_scale, block_kv,
+                            compute_dtype, kv_scale)[:, 0]
 
 
-def flash_attention_chunk_quant(*args, **kwargs):
-    raise NotImplementedError(INT8_CACHE_SLICE)
+flash_attention_decode_quant.launches = 0
+
+
+def flash_attention_chunk_quant(q: torch.Tensor, kv: torch.Tensor,
+                                kv_scale: torch.Tensor, pos: int, *,
+                                window: int | None = None,
+                                sm_scale: float | None = None,
+                                block_kv: int | None = None,
+                                compute_dtype=None) -> torch.Tensor:
+    """``flash_attention_chunk`` over the merged int8 cache (see
+    ``flash_attention_decode_quant``; the same kernel, so row c equals the
+    int8 decode step at pos + c bitwise). Returns (B, C, H, hd)."""
+    return _cache_attention(q, kv, None, pos, window, sm_scale, block_kv,
+                            compute_dtype, kv_scale)
+
+
+def flash_attention_decode_quant_plain(q, kv, kv_scale, pos, *, window=None,
+                                       sm_scale=None, block_kv=None,
+                                       compute_dtype=None):
+    """``flash_attention_decode_quant`` in plain PyTorch, on any device."""
+    return _cache_attention_plain(q[:, None], kv, None, int(pos), window, sm_scale,
+                                  block_kv, compute_dtype, kv_scale)[:, 0]
+
+
+def flash_attention_chunk_quant_plain(q, kv, kv_scale, pos, *, window=None,
+                                      sm_scale=None, block_kv=None, compute_dtype=None):
+    """``flash_attention_chunk_quant`` in plain PyTorch, on any device."""
+    return _cache_attention_plain(q, kv, None, int(pos), window, sm_scale, block_kv,
+                                  compute_dtype, kv_scale)

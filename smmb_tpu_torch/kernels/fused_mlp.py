@@ -5,6 +5,8 @@ Replaces the Pallas TPU kernels of ``smmb_tpu/kernels/fused_mlp.py``:
 
 - B3 ``fused_norm_qkv`` (``pallas_call`` at :332): ``rmsnorm(x) · Wqkv``
   times a per-column scale plus a bias, the decode step's head;
+- B7 ``fused_norm_qkv_quant`` (:489): B3 with the K and V columns quantized
+  to int8 per (row, KV head) in the epilogue, the int8 cache's decode head;
 - B6 ``fused_mlp`` (:195): the two-plane MLP, the hidden layer kept out of
   device memory;
 - B5 ``fused_block_tail`` (:707): ``wo``, residual, RMSNorm and the MLP of a
@@ -50,6 +52,22 @@ def fits_shared(k: int) -> bool:
     """Hopper limit of every fused kernel: its staged rows fit a block's
     shared memory (k ≤ 6656 at 8 rows a block)."""
     return shared_bytes(k) <= MAX_SHARED_BYTES
+
+
+def quant_shared_bytes(d: int, hd: int) -> int:
+    """Shared memory of one B7 block: the (8, d) f32 rows, the 8 warps'
+    (8, 128) partial sums (kept apart from the rows, which every 128-column
+    sub-tile of a head reads again), the (8, hd) f32 y of one head's span,
+    and the norm's and the absmax's scratch (``quant_smem_bytes`` in
+    csrc/fused_mlp.cu)."""
+    m = ROWS_PER_BLOCK
+    return 4 * (m * d + 8 * m * HIDDEN_TILE + m * hd + 2 * m + 8 * m)
+
+
+def fits_shared_quant(d: int, hd: int) -> bool:
+    """Hopper limit of B7 (d ≤ 6000 at hd 128), in place of JAX's 6 MiB VMEM
+    cap on the whole packed plane."""
+    return quant_shared_bytes(d, hd) <= MAX_SHARED_BYTES
 
 
 def _check_float(name, compute_dtype):
@@ -100,15 +118,19 @@ def _cuda_call(name: str, x: torch.Tensor, *args) -> None:
 
 
 # ---------------------------------------------------------------- B3
-def fused_norm_qkv_plain(x, norm_g, wqkv, qkv_scale, bqkv, *, eps,
-                         compute_dtype=torch.bfloat16):
-    """B3 in plain PyTorch: RMSNorm in f32, cast to the compute dtype, the
+def _norm_qkv_y(x, norm_g, wqkv, qkv_scale, bqkv, eps, compute_dtype):
+    """B3's f32 result: RMSNorm in f32, cast to the compute dtype, the
     product with the decoded plane, scale per column, bias."""
     xf = x.to(torch.float32)
     h = (xf * _rms_inv(xf, eps) * norm_g.to(torch.float32)).to(compute_dtype)
     acc = _product(h, wqkv)
-    y = acc * qkv_scale.to(torch.float32) + bqkv.to(torch.float32)
-    return y.to(x.dtype)
+    return acc * qkv_scale.to(torch.float32) + bqkv.to(torch.float32)
+
+
+def fused_norm_qkv_plain(x, norm_g, wqkv, qkv_scale, bqkv, *, eps,
+                         compute_dtype=torch.bfloat16):
+    """B3 in plain PyTorch, rounded to x's dtype."""
+    return _norm_qkv_y(x, norm_g, wqkv, qkv_scale, bqkv, eps, compute_dtype).to(x.dtype)
 
 
 def fused_norm_qkv(
@@ -162,6 +184,104 @@ def fused_norm_qkv(
 
 
 fused_norm_qkv.launches = 0
+
+
+# ---------------------------------------------------------------- B7
+def quantize_absmax(x: torch.Tensor):
+    """(…, hd) float → (int8 codes, f32 scale with hd → 1): ``scale =
+    absmax / 127`` and ``codes = round_half_even(x / safe)`` in f32, a zero
+    scale dividing by 1 (JAX's rule, smmb_tpu/models/attention.py:365-372 and
+    kernels/fused_mlp.py:404-416). Both divisions are tensor by tensor: a
+    Python-number divisor becomes a reciprocal multiply on the card, which
+    can round a scale differently from IEEE division."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = amax / torch.full_like(amax, 127.0)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return torch.round(xf / safe).to(torch.int8), scale
+
+
+def quantize_heads(y: torch.Tensor, d_model: int, kv_heads: int, head_dim: int):
+    """The int8 epilogue of B7 on f32 ``y`` (M, d + 2·kv_dim):
+    ``quantize_absmax`` per (row, KV head) and plane. Returns codes
+    (M, 2·KVH·hd) int8 with KV head h's k at slot 2h and its v at 2h+1, and
+    scales (M, 2·KVH) f32 in the same interleave."""
+    m = y.shape[0]
+    kvd = kv_heads * head_dim
+    k = y[:, d_model:d_model + kvd].reshape(m, kv_heads, 1, head_dim)
+    v = y[:, d_model + kvd:].reshape(m, kv_heads, 1, head_dim)
+    codes, scale = quantize_absmax(torch.cat([k, v], dim=2))  # (M, KVH, 2, ·)
+    return codes.reshape(m, 2 * kvd), scale.reshape(m, 2 * kv_heads)
+
+
+def fused_norm_qkv_quant_plain(x, norm_g, wqkv, qkv_scale, bqkv, *, eps, d_model,
+                               kv_heads, head_dim, compute_dtype=torch.bfloat16):
+    """B7 in plain PyTorch: B3's f32 y, q rounded to x's dtype, K and V
+    quantized from the f32 y."""
+    y = _norm_qkv_y(x, norm_g, wqkv, qkv_scale, bqkv, eps, compute_dtype)
+    codes, scales = quantize_heads(y, d_model, kv_heads, head_dim)
+    return y[:, :d_model].to(x.dtype), codes, scales
+
+
+def fused_norm_qkv_quant(
+    x: torch.Tensor,
+    norm_g: torch.Tensor,
+    wqkv: TernaryPacked,
+    qkv_scale: torch.Tensor,
+    bqkv: torch.Tensor,
+    *,
+    eps: float,
+    d_model: int,
+    kv_heads: int,
+    head_dim: int,
+    compute_dtype=torch.bfloat16,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``fused_norm_qkv`` with the int8 cache quantization of K and V in the
+    same call: the decode step writes codes with no quantize between kernels.
+
+    x: (M, d_model) float; wqkv packed (d_model, d_model + 2·kv_dim);
+    qkv_scale and bqkv (N,). Returns q (M, d_model) in x.dtype (B3's
+    columns, bitwise), codes (M, 2·kv_dim) int8 in the per-head [k|v]
+    interleave and scales (M, 2·KVH) f32, the K/V quantized from the f32 y
+    (``quantize_heads``). A row's result does not depend on the other rows.
+    """
+    if compute_dtype not in FLOAT_DTYPES:
+        raise ValueError(f"fused_norm_qkv_quant is float-only, got {compute_dtype}")
+    m, d = x.shape
+    kd, n = wqkv.shape
+    kvd = kv_heads * head_dim
+    if kd != d or d != d_model or tuple(norm_g.shape) != (d,):
+        raise ValueError(f"x {tuple(x.shape)} / wqkv {wqkv.shape} / g {tuple(norm_g.shape)}")
+    if n != d + 2 * kvd:
+        raise ValueError(f"N={n} != d_model + 2·kv_dim = {d + 2 * kvd}")
+    if d % GROUP_ROWS or head_dim % 128:
+        raise ValueError(f"D={d} % {GROUP_ROWS} or head_dim={head_dim} % 128 != 0")
+    if tuple(qkv_scale.shape) != (n,) or tuple(bqkv.shape) != (n,):
+        raise ValueError(f"bad scale/bias shapes for N={n}")
+    kw = dict(eps=eps, d_model=d_model, kv_heads=kv_heads, head_dim=head_dim,
+              compute_dtype=compute_dtype)
+    if x.device.type == "cpu":
+        return fused_norm_qkv_quant_plain(x, norm_g, wqkv, qkv_scale, bqkv, **kw)
+    if x.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"fused_norm_qkv_quant takes f32 or bf16 x, got {x.dtype}")
+    dev = x.device
+    xc, g = x.contiguous(), _vec(norm_g, dev)
+    sc, b = _vec(qkv_scale, dev), _vec(bqkv, dev)
+    w = _words(wqkv, dev)
+    q = torch.empty((m, d), dtype=x.dtype, device=dev)
+    codes = torch.empty((m, 2 * kvd), dtype=torch.int8, device=dev)
+    scales = torch.empty((m, 2 * kv_heads), dtype=torch.float32, device=dev)
+    if m == 0:
+        return q, codes, scales
+    _cuda_call("fused_norm_qkv_quant", xc, xc.data_ptr(), int(x.dtype == torch.bfloat16),
+               g.data_ptr(), w.data_ptr(), sc.data_ptr(), b.data_ptr(), q.data_ptr(),
+               codes.data_ptr(), scales.data_ptr(), m, d, n, kv_heads, head_dim,
+               float(eps), int(compute_dtype == torch.bfloat16))
+    fused_norm_qkv_quant.launches += 1
+    return q, codes, scales
+
+
+fused_norm_qkv_quant.launches = 0
 
 
 # ---------------------------------------------------------------- B6

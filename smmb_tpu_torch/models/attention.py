@@ -4,22 +4,24 @@ smmb_tpu/models/attention.py).
 All four projections (Q, K, V, out) stream 2-bit ``TernaryPacked`` planes
 through ``packed_spmm`` (B1); the fused ``[Wq|Wk|Wv]`` plane serves the
 decode and extend steps in one call, with the pre-attention RMSNorm riding it
-through ``fused_norm_qkv`` (B3) when the gate allows. The attention math is
-plain PyTorch by default, as it is plain jnp in JAX; ``use_flash=True``
-routes the prefill through the flash kernel B9 (kernels/flash_attention.py)
-and the decode and extend cache reads through B4 (kernels/flash_decode.py)
-under JAX's gates.
+through ``fused_norm_qkv`` (B3) when the gate allows, or, over an int8 cache
+without rope, through ``fused_norm_qkv_quant`` (B7), which writes the cache's
+codes itself. The attention math is plain PyTorch by default, as it is plain
+jnp in JAX; ``use_flash=True`` routes the prefill through the flash kernel
+B9 (kernels/flash_attention.py) and the decode and extend cache reads
+through B4, or B8 over an int8 cache (kernels/flash_decode.py), under JAX's
+gates.
 
-The KV cache is a dict of flat (B, S, KVH·hd) float ``k``/``v`` tensors and
-a Python int ``pos``. Cache writes update the tensors in place (JAX returns
-new arrays; here the preallocated buffers are reused every step) and return
-a new dict with ``pos`` advanced. The f32 einsums run in full f32 (TF32 off),
-which is JAX's ``Precision.HIGHEST``, so the port has no ``precision``
-argument.
+The KV cache is a dict of flat (B, S, KVH·hd) float ``k``/``v`` tensors, or
+of the merged int8 ``kv`` (B, S, 2·KVH·hd) codes and ``kv_scale``
+(B, 2·KVH, S) f32 scales (``quantized=True``), and a Python int ``pos``.
+Cache writes update the tensors in place (JAX returns new arrays; here the
+preallocated buffers are reused every step) and return a new dict with
+``pos`` advanced. The f32 einsums run in full f32 (TF32 off), which is JAX's
+``Precision.HIGHEST``, so the port has no ``precision`` argument.
 
-Left out of this slice, each with a ``NotImplementedError``: the int8 cache
-(``quantized``, B7 and B8), ragged caches and ``valid`` masks (``ragged``)
-and LoRA adapters.
+Left out of this slice, each with a ``NotImplementedError``: ragged caches
+and ``valid`` masks (``ragged``) and LoRA adapters.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 from smmb_tpu_torch.formats.packed import concat_packed_cols, pack_ternary_device
 from smmb_tpu_torch.kernels import flash_attention as fa
 from smmb_tpu_torch.kernels import flash_decode as fd
-from smmb_tpu_torch.kernels.flash_decode import INT8_CACHE_SLICE
+from smmb_tpu_torch.kernels import fused_mlp as fk
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
 from smmb_tpu_torch.models.train import absmean_scale, ternarize_ste
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
@@ -240,17 +242,28 @@ def attention_forward(packed: dict, x: torch.Tensor, cfg: TernaryAttentionConfig
 def init_kv_cache(cfg: TernaryAttentionConfig, batch: int, max_len: int,
                   dtype=torch.float32, quantized: bool = False,
                   ragged: bool = False, device=None) -> dict:
-    """Preallocated KV cache for incremental decode: flat (B, S, KVH·hd)
-    ``k`` and ``v`` in ``dtype`` on ``device`` (None = the CUDA card), and
-    ``pos``, the count of tokens written."""
+    """Preallocated KV cache for incremental decode on ``device`` (None =
+    the CUDA card), with ``pos``, the count of tokens written: flat
+    (B, S, KVH·hd) ``k`` and ``v`` in ``dtype``, or with ``quantized`` the
+    merged int8 layout of JAX (smmb_tpu/models/attention.py:327-352): one
+    ``kv`` (B, S, 2·KVH·hd) int8 buffer with KV head h's k codes at slot 2h
+    and its v codes at 2h+1, and one ``kv_scale`` (B, 2·KVH, S) f32 buffer
+    of per-token absmax scales in the same interleave, stored transposed for
+    the flash kernel's per-column reads."""
     from smmb_tpu_torch.utils.device import resolve_device
 
-    if quantized:
-        raise NotImplementedError(INT8_CACHE_SLICE)
     if ragged:
         raise NotImplementedError(RAGGED_SLICE)
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.kv_heads * cfg.head_dim)
+    kvd = cfg.kv_heads * cfg.head_dim
+    if quantized:
+        return {
+            "kv": torch.zeros((batch, max_len, 2 * kvd), dtype=torch.int8, device=dev),
+            "kv_scale": torch.zeros((batch, 2 * cfg.kv_heads, max_len),
+                                    dtype=torch.float32, device=dev),
+            "pos": 0,
+        }
+    shape = (batch, max_len, kvd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=dev),
         "v": torch.zeros(shape, dtype=dtype, device=dev),
@@ -258,20 +271,56 @@ def init_kv_cache(cfg: TernaryAttentionConfig, batch: int, max_len: int,
     }
 
 
-def _cache_write(cache: dict, k, v, pos: int) -> dict:
-    """Write (B, C, KVH, hd) k/v at ``pos`` into the cache tensors in place;
-    returns the cache dict with ``pos`` advanced by C."""
-    b, c = k.shape[:2]
-    max_len = cache["k"].shape[1]
+# (…, hd) float → (int8 codes, f32 absmax/127 scale with hd → 1), B7's rule
+_quantize_kv = fk.quantize_absmax
+
+
+def _check_room(max_len: int, pos: int, c: int) -> None:
+    # JAX's dynamic_update_slice clamps a write past max_len; the port raises
     if pos + c > max_len:
         raise ValueError(f"cache write at {pos} of {c} tokens exceeds max_len={max_len}")
+
+
+def _cache_write_quantized(cache: dict, kv_codes, kv_scales, pos: int) -> dict:
+    """Write pre-quantized codes (B, C, 2·KVH·hd) int8 in the per-head
+    [k|v] interleave and scales (B, 2·KVH, C) f32 at ``pos`` into the merged
+    int8 cache, in place; returns the cache dict with ``pos`` advanced."""
+    c = kv_codes.shape[1]
+    _check_room(cache["kv"].shape[1], pos, c)
+    cache["kv"][:, pos:pos + c] = kv_codes
+    cache["kv_scale"][:, :, pos:pos + c] = kv_scales
+    return {**cache, "pos": pos + c}
+
+
+def _cache_write(cache: dict, k, v, pos: int) -> dict:
+    """Write (B, C, KVH, hd) k/v at ``pos`` into the cache tensors in place
+    (quantized first for an int8 cache: the prefill, rope and unfused
+    routes); returns the cache dict with ``pos`` advanced by C."""
+    b, c = k.shape[:2]
+    if "kv" in cache:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        codes = torch.stack([kq, vq], dim=3).reshape(b, c, -1)
+        scales = torch.stack([ks[..., 0], vs[..., 0]], dim=3).reshape(b, c, -1)
+        return _cache_write_quantized(cache, codes, scales.transpose(1, 2), pos)
+    _check_room(cache["k"].shape[1], pos, c)
     cache["k"][:, pos:pos + c] = k.reshape(b, c, -1).to(cache["k"].dtype)
     cache["v"][:, pos:pos + c] = v.reshape(b, c, -1).to(cache["v"].dtype)
     return {**cache, "pos": pos + c}
 
 
 def _cache_kv(cache: dict, kv_heads: int):
-    """The flat cache's K/V as (B, S, KVH, hd) views."""
+    """The cache's K/V as (B, S, KVH, hd): views of a float cache, or the
+    dequantized f32 copies of an int8 cache (the plain chunk math's input;
+    the flash kernel B8 reads the codes instead)."""
+    if "kv" in cache:
+        b, s, kvd2 = cache["kv"].shape
+        hd = kvd2 // (2 * kv_heads)
+        kv = cache["kv"].view(b, s, kv_heads, 2, hd).to(torch.float32)
+        sc = cache["kv_scale"].view(b, kv_heads, 2, s)
+        ksc = sc[:, :, 0].transpose(1, 2)[..., None]  # (B, S, KVH, 1)
+        vsc = sc[:, :, 1].transpose(1, 2)[..., None]
+        return kv[:, :, :, 0] * ksc, kv[:, :, :, 1] * vsc
     b, s, kvd = cache["k"].shape
     hd = kvd // kv_heads
     return (cache["k"].view(b, s, kv_heads, hd),
@@ -333,25 +382,21 @@ def _qkv_prenorm_fusable(packed, cfg, compute_dtype, use_kernel) -> bool:
     a float compute dtype, D aligned to the 512-row packed group and N to
     the 128-column tile JAX checks. Hopper limit: the (8, D) f32 rows a
     block stages fit its shared memory (``fused_mlp.fits_shared``)."""
-    from smmb_tpu_torch.kernels.fused_mlp import FLOAT_DTYPES, fits_shared
-
     return bool(
         use_kernel
         and packed.get("wqkv") is not None
         and not any(packed.get(n + "_lora") is not None for n in ("wq", "wk", "wv"))
-        and compute_dtype in FLOAT_DTYPES
+        and compute_dtype in fk.FLOAT_DTYPES
         and cfg.d_model % 512 == 0
         and packed["wqkv"].cols % 128 == 0
-        and fits_shared(cfg.d_model)
+        and fk.fits_shared(cfg.d_model)
     )
 
 
 def _proj_qkv_prenorm(packed, x, cfg, prenorm, compute_dtype):
     """norm1 + fused QKV in one kernel call (B3)."""
-    from smmb_tpu_torch.kernels.fused_mlp import fused_norm_qkv
-
     lead = x.shape[:-1]
-    y = fused_norm_qkv(
+    y = fk.fused_norm_qkv(
         x.reshape(-1, x.shape[-1]), prenorm[0], packed["wqkv"],
         packed["qkv_scale"], packed["bqkv"], eps=prenorm[1],
         compute_dtype=compute_dtype,
@@ -360,49 +405,90 @@ def _proj_qkv_prenorm(packed, x, cfg, prenorm, compute_dtype):
     return y[..., :d], y[..., d:d + kvd], y[..., d + kvd:]
 
 
+def _qkv_quant_fusable(packed, cfg, compute_dtype, use_kernel) -> bool:
+    """Can the int8 cache write ride B7's epilogue? JAX's conditions
+    (smmb_tpu/models/attention.py:672-687): B3's, no rope (keys are cached
+    roped, and the epilogue cannot rope) and head_dim % 128 == 0. Hopper
+    limit: B7's block fits its shared memory (``fused_mlp.fits_shared_quant``),
+    in place of JAX's 6 MiB VMEM cap on the plane."""
+    return bool(
+        _qkv_prenorm_fusable(packed, cfg, compute_dtype, use_kernel)
+        and not cfg.rope
+        and cfg.head_dim % 128 == 0
+        and fk.fits_shared_quant(cfg.d_model, cfg.head_dim)
+    )
+
+
+def _proj_qkv_prenorm_quant(packed, x, cfg, prenorm, compute_dtype):
+    """norm1 + fused QKV + the int8 quantize of K and V in one call (B7).
+    x (B, C, D) → q (B, C, D), codes (B, C, 2·kv_dim) int8 and scales
+    (B, 2·KVH, C) f32, shaped for ``_cache_write_quantized``."""
+    b, c, _ = x.shape
+    q, codes, scales = fk.fused_norm_qkv_quant(
+        x.reshape(b * c, -1), prenorm[0], packed["wqkv"], packed["qkv_scale"],
+        packed["bqkv"], eps=prenorm[1], d_model=cfg.d_model, kv_heads=cfg.kv_heads,
+        head_dim=cfg.head_dim, compute_dtype=compute_dtype,
+    )
+    return (q.reshape(b, c, -1), codes.reshape(b, c, -1),
+            scales.reshape(b, c, -1).transpose(1, 2))
+
+
 def _cache_code_bytes(cache: dict) -> int:
-    """Total k+v bytes in the cache (the flash gate's size signal)."""
+    """Total k+v code bytes in the cache (the flash gate's size signal; the
+    int8 cache's scales are not counted)."""
+    if "kv" in cache:
+        return cache["kv"].numel()
     return 2 * cache["k"].numel() * cache["k"].element_size()
 
 
 def _flash_decode_ok(cache: dict, cfg: TernaryAttentionConfig, b: int,
                      use_flash: bool) -> bool:
-    """JAX's decode gate (smmb_tpu/models/attention.py:774-787) for a float
-    cache: ``use_flash``, no ragged ``valid`` mask, head_dim % 128 == 0, and
-    batch 1 or [batch ≤ FLASH_DECODE_MAX_BATCH and a cache of at least
+    """JAX's decode gate (smmb_tpu/models/attention.py:774-787): ``use_flash``,
+    no ragged ``valid`` mask, head_dim % 128 == 0, and batch 1, or an int8
+    cache at any batch (the plain path would dequantize the whole cache), or
+    [batch ≤ FLASH_DECODE_MAX_BATCH and a cache of at least
     FLASH_DECODE_MIN_CACHE_BYTES]."""
     return bool(
         use_flash
         and cache.get("valid") is None
         and cfg.head_dim % 128 == 0
-        and (b == 1 or (b <= FLASH_DECODE_MAX_BATCH
-                        and _cache_code_bytes(cache) >= FLASH_DECODE_MIN_CACHE_BYTES))
+        and (b == 1 or "kv" in cache
+             or (b <= FLASH_DECODE_MAX_BATCH
+                 and _cache_code_bytes(cache) >= FLASH_DECODE_MIN_CACHE_BYTES))
     )
 
 
 def _flash_chunk_ok(cache: dict, cfg: TernaryAttentionConfig, c: int,
                     use_flash: bool) -> bool:
-    """JAX's extend gate (smmb_tpu/models/attention.py:902-913): the decode
+    """JAX's extend gate (smmb_tpu/models/attention.py:899-913): the decode
     gate's semantic conditions without the batch rule, and a chunk whose
     rows fit the kernel's block (``flash_decode.flash_chunk_rows_ok``, the
-    card's shared memory in place of JAX's VMEM budget)."""
-    kc = cache["k"]
+    card's shared memory in place of JAX's VMEM budget). The code buffer's
+    width and itemsize go through as JAX passes them; the int8 cache's
+    width is 2·KVH·hd, which the rows check reads as KVH heads."""
+    code_buf = cache["kv"] if "kv" in cache else cache["k"]
     return bool(
         use_flash
         and cache.get("valid") is None
         and cfg.head_dim % 128 == 0
-        and fd.flash_chunk_rows_ok(c, cfg.n_heads, cfg.head_dim, kc.shape[-1],
-                                   kc.element_size())
+        and fd.flash_chunk_rows_ok(c, cfg.n_heads, cfg.head_dim, code_buf.shape[-1],
+                                   code_buf.element_size())
     )
 
 
 def _step_qkv(packed, x, cache, cfg, compute_dtype, use_kernel, prenorm):
-    """Q, K, V of a decode or extend step (B, C, ·): the fused projection
-    (with the norm inside B3 under ``prenorm``), rope at the cache position,
-    and the cache write. Returns (q (B, C, H, hd), cache)."""
+    """Q, K, V of a decode or extend step (B, C, ·) and the cache write:
+    over an int8 cache under B7's gate, B7's codes go straight into the
+    cache; otherwise the fused projection (with the norm inside B3 under
+    ``prenorm``), rope at the cache position, and the write (quantized
+    after the fact for an int8 cache). Returns (q (B, C, H, hd), cache)."""
     if "valid" in cache:
         raise NotImplementedError(RAGGED_SLICE)
     pos = cache["pos"]
+    if (prenorm is not None and "kv" in cache
+            and _qkv_quant_fusable(packed, cfg, compute_dtype, use_kernel)):
+        qf, codes, scales = _proj_qkv_prenorm_quant(packed, x, cfg, prenorm, compute_dtype)
+        return _split_heads(qf, cfg), _cache_write_quantized(cache, codes, scales, pos)
     if prenorm is not None:
         qf, kf, vf = _proj_qkv_prenorm(packed, x, cfg, prenorm, compute_dtype)
     else:
@@ -424,17 +510,25 @@ def attention_decode_core(packed: dict, x_t: torch.Tensor, cache: dict,
     """``attention_decode_step`` without the output projection: returns the
     pre-``wo`` mix (B, 1, H·hd) and the cache. With ``prenorm=(g, eps)``,
     x_t is the raw residual stream and the RMSNorm runs inside B3 (the
-    caller has checked ``_qkv_prenorm_fusable``). Under ``use_flash`` and
-    JAX's gate (``_flash_decode_ok``) the cache read is the kernel B4."""
+    caller has checked ``_qkv_prenorm_fusable``; over an int8 cache the
+    norm and the quantize ride B7 when ``_qkv_quant_fusable``). Under
+    ``use_flash`` and JAX's gate (``_flash_decode_ok``) the cache read is
+    the kernel B4, or B8 over an int8 cache."""
     b, one, _ = x_t.shape
     if one != 1:
         raise ValueError(f"decode step takes one token, got T={one}")
     pos = cache["pos"]
     q, cache = _step_qkv(packed, x_t, cache, cfg, compute_dtype, use_kernel, prenorm)
     if _flash_decode_ok(cache, cfg, b, use_flash):
-        out = fd.flash_attention_decode(
-            q[:, 0], cache["k"], cache["v"], pos, window=cfg.window,
-            compute_dtype=compute_dtype).reshape(b, 1, -1)
+        if "kv" in cache:
+            out = fd.flash_attention_decode_quant(
+                q[:, 0], cache["kv"], cache["kv_scale"], pos, window=cfg.window,
+                compute_dtype=compute_dtype)
+        else:
+            out = fd.flash_attention_decode(
+                q[:, 0], cache["k"], cache["v"], pos, window=cfg.window,
+                compute_dtype=compute_dtype)
+        out = out.reshape(b, 1, -1)
     else:
         kc, vc = _cache_kv(cache, cfg.kv_heads)
         out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window)
@@ -459,16 +553,22 @@ def attention_extend_core(packed: dict, x: torch.Tensor, cache: dict,
                           use_flash: bool = False, prenorm=None):
     """``attention_extend`` without the output projection (the decode
     core's contract for a (B, C, D) chunk). Under ``use_flash`` and the
-    chunk gate (``_flash_chunk_ok``) the cache read is B4's chunk entry, so
-    a token's row equals its decode step's bitwise. Returns the pre-``wo``
-    mix (B, C, H·hd) and the cache."""
+    chunk gate (``_flash_chunk_ok``) the cache read is B4's chunk entry (B8's
+    over an int8 cache), so a token's row equals its decode step's bitwise.
+    Returns the pre-``wo`` mix (B, C, H·hd) and the cache."""
     b, c, _ = x.shape
     pos = cache["pos"]
     q, cache = _step_qkv(packed, x, cache, cfg, compute_dtype, use_kernel, prenorm)
     if _flash_chunk_ok(cache, cfg, c, use_flash):
-        out = fd.flash_attention_chunk(
-            q, cache["k"], cache["v"], pos, window=cfg.window,
-            compute_dtype=compute_dtype).reshape(b, c, -1)
+        if "kv" in cache:
+            out = fd.flash_attention_chunk_quant(
+                q, cache["kv"], cache["kv_scale"], pos, window=cfg.window,
+                compute_dtype=compute_dtype)
+        else:
+            out = fd.flash_attention_chunk(
+                q, cache["k"], cache["v"], pos, window=cfg.window,
+                compute_dtype=compute_dtype)
+        out = out.reshape(b, c, -1)
     else:
         kc, vc = _cache_kv(cache, cfg.kv_heads)
         out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window)

@@ -11,12 +11,15 @@ place.
 
 ``use_flash`` runs the prefill's attention as the flash kernel B9 and the
 decode and extend cache reads as B4 (kernels/flash_attention.py,
-kernels/flash_decode.py) under JAX's gates.
+kernels/flash_decode.py) under JAX's gates. ``kv_quant`` (``quantized``
+caches) stores the KV caches as int8 codes and per-token scales: the decode
+and extend steps write them through B7 and, under ``use_flash``, read them
+through B8.
 
 Left out of this slice, each with a ``NotImplementedError``: MoE blocks
-(``n_experts``), ``kv_quant`` (B7, B8), ``prompt_mask`` and ``pos_ids``
-(ragged batches), ``fork_cache``, ``generate_beam`` and training
-(``qat_lm_forward``, ``make_lm_train_step``).
+(``n_experts``), ``prompt_mask`` and ``pos_ids`` (ragged batches),
+``fork_cache``, ``generate_beam`` and training (``qat_lm_forward``,
+``make_lm_train_step``).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 from smmb_tpu_torch.formats.packed import pack_ternary_device
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
 from smmb_tpu_torch.models import transformer as tb
-from smmb_tpu_torch.models.attention import INT8_CACHE_SLICE, RAGGED_SLICE
+from smmb_tpu_torch.models.attention import RAGGED_SLICE
 from smmb_tpu_torch.models.train import absmean_scale, ternarize_ste
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
@@ -132,7 +135,8 @@ def lm_init_cache(cfg: TernaryLMConfig, batch: int, dtype=torch.float32,
                   quantized: bool = False, ragged: bool = False,
                   device=None) -> list:
     """One preallocated (B, max_len) KV cache per block on ``device``
-    (None = the CUDA card)."""
+    (None = the CUDA card); ``quantized``: the merged int8 layout
+    (``attention.init_kv_cache``)."""
     return [tb.init_block_cache(cfg.block, batch, cfg.max_len, dtype=dtype,
                                 quantized=quantized, ragged=ragged, device=device)
             for _ in range(cfg.n_layers)]
@@ -221,13 +225,14 @@ def generate(packed: dict, prompt: torch.Tensor, cfg: TernaryLMConfig,
     prompt's device; each step writes them in place. As in JAX, the last
     step's logits pick no token. ``use_flash`` runs the prefill through B9
     and the decode steps' cache reads through B4 (under JAX's gate).
-    ``prefill_chunk`` runs the prompt through ``lm_prefill_chunked`` (T %
-    chunk == 0); as in JAX it is not combinable with ``use_flash``.
+    ``kv_quant`` stores int8 codes and per-token absmax scales in place of
+    the float caches (B7 writes them each step, B8 reads them under
+    ``use_flash``). ``prefill_chunk`` runs the prompt through
+    ``lm_prefill_chunked`` (T % chunk == 0); as in JAX it is not combinable
+    with ``use_flash``.
     """
     if prefill_chunk is not None and (prompt_mask is not None or use_flash):
         raise ValueError("prefill_chunk is not combinable with prompt_mask/use_flash")
-    if kv_quant:
-        raise NotImplementedError(INT8_CACHE_SLICE)
     if prompt_mask is not None:
         raise NotImplementedError(RAGGED_SLICE)
     if prompt.shape[1] + steps > cfg.max_len:
@@ -238,7 +243,7 @@ def generate(packed: dict, prompt: torch.Tensor, cfg: TernaryLMConfig,
     sampler = _make_sampler(temperature, top_k, top_p)
     kw = dict(compute_dtype=compute_dtype, use_kernel=use_kernel)
     cache = lm_init_cache(cfg, prompt.shape[0], dtype=compute_dtype,
-                          device=prompt.device)
+                          quantized=kv_quant, device=prompt.device)
     if prefill_chunk is not None:
         logits, cache = lm_prefill_chunked(packed, prompt, cache, cfg, prefill_chunk, **kw)
     else:

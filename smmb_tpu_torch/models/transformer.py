@@ -11,6 +11,8 @@ their size limits are re-derived from the CUDA kernels' shared memory.
 ``block_extend`` (a C-token chunk) takes the decode step's routes at
 M = B·C rows, so a token's row is the same in a chunk as in its decode step;
 ``use_flash`` sends the attention to B9 (prefill) and B4 (decode, extend).
+Over an int8 cache (``init_block_cache(quantized=True)``) the attention
+layer takes B7 in B3's place and B8 in B4's.
 """
 
 from __future__ import annotations

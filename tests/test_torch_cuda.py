@@ -13,7 +13,11 @@ f32 in another order); int8 1e-6 (same codes, exact int32 sums, the same
 separately rounded epilogue). The fused kernels (B3, B5, B6) and the flash
 kernels (B4, B9) and the BCSR kernel (B2): f32 1e-4 and bf16 2**-7 (a staged
 value, or B2's f32 sum rounded once to bf16, can round to the neighbouring
-bf16).
+bf16). The int8 cache's kernels: B7's q as B3's; its codes bitwise the
+quantize of B3's f32 output (codes within 1 and scales within 1e-5 of the
+plain version, whose f32 sums run in another order); B8 against its plain
+version as B4, and within 2e-2 relative of B4 on the dequantized cache (p
+rounds to the compute dtype after the v scale in B8, before it in B4).
 """
 
 import numpy as np
@@ -28,6 +32,7 @@ from smmb_tpu_torch.kernels import flash_attention as fa
 from smmb_tpu_torch.kernels import flash_decode as fd
 from smmb_tpu_torch.kernels import fused_mlp as fk
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
+from smmb_tpu_torch.models import attention as tattn
 from smmb_tpu_torch.models import lm as tlm
 from smmb_tpu_torch.models import mlp as tmlp
 from smmb_tpu_torch.nn import PackedTernaryDense
@@ -325,3 +330,91 @@ def test_run_case_on_the_card_times_every_row(cuda):
     names = [r.kernel for r in rows]
     assert "bcsr_kernel" in names and "packed_kernel_w2a8_prelu" in names
     assert all(r.valid and np.isfinite(r.time_s) and r.time_s > 0 for r in rows)
+
+
+def _b7_args(seed, m, d, kvh, hd, dev, x_dtype=torch.float32):
+    args, _ = _fused_args("fused_norm_qkv", seed, m, d, d + 2 * kvh * hd, dev)
+    return (args[0].to(x_dtype),) + args[1:], dict(eps=1e-6, d_model=d, kv_heads=kvh,
+                                                   head_dim=hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,kvh,hd", [(1, 1024, 8, 128), (1, 1024, 2, 128),
+                                        (5, 1024, 4, 256), (9, 512, 2, 128)])
+def test_fused_norm_qkv_quant_matches_plain(cuda, cdt, m, d, kvh, hd):
+    args, kw = _b7_args(m + kvh, m, d, kvh, hd, cuda)
+    before = fk.fused_norm_qkv_quant.launches
+    q, codes, scales = fk.fused_norm_qkv_quant(*args, compute_dtype=cdt, **kw)
+    assert fk.fused_norm_qkv_quant.launches == before + 1
+    pq, pcodes, pscales = fk.fused_norm_qkv_quant_plain(*args, compute_dtype=cdt, **kw)
+    y = fk.fused_norm_qkv(*args, eps=1e-6, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    assert torch.equal(q, y[:, :d])
+    want_codes, want_scales = fk.quantize_heads(y, d, kvh, hd)
+    assert torch.equal(codes, want_codes) and torch.equal(scales, want_scales)
+    assert_close(q, pq, FUSED_TOL[cdt] * max(1.0, float(pq.abs().max())), "B7 q")
+    assert int((codes.int() - pcodes.int()).abs().max()) <= 1
+    assert_close(scales, pscales, 1e-5 * float(pscales.abs().max()), "B7 scales")
+    one = fk.fused_norm_qkv_quant(args[0][:1], *args[1:], compute_dtype=cdt, **kw)
+    assert all(torch.equal(a[:1], b) for a, b in zip((q, codes, scales), one))
+
+
+def _int8_cache(rs, b, s, kvh, n, dev):
+    cfg = tattn.TernaryAttentionConfig(d_model=kvh * 128, n_heads=kvh)
+    cache = tattn.init_kv_cache(cfg, b, s, quantized=True, device=dev)
+    k = _normal(rs, (b, n, kvh, 128), torch.float32, dev)
+    v = _normal(rs, (b, n, kvh, 128), torch.float32, dev)
+    return tattn._cache_write(cache, k, v, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,s,pos,window", [
+    (1, 8, 8, 224, 95, None), (1, 8, 2, 1024, 512, None), (2, 4, 4, 300, 260, 64),
+    (4, 8, 8, 1024, 512, None),
+])
+def test_flash_decode_quant_matches_plain_rows_bitwise(cuda, cdt, b, h, kvh, s, pos, window):
+    rs = np.random.default_rng(pos + h + 1)
+    cache = _int8_cache(rs, b, s, kvh, pos + 1, cuda)
+    kv, sc = cache["kv"], cache["kv_scale"]
+    q = _normal(rs, (b, 5, h, 128), torch.float32, cuda, 8.0)
+    kw = dict(window=window, compute_dtype=cdt)
+    dec = fd.flash_attention_decode_quant
+    before = dec.launches
+    y = dec(q[:, 0], kv, sc, pos, **kw)
+    assert dec.launches == before + 1
+    ref = fd.flash_attention_decode_quant_plain(q[:, 0], kv, sc, pos, **kw)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape and y.dtype == cdt
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert_close(y.float(), ref.float(), FUSED_TOL[cdt] * scale, "B8")
+    kc, vc = (t.reshape(b, s, kvh * 128).contiguous() for t in tattn._cache_kv(cache, kvh))
+    b4 = fd.flash_attention_decode(q[:, 0], kc, vc, pos, **kw)
+    assert_close(y.float(), b4.float(), 2e-2 * scale, "B8 vs B4 on the dequantized cache")
+    chunk = fd.flash_attention_chunk_quant(q, kv, sc, pos - 4, **kw)
+    for c in range(5):
+        assert torch.equal(chunk[:, c], dec(q[:, c], kv, sc, pos - 4 + c, **kw))
+    for r in range(b):
+        assert torch.equal(y[r:r + 1], dec(q[r:r + 1, 0], kv[r:r + 1], sc[r:r + 1], pos, **kw))
+
+
+@pytest.mark.cuda
+def test_generate_kv_quant_launch_counts_and_tokens(cuda):
+    cfg = tlm.TernaryLMConfig(vocab=512, d_model=512, n_heads=4, d_ff=1024,
+                              n_layers=2, max_len=32)
+    gen = rng.make_generator(0)
+    packed = tlm.pack_lm(tlm.init_lm(gen, cfg))
+    prompt = torch.randint(0, cfg.vocab, (1, 8), generator=gen, device=cuda)
+    counted = (packed_spmm, fk.fused_norm_qkv, fk.fused_norm_qkv_quant, fk.fused_block_tail,
+               fk.fused_mlp, fa.flash_attention, fd.flash_attention_decode,
+               fd.flash_attention_decode_quant)
+    for flash, want in ((True, [6 * 2 + 1 + 5, 0, 2 * 5, 2 * 5, 2, 2, 0, 2 * 5]),
+                        (False, [6 * 2 + 1 + 5, 0, 2 * 5, 2 * 5, 2, 0, 0, 0])):
+        for fn in counted:
+            fn.launches = 0
+        toks = tlm.generate(packed, prompt, cfg, 5, kv_quant=True, use_flash=flash)
+        assert [fn.launches for fn in counted] == want
+        # int8 cache noise may flip late near-tie tokens; early steps agree
+        plain = tlm.generate(packed, prompt, cfg, 5, use_kernel=False, kv_quant=True)
+        assert torch.equal(toks[:, :2], plain[:, :2])

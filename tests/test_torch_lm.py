@@ -30,7 +30,6 @@ from smmb_tpu.models import lm as jlm
 from smmb_tpu.models import transformer as jtb
 from smmb_tpu_torch import convert
 from smmb_tpu_torch.kernels import flash_attention as tfa
-from smmb_tpu_torch.kernels import flash_decode as tfd
 from smmb_tpu_torch.kernels import fused_mlp as tfk
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
 from smmb_tpu_torch.models import attention as tattn
@@ -218,9 +217,7 @@ def test_generate_sampling_needs_a_generator_and_fits_max_len(lm_pair):
 @pytest.mark.parametrize("call,match", [
     (lambda p, t: tfa.flash_attention(*(torch.zeros(1, 2, 4, 128),) * 3,
                                       pipeline_p=True), "B9"),
-    (lambda p, t: tlm.generate(p, t, TCFG, 2, kv_quant=True), "B7"),
     (lambda p, t: tlm.generate(p, t, TCFG, 2, prompt_mask=torch.ones_like(t)), "ragged"),
-    (lambda p, t: tfd.flash_attention_decode_quant(t, t, t, 0), "B8"),
     (lambda p, t: tlm.lm_extend(p, t, tlm.lm_init_cache(TCFG, 1, device="cpu"), TCFG,
                                 pos_ids=t), "ragged"),
     (lambda p, t: tlm.fork_cache([], 2), "fork_cache"),
@@ -230,13 +227,10 @@ def test_generate_sampling_needs_a_generator_and_fits_max_len(lm_pair):
     (lambda p, t: tlm.TernaryLMConfig(**{**CFG, "n_experts": 4}).block, "MoE"),
     (lambda p, t: tlm.qat_lm_forward({}, t, TCFG), "qat_lm_forward"),
     (lambda p, t: tlm.make_lm_train_step(TCFG), "make_lm_train_step"),
-    (lambda p, t: tattn.init_kv_cache(TCFG.block.attn, 1, 8, quantized=True,
-                                      device="cpu"), "B8"),
     (lambda p, t: tlm.lm_forward(
         {**p, "blocks": [{**p["blocks"][0], "w_up_lora": (1, 2, 3)}]}, t, TCFG), "LoRA"),
-], ids=["pipeline_p", "kv_quant", "prompt_mask", "decode_quant", "extend_pos_ids",
-        "fork_cache", "generate_beam", "pos_ids", "moe", "qat_lm_forward",
-        "make_lm_train_step", "int8_cache", "lora"])
+], ids=["pipeline_p", "prompt_mask", "extend_pos_ids", "fork_cache", "generate_beam",
+        "pos_ids", "moe", "qat_lm_forward", "make_lm_train_step", "lora"])
 def test_left_out_options_raise(lm_pair, call, match):
     _, _, tpacked = lm_pair
     with pytest.raises(NotImplementedError, match=match):
