@@ -77,7 +77,24 @@ which exits non-zero on failure:
     ``--flash``, and the traced int8 decode step;
 19. times of B7 and B8 at the path shapes and B8 at pos 8191: kernel, plain
     version, bound, ``torch.matmul`` on the dense Wqkv (B7) and
-    ``scaled_dot_product_attention`` on the dequantized bf16 cache (B8).
+    ``scaled_dot_product_attention`` on the dequantized bf16 cache (B8);
+20. B9p (``flash_attention(pipeline_p=True)``) against its plain version in
+    f32 and bf16 at phase 11's causal shapes, bitwise the serial kernel
+    where both take the same tile, counted apart from B9, the non-causal
+    call refused; and the LM prefill with B9p in B9's place, counted,
+    bitwise the serial prefill's logits;
+21. the serving controls at the ``lm`` defaults with the spec bench's draft:
+    ``generate_speculative(use_flash=True)`` in bf16 (k = 4, 64 steps) with
+    the random draft and with self-draft, counted, token for token
+    ``generate(use_flash=True)``; batched speculative decoding (B = 4, f32)
+    and a ragged ``generate`` (prompts of 5, 12 and 9 tokens, f32), each row
+    token for token its own batch-1 ``generate`` up to a near tie;
+    ``generate_beam`` (beam 1 is greedy, beam 4 sorted and distinct, its
+    best beside beam 1's);
+    ``fork_cache`` to 4 rows and a decode step against the plain routing;
+22. times of B9p against the serial kernel, its plain version, its bound and
+    ``scaled_dot_product_attention`` at the LM prefill and at T = 4096 bf16,
+    and the three rows of ``python -m smmb_tpu_torch spec``.
 
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
@@ -319,6 +336,9 @@ def main() -> int:
     int8_err = check_int8_kernels(torch, dev)
     int8 = run_int8_lm_path(torch, dev, lm)
     int8_rows = time_int8_kernels(torch, dev, spec, int8_err, int8)
+    pipe = check_pipe_kernel(torch, dev, lm)
+    run_serving_controls(torch, dev, lm)
+    pipe_rows = time_serving_controls(torch, dev, spec, pipe)
 
     main_mode = per_mode["bf16"]  # the main path's mode and per-layer shape
     summary = {"kernels": [{
@@ -333,7 +353,7 @@ def main() -> int:
         "bound_ms": main_mode["bound_ms"],
         "bound_by": main_mode["bound_by"],
         "library_ms": main_mode["library_ms"],
-    }, *bcsr_rows, *fused_rows, *flash_rows, *int8_rows]}
+    }, *bcsr_rows, *fused_rows, *flash_rows, *int8_rows, *pipe_rows]}
     log(f"all phases passed in {time.time() - T0:.1f}s")
     print(json.dumps(summary), flush=True)
     print(card_line(), flush=True)
@@ -1504,6 +1524,336 @@ def time_int8_kernels(torch, dev, spec, errs, int8) -> list:
         })
     log("phase 19 passed: B7 and B8 timed at the path shapes and B8 at pos 8191")
     return summary
+
+
+# ------------------------------------------------- serving-controls slice
+def check_pipe_kernel(torch, dev, lm) -> dict:
+    """Phase 20: B9p against its plain version and the serial kernel, and
+    the LM prefill through B9p (the counted run of its launches)."""
+    import types
+
+    from smmb_tpu_torch.kernels import flash_attention as fa
+    from smmb_tpu_torch.models import attention
+    from smmb_tpu_torch.models.lm import lm_init_cache, lm_prefill
+    from smmb_tpu_torch.utils import rng
+
+    # tolerances as phase 11's: f32 1e-4, bf16 2**-7, relative to max(1, max|Y|)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+    gen = rng.make_generator(201, dev)
+    fn = fa.flash_attention
+    out, n_bitwise = {}, 0
+    for label, b, h, kvh, t, hd, causal, window in FLASH_PREFILL_SHAPES:
+        if not causal:
+            continue
+        bt = fa.kernel_tile(hd, True)
+        for dt in (torch.float32, torch.bfloat16):
+            q = (rng.rand_dense(gen, (b, t, h, hd)) * 4.0).to(dt).permute(0, 2, 1, 3)
+            k = rng.rand_dense(gen, (b, kvh, t, hd), dtype=dt)
+            v = rng.rand_dense(gen, (b, kvh, t, hd), dtype=dt)
+            what = f"{label} {dt}"
+            before = (fn.launches, fn.pipe_launches)
+            y = fn(q, k, v, window=window, pipeline_p=True)
+            check((fn.launches, fn.pipe_launches) == (before[0], before[1] + 1),
+                  f"B9p counts one pipe launch and no serial one {what}")
+            err = _held(torch, "B9p", y, fa.flash_attention_plain(
+                q, k, v, window=window, block_kv=bt, pipeline_p=True), tol[dt], what)
+            if bt == fa.kernel_tile(hd):
+                serial = fn(q, k, v, window=window)
+                torch.cuda.synchronize()
+                check(torch.equal(y, serial), f"B9p != the serial kernel bitwise {what}")
+                n_bitwise += 1
+            if (label, dt) == ("lm prefill", torch.float32):
+                out["max_abs_err"] = err
+        log(f"B9p == plain at {label} (B={b} H={h} KVH={kvh} T={t} hd={hd} window={window}, "
+            f"tile {bt}) in f32 and bf16")
+    q = torch.zeros((1, 2, 8, 128), device=dev)
+    try:
+        fn(q, q, q, causal=False, pipeline_p=True)
+        check(False, "B9p took a non-causal call")
+    except ValueError:
+        pass
+
+    # the LM prefill with B9p in B9's place: the only route to B9p is its
+    # keyword (no model entry point passes it, as in JAX), so the counted
+    # run swaps it in for the serial kernel, and the logits stay bitwise
+    cfg, packed, prompt = lm["cfg"], lm["packed"], lm["prompt"]
+
+    def prefill():
+        cache = lm_init_cache(cfg, 1, dtype=torch.float32, device=dev)
+        return lm_prefill(packed, prompt, cache, cfg, use_flash=True)[0]
+
+    serial = prefill()
+    torch.cuda.synchronize()
+    fn.launches = fn.pipe_launches = 0
+    attention.fa = types.SimpleNamespace(
+        flash_attention=lambda *a, **kw: fn(*a, pipeline_p=True, **kw))
+    try:
+        piped = prefill()
+        torch.cuda.synchronize()
+    finally:
+        attention.fa = fa
+    out["launches"] = fn.pipe_launches
+    check((fn.launches, fn.pipe_launches) == (0, cfg.n_layers),
+          f"LM prefill through B9p: launches {fn.launches} serial, {fn.pipe_launches} pipe")
+    check(torch.equal(piped, serial), "LM prefill logits through B9p != through B9")
+    log(f"phase 20 passed: B9p agrees with its plain version, bitwise the serial kernel at "
+        f"{n_bitwise} shape/dtype pairs; the LM prefill through B9p ({out['launches']} "
+        "launches) gives the serial prefill's logits bitwise")
+    return out
+
+
+def _first_diff(a, b):
+    """The first step where two token rows differ, or None."""
+    diff = (a != b).nonzero()
+    return int(diff[0]) if len(diff) else None
+
+
+def _ragged_teacher_forced(torch, cfg, packed, batch, mask, ids, cdt):
+    """(B, steps, vocab) f32 logits of a batched, ragged-cache run (prefill
+    with ``mask`` then decode steps with per-row positions) fed ``ids``."""
+    from smmb_tpu_torch.models.lm import lm_decode_step, lm_init_cache, lm_prefill
+
+    kw = dict(compute_dtype=cdt)
+    cache = lm_init_cache(cfg, batch.shape[0], dtype=cdt, ragged=True, device=batch.device)
+    logits, cache = lm_prefill(packed, batch, cache, cfg, prompt_mask=mask, **kw)
+    out, pos = [logits], mask.to(torch.int64).sum(dim=1)
+    for i in range(ids.shape[1] - 1):
+        logits, cache = lm_decode_step(packed, ids[:, i], cache, cfg, pos_ids=pos + i, **kw)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return torch.stack(out, 1).float()
+
+
+NEAR_TIE = 1e-5  # a top-2 logit gap under this share of max|logit| is a near tie
+
+
+def _hold_rows(torch, what, cfg, packed, got, prompts, refs, batch, mask, cdt) -> list:
+    """Each row of a batched run ``got`` (B, steps) against its own batch-1
+    run ``refs[r]``. Where a row first differs, the batch-1 route's logits
+    at that step (teacher-forced) give the top-2 gap and the distance to the
+    batched route's logits there (teacher-forced on the same tokens). The
+    flip is a near tie when the gap is under NEAR_TIE of max|logit| or under
+    that distance; any other flip fails. Returns the near ties."""
+    ties, batched = [], None
+    for r, (prompt, ref) in enumerate(zip(prompts, refs)):
+        step = _first_diff(got[r], ref[0])
+        if step is None:
+            continue
+        if batched is None:
+            ids = torch.cat([x for x in refs], 0)
+            batched = _ragged_teacher_forced(torch, cfg, packed, batch, mask, ids, cdt)
+        alone = _teacher_forced(torch, cfg, packed, prompt, ref, cdt, True)[step]
+        top2 = torch.topk(alone, 2).values
+        scale = float(alone.abs().max())
+        gap = float(top2[0] - top2[1]) / scale
+        dist = float((alone - batched[r, step]).abs().max()) / scale
+        log(f"{what} row {r} first differs at step {step}: top-2 gap {gap:.3e}, route "
+            f"distance {dist:.3e} of max|logit| {scale:.3e}")
+        check(gap <= max(NEAR_TIE, dist), f"{what} row {r} flips at step {step} beyond a near "
+              f"tie (gap {gap:.3e} > {NEAR_TIE:.0e} and > route distance {dist:.3e})")
+        ties.append({"run": what, "row": r, "step": step, "gap": gap, "distance": dist})
+    return ties
+
+
+def run_serving_controls(torch, dev, lm) -> dict:
+    """Phase 21: speculative decoding, batched and ragged serving, beam
+    search and prefix forking at the ``lm`` defaults."""
+    import dataclasses
+
+    from smmb_tpu_torch.bench.spec_bench import configs
+    from smmb_tpu_torch.kernels import flash_attention as fa
+    from smmb_tpu_torch.kernels import flash_decode as fd
+    from smmb_tpu_torch.kernels import fused_mlp as fk
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.lm import (
+        fork_cache,
+        generate,
+        generate_beam,
+        init_lm,
+        lm_decode_step,
+        lm_init_cache,
+        lm_prefill,
+        pack_lm,
+    )
+    from smmb_tpu_torch.models.spec_decode import generate_speculative
+    from smmb_tpu_torch.utils import rng
+
+    cfg, packed, prompt = lm["cfg"], lm["packed"], lm["prompt"]
+    layers, steps, k = cfg.n_layers, 64, 4
+    bf16, f32 = torch.bfloat16, torch.float32
+    _, dcfg = configs(vocab=cfg.vocab, prompt_len=prompt.shape[1], steps=steps, k=k)
+    dcfg = dataclasses.replace(dcfg, max_len=cfg.max_len)  # the target's position table
+    draft = pack_lm(init_lm(rng.make_generator(1, dev), dcfg))
+    counted = (packed_spmm, fk.fused_norm_qkv, fk.fused_block_tail, fk.fused_mlp,
+               fa.flash_attention, fd.flash_attention_decode)
+    want = generate(packed, prompt, cfg, steps, compute_dtype=bf16, use_flash=True)
+    out = {"ties": []}
+    for name, d, d_cfg in (("random draft", draft, dcfg), ("self-draft", packed, cfg)):
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        got, stats = generate_speculative(packed, d, prompt, cfg, d_cfg, steps, k=k,
+                                          compute_dtype=bf16, use_flash=True, return_stats=True)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        rounds = stats["rounds"]
+        chunk, decode = layers * rounds, d_cfg.n_layers * (k + 1) * rounds
+        log(f"generate_speculative(use_flash=True, {name}, bf16, k={k}, {steps} steps): "
+            f"{rounds} rounds, mean accepted {stats['mean_accepted']:.3f} of {k}; launches "
+            f"{launches}; B4 chunk {chunk}, B4 decode {decode}")
+        check(launches["flash_attention_decode"] == chunk + decode,
+              f"spec ({name}): B4 ran {launches['flash_attention_decode']} times, not "
+              f"{chunk} verify chunks + {decode} draft steps")
+        check(launches["flash_attention"] == layers + d_cfg.n_layers,
+              f"spec ({name}): B9 once per layer of each prefill")
+        check(all(v > 0 for v in launches.values()), f"spec ({name}) left a kernel unlaunched")
+        step = _first_diff(got[0], want[0])
+        check(step is None, f"flash spec ({name}) differs from flash generate at step {step}")
+        print(json.dumps({"spec": name, "k": k, "steps": steps, "rounds": rounds,
+                          "mean_accepted": stats["mean_accepted"], "launches": launches,
+                          "b4_chunk": chunk, "b4_decode": decode}), flush=True)
+        out[name] = {"launches": launches, **stats}
+    log("flash speculative decoding equals flash generate token for token (bf16, both drafts)")
+
+    # batched speculative decoding, f32, B = 4: each row against its own generate
+    bsteps = 32
+    bprompt = torch.randint(0, cfg.vocab, (4, prompt.shape[1]),
+                            generator=rng.make_generator(5, dev), device=dev)
+    got, stats = generate_speculative(packed, draft, bprompt, cfg, dcfg, bsteps, k=k,
+                                      compute_dtype=f32, return_stats=True)
+    rows = [bprompt[r:r + 1] for r in range(4)]
+    refs = [generate(packed, p, cfg, bsteps, compute_dtype=f32) for p in rows]
+    out["ties"] += _hold_rows(torch, "batched spec", cfg, packed, got, rows, refs, bprompt,
+                              torch.ones_like(bprompt, dtype=torch.bool), f32)
+    log(f"batched spec (B=4, f32, k={k}, {bsteps} steps): {stats['rounds']} rounds, mean "
+        f"accepted {stats['mean_accepted']:.3f}; rows held against their own generate")
+
+    # a ragged batch: prompts of 5, 12 and 9 tokens left-padded to 12, f32
+    rgen = rng.make_generator(6, dev)
+    rows = [torch.randint(0, cfg.vocab, (1, n), generator=rgen, device=dev) for n in (5, 12, 9)]
+    batch = torch.cat([torch.cat([torch.zeros((1, 12 - p.shape[1]), dtype=p.dtype, device=dev),
+                                  p], 1) for p in rows])
+    mask = torch.arange(12, device=dev)[None] >= torch.tensor([[7], [0], [3]], device=dev)
+    got = generate(packed, batch, cfg, bsteps, compute_dtype=f32, prompt_mask=mask)
+    refs = [generate(packed, p, cfg, bsteps, compute_dtype=f32) for p in rows]
+    out["ties"] += _hold_rows(torch, "ragged generate", cfg, packed, got, rows, refs, batch,
+                              mask, f32)
+    log(f"ragged generate (5, 12, 9 tokens left-padded to 12, f32, {bsteps} steps): rows held "
+        "against their own generate")
+
+    # beam search, bf16: beam 1 is greedy; beam 4 sorted and no worse
+    want = generate(packed, prompt, cfg, 16, compute_dtype=bf16)
+    b1, s1 = generate_beam(packed, prompt, cfg, 16, beam=1, compute_dtype=bf16)
+    b4, s4 = generate_beam(packed, prompt, cfg, 16, beam=4, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    step = _first_diff(b1[0], want[0])
+    if step is not None:
+        alone = _teacher_forced(torch, cfg, packed, prompt, want, bf16, True)[step]
+        top2 = torch.topk(alone, 2).values
+        gap = float(top2[0] - top2[1]) / float(alone.abs().max())
+        log(f"beam 1 first differs from generate at step {step}: top-2 gap {gap:.3e}")
+        check(gap <= NEAR_TIE, f"beam 1 flips at step {step} beyond a near tie ({gap:.3e})")
+        out["ties"].append({"run": "beam 1", "row": 0, "step": step, "gap": gap})
+    check(b4.shape == (4, 16) and bool((s4[1:] <= s4[:-1] + 1e-6).all()),
+          f"beam 4 scores not sorted best first: {s4.tolist()}")
+    check(len({tuple(h) for h in b4.tolist()}) == 4, "beam 4 holds a hypothesis twice")
+    # a wider beam keeps the greedy prefix only while it ranks in the top 4,
+    # so its best is not bound to score at least greedy's: recorded, not held
+    out["beam"] = {"beam4_scores": s4.tolist(), "beam1_score": float(s1[0]),
+                   "beam4_best_at_least_beam1": float(s4[0]) >= float(s1[0])}
+    log(f"generate_beam (bf16, 16 steps): beam 1 == generate; beam 4 scores "
+        f"{[round(float(v), 3) for v in s4]} vs beam 1's {float(s1[0]):.3f}")
+
+    # fork_cache to 4 rows and one decode step, bf16, against the same
+    # routing with plain versions (bounded as phase 8: the tolerance or the
+    # unfused plain path's spread)
+    div = torch.tensor([5, 17, 42, cfg.vocab - 1], device=dev)
+
+    def forked_step(use_kernel=True):
+        cache = lm_init_cache(cfg, 1, dtype=bf16, device=dev)
+        _, cache = lm_prefill(packed, prompt, cache, cfg, compute_dtype=bf16,
+                              use_kernel=use_kernel)
+        forked = fork_cache(cache, 4)
+        check(all(f["k"].shape[0] == 4 and f["k"].data_ptr() != c["k"].data_ptr()
+                  for f, c in zip(forked, cache)), "fork_cache rows are copies of their own")
+        logits, _ = lm_decode_step(packed, div, forked, cfg, compute_dtype=bf16,
+                                   use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        return logits.float()
+
+    kern = forked_step()
+    with plain_kernels():
+        plain, unfused = forked_step(), forked_step(use_kernel=False)
+    scale = plain.abs().amax(-1).clamp_min(1.0)
+    err = (kern - plain).abs().amax(-1) / scale
+    spread = (unfused - plain).abs().amax(-1) / scale
+    tol = 2.0 ** -7
+    check(bool(torch.isfinite(kern).all()), "forked logits finite")
+    check(bool((err <= torch.clamp(spread, min=tol)).all()),
+          f"fork_cache rows vs plain: {err.tolist()} beyond {tol:.1e} and the spread "
+          f"{spread.tolist()}")
+    log(f"fork_cache(4) + decode step, bf16: rows vs plain {[f'{e:.2e}' for e in err.tolist()]} "
+        f"(spread {[f'{e:.2e}' for e in spread.tolist()]}, tolerance {tol:.1e})")
+    print(json.dumps({"near_ties": out["ties"], "beam": out["beam"]}), flush=True)
+    log(f"phase 21 passed: the serving controls; {len(out['ties'])} near-tie flips")
+    return out
+
+
+def time_serving_controls(torch, dev, spec, pipe) -> list:
+    """Phase 22: B9p against the serial kernel, its plain version, its bound
+    and SDPA; the spec bench's three rows."""
+    import torch.nn.functional as F
+
+    from smmb_tpu_torch.bench import spec_bench
+    from smmb_tpu_torch.bench.measure import measure
+    from smmb_tpu_torch.bench.roofline import roofline_bound
+    from smmb_tpu_torch.kernels import flash_attention as fa
+    from smmb_tpu_torch.utils import rng
+
+    gen = rng.make_generator(22, dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = []
+    for label, b, h, t, dt in (("lm prefill", 1, 8, 32, f32), ("long", 1, 8, 4096, bf16)):
+        q = (rng.rand_dense(gen, (b, h, t, 128)) * 4.0).to(dt)
+        k = rng.rand_dense(gen, (b, h, t, 128), dtype=dt)
+        v = rng.rand_dense(gen, (b, h, t, 128), dtype=dt)
+        times = {}
+        for pipe_p in (False, True, True, False):  # in turns: the host's load drifts
+            times.setdefault(pipe_p, []).append(
+                measure(lambda: fa.flash_attention(q, k, v, pipeline_p=pipe_p)).min_s * 1e3)
+        t_p = measure(lambda: fa.flash_attention_plain(q, k, v, pipeline_p=True))
+        t_l = measure(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        n_bytes = sum(x.numel() * x.element_size() for x in (q, q, k, v))  # q, out, k, v
+        ops = 4.0 * b * h * 128 * t * (t + 1) / 2
+        bound, by = roofline_bound(ops, n_bytes, spec, "f32" if dt == f32 else "bf16")
+        rows.append({"kernel": "B9p flash_attention(pipeline_p=True)", "shape": label, "B": b,
+                     "H": h, "T": t, "dtype": str(dt), "ms": min(times[True]),
+                     "pipe_ms_runs": times[True], "serial_ms_runs": times[False],
+                     "serial_ms": min(times[False]), "plain_ms": t_p.min_s * 1e3,
+                     "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes, "ops": ops,
+                     "library_ms": t_l.min_s * 1e3,
+                     "library": "torch.nn.functional.scaled_dot_product_attention "
+                                "(is_causal)"})
+        print(json.dumps(rows[-1]), flush=True)
+    log(f"B9p at T=4096 bf16: {rows[1]['ms']:.3f} ms vs serial {rows[1]['serial_ms']:.3f} ms "
+        f"(bound {rows[1]['bound_ms']:.4f} ms, SDPA {rows[1]['library_ms']:.4f} ms)")
+
+    t = time.time()
+    bench = spec_bench.main([])
+    print(json.dumps({"spec_bench": bench, "command": "python -m smmb_tpu_torch spec"}),
+          flush=True)
+    log(f"spec bench in {time.time() - t:.1f}s: " + ", ".join(
+        f"{name} {r['us_per_token']:.1f} us/token" for name, r in bench.items()))
+    log("phase 22 passed: B9p and the spec bench timed")
+    row = rows[0]  # the LM prefill's shape, as B9's row
+    return [{
+        "name": "flash_attention_pipe", "route": "cuda",
+        "source": "smmb_tpu_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "smmb_tpu/kernels/flash_attention.py:607",
+        "launches": pipe["launches"], "max_abs_err": pipe["max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+    }]
 
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ the CUDA card unless the caller passes ``device="cpu"``; on a CPU tensor
 each kernel wrapper runs its plain PyTorch version.
 
 It carries the packed ternary MLP serving path, the ternary LM's serving
-path (dense blocks, float KV cache, flash attention, chunked extend) and
-the reference benchmark (showcase, sweep and capacity):
+path (dense blocks, float and int8 KV caches, flash attention, chunked
+extend, ragged batches, prefix forking, beam search and speculative
+decoding) and the reference benchmark (showcase, sweep and capacity):
 
 - ``formats``: the 2-bit ``TernaryPacked`` format, TCSC, TCSCPadded, BCSR
   and the legacy threshold constructors, their arrays identical to JAX's;
@@ -18,15 +19,18 @@ the reference benchmark (showcase, sweep and capacity):
   (``csrc/bcsr_spmm.cu``) and ``fused_norm_qkv``,
   ``fused_mlp``, ``fused_block_tail`` (``csrc/fused_mlp.cu``),
   ``flash_attention_decode`` / ``flash_attention_chunk``
-  (``csrc/flash_decode.cu``) and ``flash_attention`` (``csrc/flash_attention.cu``);
+  (``csrc/flash_decode.cu``) and ``flash_attention`` (``csrc/flash_attention.cu``,
+  with its pipelined variant under ``pipeline_p``);
 - ``models``: the packed ternary MLP (``mlp_forward``, ``PackedTernaryMLP``)
-  and the LM (``attention``, ``transformer``, ``lm``: ``generate``);
+  and the LM (``attention``, ``transformer``, ``lm``: ``generate``,
+  ``fork_cache``, ``generate_beam``; ``spec_decode``:
+  ``generate_speculative``);
 - ``nn``: the ``PackedTernaryDense`` serving layer;
 - ``convert``: parameters and formats carried across from the JAX package;
 - ``io``: ``.npz`` save/load in the JAX package's file layout;
 - ``bench``: CUDA-event timing, the H100 roofline, the showcase/sweep and
-  capacity benchmarks with their report layer, the MLP, headline, LM and
-  decode benches, and the profiler breakdown.
+  capacity benchmarks with their report layer, the MLP, headline, LM,
+  decode and speculative-decoding benches, and the profiler breakdown.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """CLI: ``python -m smmb_tpu_torch
-{showcase,sweep,capacity,mlp,headline,lm,decode}`` — runs on the CUDA card.
+{showcase,sweep,capacity,mlp,headline,lm,decode,spec}`` — runs on the CUDA card.
 
 - ``showcase`` (the default) and ``sweep``: the reference
   benchmark, every format and kernel row validated against the dense oracle,
@@ -14,7 +14,9 @@
   ``--flash`` for the flash kernels B9 and B4, ``--kv-quant`` for the int8
   KV cache through B7 and B8);
 - ``decode``: the block-level decode step and its roofline fraction
-  (bench/decode_bench.py; ``--flash`` reads the caches through B4).
+  (bench/decode_bench.py; ``--flash`` reads the caches through B4);
+- ``spec``: speculative decoding against plain ``generate``, µs/token of
+  plain, spec-self and spec-draft (bench/spec_bench.py).
 """
 
 import sys
@@ -44,6 +46,10 @@ def main():
         from smmb_tpu_torch.bench.decode_bench import main as decode_main
 
         decode_main(rest)
+    elif mode == "spec":
+        from smmb_tpu_torch.bench.spec_bench import main as spec_main
+
+        spec_main(rest)
     elif mode == "headline":
         from smmb_tpu_torch.bench.headline import main as headline_main
 

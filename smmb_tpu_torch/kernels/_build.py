@@ -176,11 +176,13 @@ def flash_decode_lib() -> ctypes.CDLL:
 
 @functools.cache
 def flash_attention_lib() -> ctypes.CDLL:
-    """``flash_attention.cu`` (B9)."""
+    """``flash_attention.cu`` (B9, and B9p, its pipelined variant)."""
     strides = ctypes.POINTER(ctypes.c_longlong)
-    return _load("flash_attention.cu", {"smmb_flash_attention": [
+    args = [
         _P, strides, _P, strides, _P, strides, _P, strides,  # q, k, v, out
         _I, _I, _I, _I, _I, _I, _I,  # bf16, b, t, s, h, kvh, hd
         _I, _I, _F, _I,  # causal, window, qscale, tile
         _P,  # stream
-    ]})
+    ]
+    return _load("flash_attention.cu", {"smmb_flash_attention": args,
+                                        "smmb_flash_attention_pipe": args})

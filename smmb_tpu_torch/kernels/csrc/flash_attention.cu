@@ -35,6 +35,22 @@
 //     (flash_attention.py:630-679). Non-causal blocks walk every kv tile.
 //   * Kernels allocate nothing, launch on the caller's stream and do not
 //     synchronise; the C entry returns cudaGetLastError().
+//
+// B9p, the pipelined variant (flash_prefill_pipe_kernel, C entry
+// smmb_flash_attention_pipe), replaces _flash_kernel_pipe
+// (flash_attention.py:253, pallas_call at :607; causal only). Same block,
+// row order, micro-tile, masks and lo/hi walk as the serial kernel, with P
+// double-buffered in shared memory (ps[2]): at step s the K tile staged is
+// tile s's and the V tile is tile s-1's, and between one pair of barriers
+// each thread adds the pending P[(s-1)%2].V_{s-1} to acc (the serial
+// kernel's fmaf order over j) and computes its Q.K_s^T micro-tile, which
+// does not depend on that sum. The per-row softmax then writes P[s%2] and
+// acc is multiplied by the step's rescale. A last flush step adds the final
+// pending P.V and stores acc / l. The rounded operations are the serial
+// kernel's (acc * r_s + pv_s, each rounded), so at the same tile its output
+// is bitwise the serial kernel's. On CUDA cores with one block per SM the
+// two halves share the same warps, so there is little to overlap: this is
+// the TPU design point carried over, not a faster kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,30 +77,35 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-size_t smem_bytes(int bt, int hd) {
-  const size_t b = bt, d = hd;
-  // q and k tiles padded to hd + 1 floats a row, v tile, p tile padded to
-  // bt + 1, the accumulator, and m, l, rescale
-  return sizeof(float) * (2 * b * (d + 1) + 2 * b * d + b * (b + 1) + 3 * b);
+size_t smem_bytes(int bt, int hd, bool pipe) {
+  const size_t b = bt, d = hd, np = pipe ? 2 : 1;
+  // q and k tiles padded to hd + 1 floats a row, v tile, p tile (two under
+  // pipe) padded to bt + 1, the accumulator, and m, l, rescale
+  return sizeof(float) * (2 * b * (d + 1) + 2 * b * d + np * b * (b + 1) + 3 * b);
 }
 
-template <typename T, int BT>
-__global__ void __launch_bounds__(THREADS)
-    flash_prefill_kernel(const T* __restrict__ q, long long qsb, long long qsh,
-                         long long qst, const T* __restrict__ k, long long ksb,
-                         long long ksh, long long kst, const T* __restrict__ v,
-                         long long vsb, long long vsh, long long vst,
-                         T* __restrict__ out, long long osb, long long osh,
-                         long long ost, int t_len, int s_len, int h, int kvh,
-                         int hd, int gb, int causal, int window, float qscale) {
-  constexpr int MR = BT / 16;  // micro-tile rows and columns of a thread
+// The body of both kernels. PIPE = false is the serial walk: step s stages
+// tile s's K and V, and after the softmax acc = acc * rescale + P.V. PIPE =
+// true is B9p's: step s stages tile s's K and tile s-1's V into the same
+// buffers, adds the pending P[(s-1)%2].V to acc (already rescaled at s-1)
+// beside tile s's scores, writes P[s%2], then acc *= rescale; step hi + 1
+// only flushes. Every value is rounded as in the serial walk.
+template <typename T, int BT, bool PIPE>
+__device__ __forceinline__ void prefill_body(
+    const T* __restrict__ q, long long qsb, long long qsh, long long qst,
+    const T* __restrict__ k, long long ksb, long long ksh, long long kst,
+    const T* __restrict__ v, long long vsb, long long vsh, long long vst,
+    T* __restrict__ out, long long osb, long long osh, long long ost, int t_len,
+    int s_len, int h, int kvh, int hd, int gb, int causal, int window, float qscale) {
+  constexpr int MR = BT / 16;        // micro-tile rows and columns of a thread
+  constexpr int PS = BT * (BT + 1);  // one p buffer
   extern __shared__ float smem[];
   const int hdp = hd + 1;
-  float* qs = smem;               // (BT, hd + 1)
-  float* ks = qs + BT * hdp;      // (BT, hd + 1)
-  float* vs = ks + BT * hdp;      // (BT, hd)
-  float* ps = vs + BT * hd;       // (BT, BT + 1)
-  float* acc = ps + BT * (BT + 1);  // (BT, hd)
+  float* qs = smem;                  // (BT, hd + 1)
+  float* ks = qs + BT * hdp;         // (BT, hd + 1)
+  float* vs = ks + BT * hdp;         // (BT, hd)
+  float* ps = vs + BT * hd;          // (BT, BT + 1), two under PIPE
+  float* acc = ps + (PIPE ? 2 : 1) * PS;  // (BT, hd)
   float* mrow = acc + BT * hd;
   float* lrow = mrow + BT;
   float* resc = lrow + BT;
@@ -125,20 +146,30 @@ __global__ void __launch_bounds__(THREADS)
   const T* kb = k + b * ksb + kh * ksh;
   const T* vb = v + b * vsb + kh * vsh;
 
-  for (int tile = lo; tile <= hi; ++tile) {
-    const int c0 = tile * BT;
-    __syncthreads();  // the previous tile's reads are done
+  for (int tile = lo; tile <= hi + (PIPE ? 1 : 0); ++tile) {
+    const bool comp = tile <= hi, pend = PIPE && tile > lo;
+    const int c0 = tile * BT, cv = PIPE ? c0 - BT : c0;  // the K and V tiles' columns
+    float* pcur = PIPE ? ps + (tile & 1) * PS : ps;
+    __syncthreads();  // the previous step's reads are done
     for (int i = tid; i < BT * hd; i += THREADS) {
       const int j = i / hd, d = i - j * hd;
-      float kv = 0.f, vv = 0.f;
-      if (c0 + j < s_len) {
-        kv = ld(kb + (c0 + j) * kst + d);
-        vv = ld(vb + (c0 + j) * vst + d);
-      }
-      ks[j * hdp + d] = kv;
-      vs[i] = vv;
+      if (comp) ks[j * hdp + d] = c0 + j < s_len ? ld(kb + (c0 + j) * kst + d) : 0.f;
+      if (PIPE ? pend : comp) vs[i] = cv + j < s_len ? ld(vb + (cv + j) * vst + d) : 0.f;
     }
     __syncthreads();
+
+    if (pend) {  // B9p: the pending P.V of tile s-1
+      const float* pprev = ps + ((tile - 1) & 1) * PS;
+      for (int i = tid; i < BT * hd; i += THREADS) {
+        const int r = i / hd, d = i - r * hd;
+        const float* pr = pprev + r * (BT + 1);
+        float pv = 0.f;
+#pragma unroll 8
+        for (int j = 0; j < BT; ++j) pv = fmaf(pr[j], vs[j * hd + d], pv);
+        acc[i] = __fadd_rn(acc[i], pv);
+      }
+    }
+    if (!comp) break;
 
     // scores: thread (tr, tc) owns rows tr + 16 ii and columns tc + 16 jj
     float sc[MR][MR];
@@ -166,14 +197,14 @@ __global__ void __launch_bounds__(THREADS)
         const int j = tc + 16 * jj, col = c0 + j;
         bool live = rv && col < s_len;
         if (causal) live = live && col <= tok && (window <= 0 || col > tok - window);
-        ps[r * (BT + 1) + j] = live ? sc[ii][jj] : NEG;
+        pcur[r * (BT + 1) + j] = live ? sc[ii][jj] : NEG;
       }
     }
     __syncthreads();
 
     // online softmax: one warp per row
     for (int r = warp; r < BT; r += WARPS) {
-      float* pr = ps + r * (BT + 1);
+      float* pr = pcur + r * (BT + 1);
       float mx = NEG;
       for (int j = lane; j < BT; j += 32) mx = fmaxf(mx, pr[j]);
 #pragma unroll
@@ -197,14 +228,17 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    // acc = acc * rescale + p . V
-    for (int i = tid; i < BT * hd; i += THREADS) {
-      const int r = i / hd, d = i - r * hd;
-      const float* pr = ps + r * (BT + 1);
-      float pv = 0.f;
+    if (PIPE) {  // acc *= rescale; tile s's P.V is added at step s + 1
+      for (int i = tid; i < BT * hd; i += THREADS) acc[i] = __fmul_rn(acc[i], resc[i / hd]);
+    } else {  // acc = acc * rescale + p . V
+      for (int i = tid; i < BT * hd; i += THREADS) {
+        const int r = i / hd, d = i - r * hd;
+        const float* pr = pcur + r * (BT + 1);
+        float pv = 0.f;
 #pragma unroll 8
-      for (int j = 0; j < BT; ++j) pv = fmaf(pr[j], vs[j * hd + d], pv);
-      acc[i] = __fadd_rn(__fmul_rn(acc[i], resc[r]), pv);
+        for (int j = 0; j < BT; ++j) pv = fmaf(pr[j], vs[j * hd + d], pv);
+        acc[i] = __fadd_rn(__fmul_rn(acc[i], resc[r]), pv);
+      }
     }
   }
   __syncthreads();
@@ -218,19 +252,47 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <typename T, int BT>
+__global__ void __launch_bounds__(THREADS)
+    flash_prefill_kernel(const T* __restrict__ q, long long qsb, long long qsh,
+                         long long qst, const T* __restrict__ k, long long ksb,
+                         long long ksh, long long kst, const T* __restrict__ v,
+                         long long vsb, long long vsh, long long vst,
+                         T* __restrict__ out, long long osb, long long osh,
+                         long long ost, int t_len, int s_len, int h, int kvh,
+                         int hd, int gb, int causal, int window, float qscale) {
+  prefill_body<T, BT, false>(q, qsb, qsh, qst, k, ksb, ksh, kst, v, vsb, vsh, vst, out,
+                             osb, osh, ost, t_len, s_len, h, kvh, hd, gb, causal, window,
+                             qscale);
+}
+
+template <typename T, int BT>
+__global__ void __launch_bounds__(THREADS)
+    flash_prefill_pipe_kernel(const T* __restrict__ q, long long qsb, long long qsh,
+                              long long qst, const T* __restrict__ k, long long ksb,
+                              long long ksh, long long kst, const T* __restrict__ v,
+                              long long vsb, long long vsh, long long vst,
+                              T* __restrict__ out, long long osb, long long osh,
+                              long long ost, int t_len, int s_len, int h, int kvh,
+                              int hd, int gb, int causal, int window, float qscale) {
+  prefill_body<T, BT, true>(q, qsb, qsh, qst, k, ksb, ksh, kst, v, vsb, vsh, vst, out,
+                            osb, osh, ost, t_len, s_len, h, kvh, hd, gb, causal, window,
+                            qscale);
+}
+
 int largest_divisor_at_most(int g, int cap) {
   for (int d = cap < g ? cap : g; d > 1; --d)
     if (g % d == 0) return d;
   return 1;
 }
 
-template <typename T, int BT>
+template <typename T, int BT, bool PIPE>
 int launch(const void* q, const long long* qs, const void* k, const long long* ks,
            const void* v, const long long* vs, void* out, const long long* os,
            int b, int t_len, int s_len, int h, int kvh, int hd, int causal,
            int window, float qscale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(BT, hd);
-  auto kernel = flash_prefill_kernel<T, BT>;
+  const size_t smem = smem_bytes(BT, hd, PIPE);
+  auto kernel = PIPE ? flash_prefill_pipe_kernel<T, BT> : flash_prefill_kernel<T, BT>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -244,23 +306,39 @@ int launch(const void* q, const long long* qs, const void* k, const long long* k
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool PIPE>
 int dispatch(int bt, const void* q, const long long* qs, const void* k,
              const long long* ks, const void* v, const long long* vs, void* out,
              const long long* os, int b, int t_len, int s_len, int h, int kvh,
              int hd, int causal, int window, float qscale, cudaStream_t stream) {
   switch (bt) {
     case 64:
-      return launch<T, 64>(q, qs, k, ks, v, vs, out, os, b, t_len, s_len, h, kvh, hd,
-                           causal, window, qscale, stream);
+      return launch<T, 64, PIPE>(q, qs, k, ks, v, vs, out, os, b, t_len, s_len, h, kvh,
+                                 hd, causal, window, qscale, stream);
     case 32:
-      return launch<T, 32>(q, qs, k, ks, v, vs, out, os, b, t_len, s_len, h, kvh, hd,
-                           causal, window, qscale, stream);
+      return launch<T, 32, PIPE>(q, qs, k, ks, v, vs, out, os, b, t_len, s_len, h, kvh,
+                                 hd, causal, window, qscale, stream);
     case 16:
-      return launch<T, 16>(q, qs, k, ks, v, vs, out, os, b, t_len, s_len, h, kvh, hd,
-                           causal, window, qscale, stream);
+      return launch<T, 16, PIPE>(q, qs, k, ks, v, vs, out, os, b, t_len, s_len, h, kvh,
+                                 hd, causal, window, qscale, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+template <bool PIPE>
+int entry(const void* q, const long long* q_str, const void* k, const long long* k_str,
+          const void* v, const long long* v_str, void* out, const long long* o_str,
+          int bf16, int b, int t_len, int s_len, int h, int kvh, int hd, int causal,
+          int window, float qscale, int bt, void* stream) {
+  if (b <= 0 || t_len <= 0 || s_len <= 0 || kvh <= 0 || h % kvh || hd <= 0 ||
+      smem_bytes(bt, hd, PIPE) > MAX_SMEM || (PIPE && !causal))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bf16 ? dispatch<__nv_bfloat16, PIPE>(bt, q, q_str, k, k_str, v, v_str, out, o_str,
+                                              b, t_len, s_len, h, kvh, hd, causal, window,
+                                              qscale, st)
+              : dispatch<float, PIPE>(bt, q, q_str, k, k_str, v, v_str, out, o_str, b,
+                                      t_len, s_len, h, kvh, hd, causal, window, qscale, st);
 }
 
 }  // namespace
@@ -276,12 +354,19 @@ extern "C" int smmb_flash_attention(const void* q, const long long* q_str,
                                     int b, int t_len, int s_len, int h, int kvh,
                                     int hd, int causal, int window, float qscale,
                                     int bt, void* stream) {
-  if (b <= 0 || t_len <= 0 || s_len <= 0 || kvh <= 0 || h % kvh || hd <= 0 ||
-      smem_bytes(bt, hd) > MAX_SMEM)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(bt, q, q_str, k, k_str, v, v_str, out, o_str, b,
-                                        t_len, s_len, h, kvh, hd, causal, window, qscale, st)
-              : dispatch<float>(bt, q, q_str, k, k_str, v, v_str, out, o_str, b, t_len,
-                                s_len, h, kvh, hd, causal, window, qscale, st);
+  return entry<false>(q, q_str, k, k_str, v, v_str, out, o_str, bf16, b, t_len, s_len, h,
+                      kvh, hd, causal, window, qscale, bt, stream);
+}
+
+// B9p: smmb_flash_attention's arguments; causal must be 1 and bt fit the
+// pipelined block's shared memory (two p buffers).
+extern "C" int smmb_flash_attention_pipe(const void* q, const long long* q_str,
+                                         const void* k, const long long* k_str,
+                                         const void* v, const long long* v_str,
+                                         void* out, const long long* o_str, int bf16,
+                                         int b, int t_len, int s_len, int h, int kvh,
+                                         int hd, int causal, int window, float qscale,
+                                         int bt, void* stream) {
+  return entry<true>(q, q_str, k, k_str, v, v_str, out, o_str, bf16, b, t_len, s_len, h,
+                     kvh, hd, causal, window, qscale, bt, stream);
 }

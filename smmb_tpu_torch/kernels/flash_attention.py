@@ -14,9 +14,14 @@ Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs the
 plain version. There is no fallback from one to the other. Each call that
 reaches the kernel adds one to ``flash_attention.launches``.
 
-``pipeline_p=True`` (the TPU's software-pipelined variant at :607, whose
-Hopper counterpart is a warp-specialised tensor-core kernel) raises
-``NotImplementedError``: it belongs to B9's redesign PR.
+``pipeline_p=True`` (causal only) is B9p, the TPU's software-pipelined
+variant (``_flash_kernel_pipe`` :253, ``pallas_call`` at :607): the second
+kernel of ``csrc/flash_attention.cu``, with P double-buffered so that step
+s's scores and softmax sit beside step s−1's P·V. It computes the serial
+kernel's rounded operations in another schedule, so at the same tile its
+output is the serial kernel's bitwise; its plain version walks the tiles in
+the pipelined order. Its launches count in ``flash_attention.pipe_launches``.
+No model entry point passes it, as in JAX.
 """
 
 from __future__ import annotations
@@ -31,9 +36,6 @@ from smmb_tpu_torch.kernels.flash_decode import LOG2E, MAX_SHARED_BYTES, NEG, _e
 
 KV_TILE = 64  # the kernel's widest tile
 TILES = (64, 32, 16)
-PIPELINE_SLICE = ("pipeline_p=True (B9's pipelined variant, "
-                  "smmb_tpu/kernels/flash_attention.py:607) belongs to B9's "
-                  "tensor-core redesign PR of the port")
 
 
 def shared_bytes(bt: int, hd: int) -> int:
@@ -42,10 +44,18 @@ def shared_bytes(bt: int, hd: int) -> int:
     return 4 * (2 * bt * (hd + 1) + 2 * bt * hd + bt * (bt + 1) + 3 * bt)
 
 
-def kernel_tile(hd: int) -> int:
-    """The widest of the kernel's tiles whose block fits shared memory."""
+def shared_bytes_pipe(bt: int, hd: int) -> int:
+    """Shared memory of one pipelined (B9p) block: the serial block and a
+    second (bt, bt + 1) p buffer."""
+    return shared_bytes(bt, hd) + 4 * bt * (bt + 1)
+
+
+def kernel_tile(hd: int, pipeline_p: bool = False) -> int:
+    """The widest of the kernel's tiles whose block fits shared memory
+    (the pipelined block's under ``pipeline_p``)."""
+    size = shared_bytes_pipe if pipeline_p else shared_bytes
     for bt in TILES:
-        if shared_bytes(bt, hd) <= MAX_SHARED_BYTES:
+        if size(bt, hd) <= MAX_SHARED_BYTES:
             return bt
     raise ValueError(f"head_dim {hd} is too wide for the flash kernel's "
                      "shared memory")
@@ -65,8 +75,6 @@ def _check(q, k, v, causal, window, pipeline_p):
         raise ValueError("pipeline_p is a causal (triangular-grid) variant")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    if pipeline_p:
-        raise NotImplementedError(PIPELINE_SLICE)
 
 
 def _scaled_q(q, scale):
@@ -81,7 +89,13 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
     of ``block_kv`` columns (default the kernel's 64) with the kernel's
     rounding points; the score and P·V products are f64 products rounded
     once to f32. Rows visit every tile up to the last diagonal; a tile that
-    is fully masked for a row changes nothing of its result."""
+    is fully masked for a row changes nothing of its result.
+
+    ``pipeline_p`` walks the tiles in B9p's order: step s first adds the
+    pending P·V of tile s−1 to ``acc``, then computes tile s's scores, max,
+    exp2 and l, multiplies ``acc`` by the rescale and keeps P; a last step
+    adds the final P·V. Each value is rounded as in the serial walk
+    (``acc * r_s + pv_s``), so the two are equal at the same ``block_kv``."""
     _check(q, k, v, causal, window, pipeline_p)
     b, h, t, hd = q.shape
     kvh, s_len = k.shape[1], k.shape[2]
@@ -97,6 +111,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
     m = torch.full((b, kvh, g * t), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((b, kvh, g * t, hd), dtype=torch.float32, device=q.device)
+    pending = None  # (p, c0, c1) of the tile whose P·V is still to add
     for s in range(ns):
         c0, c1 = s * bs, min((s + 1) * bs, s_len)
         scores = torch.matmul(qs, k[:, :, c0:c1].to(torch.float64).transpose(-1, -2))
@@ -111,13 +126,26 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None, scale=None,
         m_new = torch.maximum(m, scores.amax(dim=-1))
         rescale, p = _exp2(m, m_new), _exp2(scores, m_new[..., None])
         l = l * rescale + p.to(torch.float64).sum(dim=-1).to(torch.float32)
-        pv = torch.matmul(p.to(v.dtype).to(torch.float64),
-                          v[:, :, c0:c1].to(torch.float64)).to(torch.float32)
-        acc = acc * rescale[..., None] + pv
+        if pipeline_p:
+            if pending is not None:
+                acc = acc + _pv(pending, v)
+            acc = acc * rescale[..., None]
+            pending = (p, c0, c1)
+        else:
+            acc = acc * rescale[..., None] + _pv((p, c0, c1), v)
         m = m_new
+    if pending is not None:  # B9p's flush step
+        acc = acc + _pv(pending, v)
     out = torch.where(l[..., None] > 0, acc / torch.where(l > 0, l, 1.0)[..., None],
                       torch.zeros_like(acc))
     return out.to(q.dtype).reshape(b, h, t, hd)
+
+
+def _pv(tile, v):
+    """P·V of one kv tile: an f64 product rounded once to f32, P in v's dtype."""
+    p, c0, c1 = tile
+    return torch.matmul(p.to(v.dtype).to(torch.float64),
+                        v[:, :, c0:c1].to(torch.float64)).to(torch.float32)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -133,13 +161,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     columns ≤ t (and > t − window under ``window``). ``scale`` defaults to
     1/sqrt(hd). ``block_q`` / ``block_kv`` are the TPU kernel's tiles,
     honoured by the plain version (``block_kv``); the CUDA kernel's tiles
-    follow hd. Returns (B, H, T, hd) in q's dtype (a head view of a
-    (B, T, H, hd) tensor on the card).
+    follow hd. ``pipeline_p`` (causal only) runs B9p, the pipelined kernel.
+    Returns (B, H, T, hd) in q's dtype (a head view of a (B, T, H, hd)
+    tensor on the card).
     """
     _check(q, k, v, causal, window, pipeline_p)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, block_kv=block_kv)
+                                     scale=scale, block_kv=block_kv,
+                                     pipeline_p=pipeline_p)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}, "
                          f"{k.device}, {v.device}")
@@ -149,7 +179,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{k.dtype}, {v.dtype}")
     b, h, t, hd = q.shape
     kvh, s_len = k.shape[1], k.shape[2]
-    bt = kernel_tile(hd)
+    bt = kernel_tile(hd, pipeline_p)
     q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
@@ -157,16 +187,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     strides = [(ctypes.c_longlong * 3)(*x.stride()[:3]) for x in (q, k, v, out)]
     lib = _build.flash_attention_lib()
+    entry = lib.smmb_flash_attention_pipe if pipeline_p else lib.smmb_flash_attention
     with torch.cuda.device(q.device):
-        rc = lib.smmb_flash_attention(
+        rc = entry(
             q.data_ptr(), strides[0], k.data_ptr(), strides[1], v.data_ptr(),
             strides[2], out.data_ptr(), strides[3], int(q.dtype == torch.bfloat16),
             b, t, s_len, h, kvh, hd, int(causal), window if window is not None else 0,
             qscale, bt, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
-    flash_attention.launches += 1
+    if pipeline_p:
+        flash_attention.pipe_launches += 1
+    else:
+        flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.pipe_launches = 0

@@ -14,14 +14,17 @@ gates.
 
 The KV cache is a dict of flat (B, S, KVH·hd) float ``k``/``v`` tensors, or
 of the merged int8 ``kv`` (B, S, 2·KVH·hd) codes and ``kv_scale``
-(B, 2·KVH, S) f32 scales (``quantized=True``), and a Python int ``pos``.
-Cache writes update the tensors in place (JAX returns new arrays; here the
-preallocated buffers are reused every step) and return a new dict with
-``pos`` advanced. The f32 einsums run in full f32 (TF32 off), which is JAX's
-``Precision.HIGHEST``, so the port has no ``precision`` argument.
+(B, 2·KVH, S) f32 scales (``quantized=True``), and a Python int ``pos``; a
+ragged cache (``ragged=True``) adds a (B, S) bool ``valid`` that marks the
+real tokens of a left-padded batch (and the live slots of batched
+speculative decoding), which every read of the cache masks. Cache writes
+update the tensors in place (JAX returns new arrays; here the preallocated
+buffers are reused every step) and return a new dict with ``pos`` advanced.
+The f32 einsums run in full f32 (TF32 off), which is JAX's
+``Precision.HIGHEST``, so the port has no ``precision`` argument. As in JAX,
+the flash gates refuse a ragged cache, which is read by the plain math.
 
-Left out of this slice, each with a ``NotImplementedError``: ragged caches
-and ``valid`` masks (``ragged``) and LoRA adapters.
+Left out of this slice, with a ``NotImplementedError``: LoRA adapters.
 """
 
 from __future__ import annotations
@@ -40,8 +43,6 @@ from smmb_tpu_torch.models.train import absmean_scale, ternarize_ste
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
 
-RAGGED_SLICE = ("ragged batches (prompt_mask, ragged caches) belong to the "
-                "serving-controls slice of the port")
 LORA_SLICE = "LoRA adapters belong to the training-surface slice of the port"
 
 # The flash-decode gate for batch > 1, copied from JAX
@@ -164,12 +165,12 @@ def _attention_math(q, k, v, cfg: TernaryAttentionConfig, use_flash=False,
     empty positions 0..T-1. Under GQA the query heads group over the KV
     heads; the KV tensors are never repeated to the query head count.
     ``use_flash`` runs the math as the flash kernel B9 on head views of the
-    projections (no (T, T) score tensor). ``valid`` (ragged batches) is not
-    in this slice."""
+    projections (no (T, T) score tensor). ``valid`` (B, T) bool marks the
+    real tokens of a left-padded ragged batch: pad columns are masked out of
+    every row, and a pad row attends only itself (its output is never read);
+    the plain math only, as in JAX."""
     if valid is not None and use_flash:
         raise ValueError("use_flash does not support ragged (valid) masks")
-    if valid is not None:
-        raise NotImplementedError(RAGGED_SLICE)
     b, t, d = q.shape
     h, hd, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     g = h // kvh
@@ -191,6 +192,10 @@ def _attention_math(q, k, v, cfg: TernaryAttentionConfig, use_flash=False,
         if cfg.window is not None:
             mask = mask & ~torch.ones_like(mask).tril(-cfg.window)
         scores = scores.masked_fill(~mask, float("-inf"))
+    if valid is not None:
+        eye = torch.eye(t, dtype=torch.bool, device=q.device)
+        pad_ok = valid.to(device=q.device, dtype=torch.bool)[:, None, :] | eye[None]
+        scores = scores.masked_fill(~pad_ok[:, None, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqt,bktd->bkgqd", probs.to(torch.float32),
                        v.to(torch.float32)).to(v.dtype)
@@ -229,7 +234,8 @@ def attention_forward(packed: dict, x: torch.Tensor, cfg: TernaryAttentionConfig
                       *, compute_dtype=torch.float32, use_kernel: bool = True,
                       use_flash: bool = False, valid=None) -> torch.Tensor:
     """Serving forward: packed projections around the attention math
-    (the flash kernel B9 under ``use_flash``). x: (B, T, d_model)."""
+    (the flash kernel B9 under ``use_flash``). x: (B, T, d_model); ``valid``
+    (B, T) marks the real tokens of a left-padded ragged batch."""
 
     def proj(name, inp):
         return _proj(packed, name, inp, cfg, compute_dtype, use_kernel)
@@ -249,26 +255,30 @@ def init_kv_cache(cfg: TernaryAttentionConfig, batch: int, max_len: int,
     ``kv`` (B, S, 2·KVH·hd) int8 buffer with KV head h's k codes at slot 2h
     and its v codes at 2h+1, and one ``kv_scale`` (B, 2·KVH, S) f32 buffer
     of per-token absmax scales in the same interleave, stored transposed for
-    the flash kernel's per-column reads."""
+    the flash kernel's per-column reads. ``ragged`` adds the (B, max_len)
+    bool ``valid`` mask of a left-padded ragged batch, all False until
+    written."""
     from smmb_tpu_torch.utils.device import resolve_device
 
-    if ragged:
-        raise NotImplementedError(RAGGED_SLICE)
     dev = resolve_device(device)
     kvd = cfg.kv_heads * cfg.head_dim
     if quantized:
-        return {
+        cache = {
             "kv": torch.zeros((batch, max_len, 2 * kvd), dtype=torch.int8, device=dev),
             "kv_scale": torch.zeros((batch, 2 * cfg.kv_heads, max_len),
                                     dtype=torch.float32, device=dev),
             "pos": 0,
         }
-    shape = (batch, max_len, kvd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
-        "pos": 0,
-    }
+    else:
+        shape = (batch, max_len, kvd)
+        cache = {
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": 0,
+        }
+    if ragged:
+        cache["valid"] = torch.zeros((batch, max_len), dtype=torch.bool, device=dev)
+    return cache
 
 
 # (…, hd) float → (int8 codes, f32 absmax/127 scale with hd → 1), B7's rule
@@ -281,7 +291,15 @@ def _check_room(max_len: int, pos: int, c: int) -> None:
         raise ValueError(f"cache write at {pos} of {c} tokens exceeds max_len={max_len}")
 
 
-def _cache_write_quantized(cache: dict, kv_codes, kv_scales, pos: int) -> dict:
+def _write_valid(cache: dict, valid, pos: int, c: int) -> None:
+    """A ragged cache's ``valid`` columns [pos, pos + C): ``valid`` (B, C)
+    bool, or all real when None (decode and extend appends)."""
+    if "valid" in cache:
+        cache["valid"][:, pos:pos + c] = True if valid is None else valid
+
+
+def _cache_write_quantized(cache: dict, kv_codes, kv_scales, pos: int,
+                           valid=None) -> dict:
     """Write pre-quantized codes (B, C, 2·KVH·hd) int8 in the per-head
     [k|v] interleave and scales (B, 2·KVH, C) f32 at ``pos`` into the merged
     int8 cache, in place; returns the cache dict with ``pos`` advanced."""
@@ -289,23 +307,26 @@ def _cache_write_quantized(cache: dict, kv_codes, kv_scales, pos: int) -> dict:
     _check_room(cache["kv"].shape[1], pos, c)
     cache["kv"][:, pos:pos + c] = kv_codes
     cache["kv_scale"][:, :, pos:pos + c] = kv_scales
+    _write_valid(cache, valid, pos, c)
     return {**cache, "pos": pos + c}
 
 
-def _cache_write(cache: dict, k, v, pos: int) -> dict:
+def _cache_write(cache: dict, k, v, pos: int, valid=None) -> dict:
     """Write (B, C, KVH, hd) k/v at ``pos`` into the cache tensors in place
     (quantized first for an int8 cache: the prefill, rope and unfused
-    routes); returns the cache dict with ``pos`` advanced by C."""
+    routes); returns the cache dict with ``pos`` advanced by C. ``valid``
+    (B, C) marks real tokens in a ragged cache (default: all real)."""
     b, c = k.shape[:2]
     if "kv" in cache:
         kq, ks = _quantize_kv(k)
         vq, vs = _quantize_kv(v)
         codes = torch.stack([kq, vq], dim=3).reshape(b, c, -1)
         scales = torch.stack([ks[..., 0], vs[..., 0]], dim=3).reshape(b, c, -1)
-        return _cache_write_quantized(cache, codes, scales.transpose(1, 2), pos)
+        return _cache_write_quantized(cache, codes, scales.transpose(1, 2), pos, valid)
     _check_room(cache["k"].shape[1], pos, c)
     cache["k"][:, pos:pos + c] = k.reshape(b, c, -1).to(cache["k"].dtype)
     cache["v"][:, pos:pos + c] = v.reshape(b, c, -1).to(cache["v"].dtype)
+    _write_valid(cache, valid, pos, c)
     return {**cache, "pos": pos + c}
 
 
@@ -334,10 +355,11 @@ def _split_heads(x, cfg: TernaryAttentionConfig, heads: int | None = None):
 
 def attention_prefill(packed: dict, x: torch.Tensor, cache: dict,
                       cfg: TernaryAttentionConfig, *, compute_dtype=torch.float32,
-                      use_kernel: bool = True, use_flash: bool = False):
+                      use_kernel: bool = True, use_flash: bool = False, valid=None):
     """Whole prompt (B, T, D): full causal attention (as ``attention_forward``)
-    plus the cache fill. ``use_flash`` runs the attention as B9. Returns
-    (y, cache)."""
+    plus the cache fill. ``use_flash`` runs the attention as B9. ``valid``
+    (B, T): the real-token mask of a left-padded ragged batch (a ragged
+    cache); pad slots are written and marked invalid. Returns (y, cache)."""
     b, t, _ = x.shape
     kw = dict(compute_dtype=compute_dtype, use_kernel=use_kernel)
     k = _split_heads(_proj(packed, "wk", x, cfg, **kw), cfg, cfg.kv_heads)
@@ -345,18 +367,20 @@ def attention_prefill(packed: dict, x: torch.Tensor, cache: dict,
     pos = cache["pos"]
     if cfg.rope:
         k = apply_rope(k, _positions(pos, t, x.device), cfg.rope_theta)
-    cache = _cache_write(cache, k, v, pos)
-    y = attention_forward(packed, x, cfg, use_flash=use_flash, **kw)
+    cache = _cache_write(cache, k, v, pos, valid)
+    y = attention_forward(packed, x, cfg, use_flash=use_flash, valid=valid, **kw)
     return y, cache
 
 
-def _chunk_attention_math(q, kc, vc, pos: int, head_dim: int, window=None):
+def _chunk_attention_math(q, kc, vc, pos: int, head_dim: int, window=None,
+                          valid=None):
     """C-token attention over a static-length cache: q (B, C, H, hd), kc/vc
     (B, max_len, KVH, hd) with the chunk already written at [pos, pos+C).
     Query row i attends cache columns ≤ pos+i (and > pos+i-window); the
     rest of the max_len buffer is masked with -inf, and every row sees its
-    own token. Returns (B, C, H·hd) in the cache's dtype (the decode step
-    is C=1)."""
+    own token. A ragged cache's ``valid`` (B, max_len) masks its dead
+    columns per row. Returns (B, C, H·hd) in the cache's dtype (the decode
+    step is C=1)."""
     b, c = q.shape[:2]
     max_len, kvh = kc.shape[1], kc.shape[2]
     g = q.shape[2] // kvh
@@ -368,6 +392,8 @@ def _chunk_attention_math(q, kc, vc, pos: int, head_dim: int, window=None):
     live = cols <= qpos
     if window is not None:
         live = live & (cols > qpos - window)
+    if valid is not None:
+        live = live[None, None, None] & valid[:, None, None, None, :]
     scores = scores.masked_fill(~live, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(vc.dtype)
     out = torch.einsum("bkgqt,btkd->bqkgd", probs.to(torch.float32),
@@ -481,9 +507,8 @@ def _step_qkv(packed, x, cache, cfg, compute_dtype, use_kernel, prenorm):
     over an int8 cache under B7's gate, B7's codes go straight into the
     cache; otherwise the fused projection (with the norm inside B3 under
     ``prenorm``), rope at the cache position, and the write (quantized
-    after the fact for an int8 cache). Returns (q (B, C, H, hd), cache)."""
-    if "valid" in cache:
-        raise NotImplementedError(RAGGED_SLICE)
+    after the fact for an int8 cache). A ragged cache marks the written
+    slots real. Returns (q (B, C, H, hd), cache)."""
     pos = cache["pos"]
     if (prenorm is not None and "kv" in cache
             and _qkv_quant_fusable(packed, cfg, compute_dtype, use_kernel)):
@@ -531,7 +556,8 @@ def attention_decode_core(packed: dict, x_t: torch.Tensor, cache: dict,
         out = out.reshape(b, 1, -1)
     else:
         kc, vc = _cache_kv(cache, cfg.kv_heads)
-        out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window)
+        out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window,
+                                    valid=cache.get("valid"))
     return out, cache
 
 
@@ -571,7 +597,8 @@ def attention_extend_core(packed: dict, x: torch.Tensor, cache: dict,
         out = out.reshape(b, c, -1)
     else:
         kc, vc = _cache_kv(cache, cfg.kv_heads)
-        out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window)
+        out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window,
+                                    valid=cache.get("valid"))
     return out, cache
 
 

@@ -4,22 +4,23 @@
 Token + learned-position embeddings, N pre-norm ternary transformer blocks
 (models/transformer.py), a final RMSNorm and a packed ternary LM head, with
 the serving entry points ``lm_prefill``, ``lm_decode_step``, ``lm_extend``,
-``lm_prefill_chunked`` and ``generate``. JAX's ``generate`` is one jitted ``lax.scan``; here it is an
-eager loop over decode steps that keeps the tokens on the card (no host
-sync per step) and writes each block's preallocated ``max_len`` KV cache in
-place.
+``lm_prefill_chunked``, ``generate``, ``fork_cache`` and ``generate_beam``.
+JAX's ``generate`` is one jitted ``lax.scan``; here it is an eager loop over
+decode steps that keeps the tokens on the card (no host sync per step) and
+writes each block's preallocated ``max_len`` KV cache in place.
 
 ``use_flash`` runs the prefill's attention as the flash kernel B9 and the
 decode and extend cache reads as B4 (kernels/flash_attention.py,
 kernels/flash_decode.py) under JAX's gates. ``kv_quant`` (``quantized``
 caches) stores the KV caches as int8 codes and per-token scales: the decode
 and extend steps write them through B7 and, under ``use_flash``, read them
-through B8.
+through B8. Ragged (left-padded) batches pass ``prompt_mask`` to
+``lm_prefill`` and ``generate`` over a ``ragged`` cache, whose reads take the
+plain attention math; ``pos_ids`` gives each row its own learned position in
+``lm_decode_step`` and ``lm_extend``.
 
 Left out of this slice, each with a ``NotImplementedError``: MoE blocks
-(``n_experts``), ``prompt_mask`` and ``pos_ids`` (ragged batches),
-``fork_cache``, ``generate_beam`` and training (``qat_lm_forward``,
-``make_lm_train_step``).
+(``n_experts``) and training (``qat_lm_forward``, ``make_lm_train_step``).
 """
 
 from __future__ import annotations
@@ -32,13 +33,11 @@ import torch
 from smmb_tpu_torch.formats.packed import pack_ternary_device
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
 from smmb_tpu_torch.models import transformer as tb
-from smmb_tpu_torch.models.attention import RAGGED_SLICE
 from smmb_tpu_torch.models.train import absmean_scale, ternarize_ste
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
 
 MOE_SLICE = "MoE blocks (n_experts) belong to the training-surface slice of the port"
-CONTROLS_SLICE = "{} belongs to the serving-controls slice of the port"
 TRAINING_SLICE = "{} belongs to the training-surface slice of the port"
 
 
@@ -146,15 +145,26 @@ def lm_prefill(packed: dict, tokens: torch.Tensor, cache: list,
                cfg: TernaryLMConfig, *, compute_dtype=torch.float32,
                use_kernel: bool = True, use_flash: bool = False,
                prompt_mask=None):
-    """Prompt pass: returns (last-position logits (B, vocab), filled cache)."""
-    if prompt_mask is not None:
-        raise NotImplementedError(RAGGED_SLICE)
+    """Prompt pass: returns (last-position logits (B, vocab), filled cache).
+
+    ``prompt_mask`` (B, T) bool marks the real tokens of a LEFT-padded
+    ragged batch (each row's real tokens are its rightmost run, so every
+    row's last token sits at T-1 and one ``pos`` serves all rows). It needs
+    a ragged cache; each row's learned position is its logical one,
+    ``clip(cumsum(mask) - 1, 0)`` (pads reuse position 0 and are masked out
+    of attention)."""
     b, t = tokens.shape
-    x = packed["embed"][tokens] + packed["pos"][None, :t]
+    if prompt_mask is None:
+        x = packed["embed"][tokens] + packed["pos"][None, :t]
+    else:
+        prompt_mask = prompt_mask.to(torch.bool)
+        pos_ids = (torch.cumsum(prompt_mask.to(torch.int64), dim=1) - 1).clamp_min(0)
+        x = packed["embed"][tokens] + packed["pos"][pos_ids]
     new_cache = []
     for blk, c in zip(packed["blocks"], cache):
         x, c = tb.block_prefill(blk, x, c, cfg.block, compute_dtype=compute_dtype,
-                                use_kernel=use_kernel, use_flash=use_flash)
+                                use_kernel=use_kernel, use_flash=use_flash,
+                                valid=prompt_mask)
         new_cache.append(c)
     h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
     logits = _head_logits(packed, h, cfg, compute_dtype, use_kernel)
@@ -166,11 +176,14 @@ def lm_decode_step(packed: dict, token_t: torch.Tensor, cache: list,
                    use_kernel: bool = True, pos_ids=None, use_flash: bool = False):
     """One decode step: (B,) tokens → ((B, vocab) logits, cache). The
     position comes from the first block's cache (all blocks advance in
-    lockstep). Per-row positions (``pos_ids``) serve ragged batches and
-    batched speculative decoding, which later slices bring."""
-    if pos_ids is not None:
-        raise NotImplementedError(RAGGED_SLICE)
-    x = packed["embed"][token_t][:, None, :] + packed["pos"][cache[0]["pos"]][None, None]
+    lockstep). ``pos_ids`` (B,) gives each row its own learned-position
+    index (ragged batches and batched speculative decoding, where a row's
+    logical position trails its buffer position)."""
+    if pos_ids is None:
+        pe = packed["pos"][cache[0]["pos"]][None, None]
+    else:
+        pe = packed["pos"][pos_ids][:, None]
+    x = packed["embed"][token_t][:, None, :] + pe
     new_cache = []
     for blk, c in zip(packed["blocks"], cache):
         x, c = tb.block_decode_step(blk, x, c, cfg.block, compute_dtype=compute_dtype,
@@ -229,12 +242,13 @@ def generate(packed: dict, prompt: torch.Tensor, cfg: TernaryLMConfig,
     the float caches (B7 writes them each step, B8 reads them under
     ``use_flash``). ``prefill_chunk`` runs the prompt through
     ``lm_prefill_chunked`` (T % chunk == 0); as in JAX it is not combinable
-    with ``use_flash``.
+    with ``use_flash``. ``prompt_mask`` (B, T) bool serves a ragged batch:
+    left-pad each prompt, mark its real tokens; each row then generates
+    what it would alone. Its caches are read by the plain attention math
+    (the flash prefill refuses the mask, as in JAX).
     """
     if prefill_chunk is not None and (prompt_mask is not None or use_flash):
         raise ValueError("prefill_chunk is not combinable with prompt_mask/use_flash")
-    if prompt_mask is not None:
-        raise NotImplementedError(RAGGED_SLICE)
     if prompt.shape[1] + steps > cfg.max_len:
         raise ValueError(f"prompt_len={prompt.shape[1]} + steps={steps} exceeds "
                          f"max_len={cfg.max_len}")
@@ -243,17 +257,24 @@ def generate(packed: dict, prompt: torch.Tensor, cfg: TernaryLMConfig,
     sampler = _make_sampler(temperature, top_k, top_p)
     kw = dict(compute_dtype=compute_dtype, use_kernel=use_kernel)
     cache = lm_init_cache(cfg, prompt.shape[0], dtype=compute_dtype,
-                          quantized=kv_quant, device=prompt.device)
+                          quantized=kv_quant, ragged=prompt_mask is not None,
+                          device=prompt.device)
     if prefill_chunk is not None:
         logits, cache = lm_prefill_chunked(packed, prompt, cache, cfg, prefill_chunk, **kw)
     else:
-        logits, cache = lm_prefill(packed, prompt, cache, cfg, use_flash=use_flash, **kw)
+        logits, cache = lm_prefill(packed, prompt, cache, cfg, use_flash=use_flash,
+                                   prompt_mask=prompt_mask, **kw)
     tok = sampler(generator, logits)
+    # per-row logical positions for the learned embedding (ragged only)
+    row_pos = None if prompt_mask is None else prompt_mask.to(torch.int64).sum(dim=1)
     toks = []
     for _ in range(steps):
         toks.append(tok)
-        logits, cache = lm_decode_step(packed, tok, cache, cfg, use_flash=use_flash, **kw)
+        logits, cache = lm_decode_step(packed, tok, cache, cfg, pos_ids=row_pos,
+                                       use_flash=use_flash and row_pos is None, **kw)
         tok = sampler(generator, logits)
+        if row_pos is not None:
+            row_pos = row_pos + 1
     return torch.stack(toks, dim=1)
 
 
@@ -273,12 +294,15 @@ def lm_extend(packed: dict, tokens: torch.Tensor, cache: list,
     ``lm_decode_step``: each chunk token attends the cache plus its chunk
     prefix. Under ``use_flash`` the caches are read by B4's chunk entry, the
     decode step's kernel, so a token's logits equal its decode step's.
-    Per-row positions (``pos_ids``) serve ragged batches, a later slice."""
-    if pos_ids is not None:
-        raise NotImplementedError(RAGGED_SLICE)
+    ``pos_ids`` (B, C) overrides the learned-position indices per row
+    (batched speculative decoding, where dead cache slots make a row's
+    logical position trail its buffer position)."""
     if tokens.shape[1] > cfg.max_len:
         raise ValueError(f"chunk {tokens.shape[1]} exceeds max_len={cfg.max_len}")
-    x = _chunk_embed(packed, tokens, cache[0]["pos"], cfg)
+    if pos_ids is None:
+        x = _chunk_embed(packed, tokens, cache[0]["pos"], cfg)
+    else:
+        x = packed["embed"][tokens] + packed["pos"][pos_ids]
     new_cache = []
     for blk, ch in zip(packed["blocks"], cache):
         x, ch = tb.block_extend(blk, x, ch, cfg.block, compute_dtype=compute_dtype,
@@ -313,12 +337,61 @@ def lm_prefill_chunked(packed: dict, tokens: torch.Tensor, cache: list,
     return _head_logits(packed, h, cfg, compute_dtype, use_kernel)[:, 0], cache
 
 
-def fork_cache(*args, **kwargs):
-    raise NotImplementedError(CONTROLS_SLICE.format("fork_cache"))
+def _reindex_cache(cache: list, idx: torch.Tensor) -> list:
+    """Gather cache rows by beam index (copies; ``pos`` passes through)."""
+    return [{k_: (v[idx] if isinstance(v, torch.Tensor) else v) for k_, v in c.items()}
+            for c in cache]
 
 
-def generate_beam(*args, **kwargs):
-    raise NotImplementedError(CONTROLS_SLICE.format("generate_beam"))
+def fork_cache(cache: list, n: int) -> list:
+    """Prefix caching: a batch-1 prefilled cache made into ``n`` rows.
+
+    Serve a shared prompt once (``lm_prefill`` at batch 1), fork, then run
+    ``n`` divergent continuations batched. JAX broadcasts the buffers, which
+    is safe there because nothing is written in place; the port's caches are
+    written in place, so every row here is a copy of its own (an expanded
+    view would send all the rows' writes into one row)."""
+    if cache:
+        code_buf = cache[0]["kv" if "kv" in cache[0] else "k"]
+        if code_buf.shape[0] != 1:
+            raise ValueError(f"fork_cache takes a batch-1 cache, got batch {code_buf.shape[0]}")
+    return [{k_: (v.expand(n, *v.shape[1:]).clone() if isinstance(v, torch.Tensor) else v)
+             for k_, v in c.items()} for c in cache]
+
+
+def generate_beam(packed: dict, prompt: torch.Tensor, cfg: TernaryLMConfig,
+                  steps: int, *, beam: int = 4, compute_dtype=torch.float32,
+                  use_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Beam search: (1, T) prompt → ((beam, steps) tokens, (beam,) f32 scores).
+
+    A fixed-width beam over summed log-probabilities (f32 ``log_softmax``,
+    no EOS and no length normalisation, as in JAX). The beams are rows of a
+    forked float cache; each step scores beam × vocab continuations, keeps
+    the top ``beam`` and gathers the cache rows by surviving beam.
+    ``beam=1`` is greedy ``generate``. Hypotheses come out best first."""
+    b, t = prompt.shape
+    if b != 1:
+        raise ValueError(f"beam search is batch-1 only (got batch {b})")
+    if t + steps > cfg.max_len:
+        raise ValueError(f"prompt_len={t} + steps={steps} exceeds max_len={cfg.max_len}")
+    kw = dict(compute_dtype=compute_dtype, use_kernel=use_kernel)
+    cache = lm_init_cache(cfg, 1, dtype=compute_dtype, device=prompt.device)
+    logits, cache = lm_prefill(packed, prompt, cache, cfg, **kw)
+    logp = torch.log_softmax(logits[0].to(torch.float32), dim=-1)
+    scores, tok = torch.topk(logp, beam)
+    cache = fork_cache(cache, beam)
+    toks = torch.zeros((beam, steps), dtype=torch.int64, device=prompt.device)
+    toks[:, 0] = tok
+    for i in range(1, steps):
+        logits, cache = lm_decode_step(packed, tok, cache, cfg, **kw)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)  # (beam, V)
+        scores, flat = torch.topk((scores[:, None] + logp).reshape(-1), beam)
+        src = flat // cfg.vocab  # the beam each survivor came from
+        tok = flat % cfg.vocab
+        cache = _reindex_cache(cache, src)
+        toks = toks[src]
+        toks[:, i] = tok
+    return toks, scores
 
 
 def qat_lm_forward(*args, **kwargs):

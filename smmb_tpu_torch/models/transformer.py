@@ -232,12 +232,13 @@ def block_forward(packed: dict, x: torch.Tensor, cfg: TernaryBlockConfig, *,
 
 def block_prefill(packed: dict, x: torch.Tensor, cache: dict,
                   cfg: TernaryBlockConfig, *, compute_dtype=torch.float32,
-                  use_kernel: bool = True, use_flash: bool = False):
-    """Prompt pass: full block forward + KV-cache fill. Returns (y, cache)."""
+                  use_kernel: bool = True, use_flash: bool = False, valid=None):
+    """Prompt pass: full block forward + KV-cache fill. Returns (y, cache).
+    ``valid`` (B, T): real-token mask for left-padded ragged batches."""
     h = rmsnorm(x, packed["norm1"], cfg.eps)
     att, cache = attention_prefill(
         packed["attn"], h, cache, cfg.attn, compute_dtype=compute_dtype,
-        use_kernel=use_kernel, use_flash=use_flash)
+        use_kernel=use_kernel, use_flash=use_flash, valid=valid)
     x = x + att
     return _mlp_half(packed, x, cfg, _make_spmm(compute_dtype, use_kernel),
                      compute_dtype, use_kernel), cache

@@ -275,6 +275,58 @@ def test_generate_flash_launch_counts_and_tokens(cuda):
     assert torch.equal(toks, plain)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kvh,t,hd,window", [
+    (1, 8, 8, 32, 128, None), (2, 8, 2, 200, 128, None), (1, 4, 4, 300, 64, 64),
+    (1, 2, 2, 70, 256, None),
+])
+def test_flash_pipeline_p_bitwise_serial(cuda, dt, b, h, kvh, t, hd, window):
+    """B9p equals the serial kernel bitwise where both take the same tile,
+    counts its launches apart, and agrees with its plain version."""
+    rs = np.random.default_rng(t + hd + 1)
+    q = _normal(rs, (b, h, t, hd), dt, cuda, 4.0)
+    k = _normal(rs, (b, kvh, t, hd), dt, cuda)
+    v = _normal(rs, (b, kvh, t, hd), dt, cuda)
+    before = (fa.flash_attention.launches, fa.flash_attention.pipe_launches)
+    y = fa.flash_attention(q, k, v, window=window, pipeline_p=True)
+    assert (fa.flash_attention.launches, fa.flash_attention.pipe_launches) == \
+        (before[0], before[1] + 1)
+    assert fa.kernel_tile(hd, True) == fa.kernel_tile(hd)
+    serial = fa.flash_attention(q, k, v, window=window)
+    ref = fa.flash_attention_plain(q, k, v, window=window, pipeline_p=True,
+                                   block_kv=fa.kernel_tile(hd, True))
+    torch.cuda.synchronize()
+    assert torch.equal(y, serial)
+    assert_close(y.float(), ref.float(),
+                 FUSED_TOL[dt] * max(1.0, float(ref.float().abs().max())), "B9p")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_speculative_flash_equals_flash_generate(cuda, cdt):
+    """Greedy speculative decoding under use_flash emits flash generate's
+    tokens: B1/B3/B5 rows do not depend on M, and B4's chunk rows equal its
+    decode rows."""
+    from smmb_tpu_torch.models.spec_decode import generate_speculative
+
+    cfg = tlm.TernaryLMConfig(vocab=512, d_model=512, n_heads=4, d_ff=1024,
+                              n_layers=2, max_len=48)
+    dcfg = tlm.TernaryLMConfig(vocab=512, d_model=256, n_heads=2, d_ff=512,
+                               n_layers=1, max_len=48)
+    target = tlm.pack_lm(tlm.init_lm(rng.make_generator(0), cfg))
+    draft = tlm.pack_lm(tlm.init_lm(rng.make_generator(1), dcfg))
+    prompt = torch.randint(0, cfg.vocab, (1, 8), generator=rng.make_generator(2),
+                           device=cuda)
+    want = tlm.generate(target, prompt, cfg, 16, compute_dtype=cdt, use_flash=True)
+    for d, d_cfg in ((draft, dcfg), (target, cfg)):
+        before = fd.flash_attention_decode.launches
+        got = generate_speculative(target, d, prompt, cfg, d_cfg, 16, k=4,
+                                   compute_dtype=cdt, use_flash=True)
+        assert fd.flash_attention_decode.launches > before
+        assert torch.equal(got, want)
+
+
 def _bcsr_case(seed, m, k, n, r, c, keep, dt, dev):
     gen = rng.make_generator(seed, dev)
     w = rng.rand_block_ternary(gen, (k, n), block=(r, c), keep=keep, non_zero=2)

@@ -108,6 +108,48 @@ def test_flash_attention_rejects_as_jax():
         tfa.flash_attention(q, k, v, window=0)
     assert tfa.kernel_tile(128) == 64 and tfa.kernel_tile(256) == 32
     assert tfa.kernel_tile(512) == 16
+    with pytest.raises(ValueError, match="causal"):
+        tfa.flash_attention(q, k, v, causal=False, pipeline_p=True)
+
+
+# --------------------------------------------------------------- B9p
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_pipeline_p_matches_jax(window):
+    """B9p (pipeline_p=True) against JAX's interpret-mode pipelined kernel
+    at tests/test_flash.py:130's shape, at the B9 tolerance."""
+    q, k, v = _qkv(5, 1, 2, 2, 256, 128)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window,
+                               block_q=128, block_kv=128, pipeline_p=True)
+    got = tfa.flash_attention(_t(q), _t(k), _t(v), window=window, block_q=128,
+                              block_kv=128, pipeline_p=True)
+    assert got.shape == (1, 2, 256, 128)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window,block_kv", [(None, 64), (48, 32), (None, 16)])
+def test_flash_pipeline_p_plain_equals_serial(dtype, window, block_kv):
+    """The pipelined walk rounds every value as the serial walk does, so the
+    two plain versions are equal at the same block_kv (GQA 4/2)."""
+    q, k, v = (_t(a, dtype) for a in _qkv(6, 2, 4, 2, 200, 64))
+    q = q * 4.0
+    serial = tfa.flash_attention_plain(q, k, v, window=window, block_kv=block_kv)
+    pipe = tfa.flash_attention_plain(q, k, v, window=window, block_kv=block_kv,
+                                     pipeline_p=True)
+    assert pipe.dtype == dtype and torch.equal(pipe, serial)
+
+
+def test_flash_pipeline_p_tile_and_counter():
+    # the second p buffer: 165.6 KB at the 64-row tile and hd 128
+    assert tfa.shared_bytes_pipe(64, 128) == 165632
+    assert tfa.shared_bytes_pipe(64, 128) - tfa.shared_bytes(64, 128) == 4 * 64 * 65
+    assert tfa.kernel_tile(128, True) == 64 and tfa.kernel_tile(256, True) == 32
+    # where the extra buffer forces a smaller tile than the serial kernel's
+    assert tfa.kernel_tile(200) == 64 and tfa.kernel_tile(200, True) == 32
+    before = (tfa.flash_attention.launches, tfa.flash_attention.pipe_launches)
+    q = _t(_normal(7, 1, 2, 8, 64))
+    tfa.flash_attention(q, q, q, pipeline_p=True)  # a CPU tensor: the plain version
+    assert (tfa.flash_attention.launches, tfa.flash_attention.pipe_launches) == before
 
 
 # ---------------------------------------------------------------- B4
@@ -403,7 +445,7 @@ def test_flash_decode_gate_truth_table(b, s, hd, valid, want):
 @pytest.mark.parametrize("b,want", [(1, 1), (2, 0)])
 def test_decode_core_route(monkeypatch, b, want):
     """The route shows in a spy on B4: batch 1 takes it, batch 2 with a
-    small cache takes the chunk math, and a ragged cache raises."""
+    small cache takes the chunk math, and so does a ragged cache."""
     jcfg, tcfg, _, tp = _attn_pair(2, 256, 2)
     calls = []
     real = tfd.flash_attention_decode
@@ -413,6 +455,7 @@ def test_decode_core_route(monkeypatch, b, want):
     cache = tattn.init_kv_cache(tcfg, b, 8, device="cpu")
     tattn.attention_decode_core(tp, x, cache, tcfg, use_flash=True)
     assert len(calls) == want
-    with pytest.raises(NotImplementedError, match="ragged"):
-        tattn.attention_decode_core(tp, x, {**cache, "valid": torch.ones(b, 8)}, tcfg,
-                                    use_flash=True)
+    ragged = tattn.init_kv_cache(tcfg, b, 8, ragged=True, device="cpu")
+    out, ragged = tattn.attention_decode_core(tp, x, ragged, tcfg, use_flash=True)
+    assert len(calls) == want and out.shape == (b, 1, 256)
+    assert ragged["valid"][:, 0].all() and not ragged["valid"][:, 1:].any()

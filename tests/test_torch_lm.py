@@ -29,11 +29,11 @@ from smmb_tpu.models import attention as jattn
 from smmb_tpu.models import lm as jlm
 from smmb_tpu.models import transformer as jtb
 from smmb_tpu_torch import convert
-from smmb_tpu_torch.kernels import flash_attention as tfa
 from smmb_tpu_torch.kernels import fused_mlp as tfk
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
 from smmb_tpu_torch.models import attention as tattn
 from smmb_tpu_torch.models import lm as tlm
+from smmb_tpu_torch.models import spec_decode as tsd
 from smmb_tpu_torch.models import transformer as ttb
 from smmb_tpu_torch.utils import rng
 
@@ -215,22 +215,13 @@ def test_generate_sampling_needs_a_generator_and_fits_max_len(lm_pair):
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda p, t: tfa.flash_attention(*(torch.zeros(1, 2, 4, 128),) * 3,
-                                      pipeline_p=True), "B9"),
-    (lambda p, t: tlm.generate(p, t, TCFG, 2, prompt_mask=torch.ones_like(t)), "ragged"),
-    (lambda p, t: tlm.lm_extend(p, t, tlm.lm_init_cache(TCFG, 1, device="cpu"), TCFG,
-                                pos_ids=t), "ragged"),
-    (lambda p, t: tlm.fork_cache([], 2), "fork_cache"),
-    (lambda p, t: tlm.generate_beam(p, t, TCFG, 2), "generate_beam"),
-    (lambda p, t: tlm.lm_decode_step(p, t[:, 0], [{"pos": 0}], TCFG,
-                                     pos_ids=t[:, 0]), "ragged"),
     (lambda p, t: tlm.TernaryLMConfig(**{**CFG, "n_experts": 4}).block, "MoE"),
     (lambda p, t: tlm.qat_lm_forward({}, t, TCFG), "qat_lm_forward"),
     (lambda p, t: tlm.make_lm_train_step(TCFG), "make_lm_train_step"),
     (lambda p, t: tlm.lm_forward(
         {**p, "blocks": [{**p["blocks"][0], "w_up_lora": (1, 2, 3)}]}, t, TCFG), "LoRA"),
-], ids=["pipeline_p", "prompt_mask", "extend_pos_ids", "fork_cache", "generate_beam",
-        "pos_ids", "moe", "qat_lm_forward", "make_lm_train_step", "lora"])
+    (lambda p, t: tsd.make_draft_distill_step(p, TCFG, TCFG), "training"),
+], ids=["moe", "qat_lm_forward", "make_lm_train_step", "lora", "make_draft_distill_step"])
 def test_left_out_options_raise(lm_pair, call, match):
     _, _, tpacked = lm_pair
     with pytest.raises(NotImplementedError, match=match):
@@ -256,3 +247,80 @@ def test_init_lm_on_the_port(lm_pair):
     toks = torch.from_numpy(np.random.default_rng(2).integers(0, 64, (1, 5)))
     out = tlm.generate(packed, toks, cfg, 3)
     assert out.shape == (1, 3)
+
+
+# ------------------------------------------- fork_cache and beam search
+SMALL = dict(vocab=64, d_model=128, n_heads=2, d_ff=256, n_layers=2, max_len=32)
+
+
+def _small_pair(seed):
+    jcfg, tcfg = jlm.TernaryLMConfig(**SMALL), tlm.TernaryLMConfig(**SMALL)
+    jpacked = jlm.pack_lm(jlm.init_lm(jax.random.PRNGKey(seed), jcfg))
+    return jcfg, tcfg, jpacked, convert.packed_lm_from_jax(jpacked, device="cpu")
+
+
+def test_fork_cache_prefix_caching_matches_jax():
+    """Prefill once at batch 1, fork to 3 rows, decode divergent tokens:
+    each row matches a full pass over (prompt + its token), and JAX."""
+    jcfg, tcfg, jpacked, tpacked = _small_pair(60)
+    prompt = np.random.default_rng(61).integers(0, 64, (1, 8))
+    div = np.array([5, 17, 42])
+    _, cache1 = tlm.lm_prefill(tpacked, torch.from_numpy(prompt),
+                               tlm.lm_init_cache(tcfg, 1, device="cpu"), tcfg, use_kernel=False)
+    forked = tlm.fork_cache(cache1, 3)
+    assert forked[0]["k"].shape == (3, 32, 128) and forked[0]["pos"] == 8
+    logits, forked = tlm.lm_decode_step(tpacked, torch.from_numpy(div), forked, tcfg,
+                                        use_kernel=False)
+    for r in range(3):
+        toks = torch.from_numpy(np.concatenate([prompt, div[r:r + 1, None]], 1))
+        full = tlm.lm_forward(tpacked, toks, tcfg, use_kernel=False)
+        _close(logits[r], full[0, -1], atol=5e-4)
+    _, jc = jlm.lm_prefill(jpacked, jnp.asarray(prompt), jlm.lm_init_cache(jcfg, 1), jcfg,
+                           use_kernel=False)
+    jl, _ = jlm.lm_decode_step(jpacked, jnp.asarray(div), jlm.fork_cache(jc, 3), jcfg,
+                               use_kernel=False)
+    _close(logits, jl)
+    with pytest.raises(ValueError, match="batch-1"):
+        tlm.fork_cache(forked, 2)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["float", "int8"])
+def test_fork_cache_rows_own_their_bytes(quantized):
+    """The port writes caches in place, so each forked row is a copy: a
+    decode step's write into row 0 leaves row 1's bytes as they were."""
+    _, tcfg, _, tpacked = _small_pair(62)
+    prompt = torch.from_numpy(np.random.default_rng(63).integers(0, 64, (1, 6)))
+    _, cache1 = tlm.lm_prefill(tpacked, prompt,
+                               tlm.lm_init_cache(tcfg, 1, quantized=quantized, device="cpu"),
+                               tcfg, use_kernel=False)
+    forked = tlm.fork_cache(cache1, 2)
+    before = [{k: v.clone() for k, v in c.items() if isinstance(v, torch.Tensor)}
+              for c in forked]
+    row0 = [{k: (v[:1] if isinstance(v, torch.Tensor) else v) for k, v in c.items()}
+            for c in forked]  # views of row 0 alone
+    tlm.lm_decode_step(tpacked, torch.tensor([7]), row0, tcfg, use_kernel=False)
+    for c, b in zip(forked, before):
+        for name, old in b.items():
+            assert torch.equal(c[name][1], old[1]), name
+            assert c[name].data_ptr() != cache1[0][name].data_ptr()
+        assert not torch.equal(c["kv" if quantized else "k"][0], b["kv" if quantized else "k"][0])
+
+
+def test_beam_search_matches_greedy_and_jax():
+    jcfg, tcfg, jpacked, tpacked = _small_pair(80)
+    prompt = np.random.default_rng(81).integers(0, 64, (1, 8))
+    tp = torch.from_numpy(prompt)
+    greedy = tlm.generate(tpacked, tp, tcfg, 8, use_kernel=False)
+    b1, s1 = tlm.generate_beam(tpacked, tp, tcfg, 8, beam=1, use_kernel=False)
+    np.testing.assert_array_equal(b1.numpy(), greedy.numpy())
+    b4, s4 = tlm.generate_beam(tpacked, tp, tcfg, 8, beam=4, use_kernel=False)
+    assert b4.shape == (4, 8) and s4.dtype == torch.float32
+    assert bool((s4[1:] <= s4[:-1] + 1e-6).all())  # best first
+    assert float(s4[0]) >= float(s1[0]) - 1e-5  # a wider beam never scores worse
+    jb4, js4 = jlm.generate_beam(jpacked, jnp.asarray(prompt), jcfg, steps=8, beam=4,
+                                 use_kernel=False)
+    np.testing.assert_array_equal(b4.numpy(), np.asarray(jb4))
+    _close(s4, js4)
+    with pytest.raises(ValueError, match="batch-1"):
+        tlm.generate_beam(tpacked, torch.zeros((2, 4), dtype=torch.int64), tcfg, 4,
+                          use_kernel=False)
