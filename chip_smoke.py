@@ -5,10 +5,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases, each of
 which exits non-zero on failure:
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build every CUDA kernel of the path from the sources in the checkout;
+2. build every CUDA kernel of the path from the sources in the checkout,
+   and count the HMMA and IMMA instructions in B1's SASS (``cuobjdump``):
+   its bf16 and W2A8 modes run on ``mma.sync``, so both must be there;
 3. each kernel against its plain PyTorch version on the card, in every
    mode, at the test shapes and the headline shapes, with and without bias
-   and PReLU, and the launch counter rising once per call;
+   and PReLU, and the launch counter rising once per call; B1's row
+   identity: in bf16 and int8, rows of M = 2, 5, 16, 17, 64 and 256 calls
+   bitwise the M = 1 calls, at 1024×8192 and 4096×4096;
 4. the main path at full width: the packed ternary MLP of
    ``python -m smmb_tpu_torch mlp`` (depth 4, dim 4096, batch 256, density
    1/10, bf16) with exactly one kernel launch per layer, and the MLP of
@@ -16,7 +20,12 @@ which exits non-zero on failure:
    each against the plain path;
 5. times through ``bench/measure.py`` (CUDA events): per mode at the
    headline shape the kernel, its bound, the plain version and one PyTorch
-   library call on the same inputs; the full-width MLP forward;
+   library call on the same inputs, beside the recorded times of B1's
+   earlier CUDA-core kernel; B1 at
+   M = 1 on the headline's W and at the LM head's 1×1024×8192, each beside
+   ``torch.matmul`` on the dense bf16 W; B1's device time in bf16 and
+   int8 under each of its four tiles at the paths' shapes, every tile's
+   output bitwise equal; the full-width MLP forward;
 6. the fused LM kernels (B3 fused_norm_qkv, B5 fused_block_tail, B6
    fused_mlp) against their plain versions in f32 and bf16 compute at the
    shapes of the LM path (and B3 at a GQA width, N = 1536), each call
@@ -110,6 +119,12 @@ import time
 
 T0 = time.time()
 ALPHA = 0.2
+# B1's times at the headline (M=256, K=N=4096, ~10% nnz) before its
+# tensor-core redesign: the CUDA-core kernel, measured by this script on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md's B1 row), and its LM-head device
+# time a decode step from bench/trace.py --lm (PERF.md section 5)
+B1_CUDA_CORE_MS = {"f32": 0.380, "bf16": 0.3773, "int8": 0.273}
+B1_CUDA_CORE_HEAD_DEVICE_MS = 0.065
 
 
 def log(msg: str) -> None:
@@ -120,6 +135,73 @@ def check(cond: bool, msg: str) -> None:
     if not cond:
         print(f"FAIL: {msg}", flush=True)
         sys.exit(1)
+
+
+def _sass(lib) -> str:
+    """The SASS of a built kernel library (cuobjdump beside nvcc)."""
+    from pathlib import Path
+
+    from smmb_tpu_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+
+
+def time_b1_tiles(torch, dev) -> None:
+    """Phase 5: B1's device time (torch.profiler) in bf16 and int8 at the
+    paths' shapes under every tile of the tensor-core kernel, through its C
+    entry; every tile's output bitwise equal (one K walk for every tile).
+    Logs the device µs under the tile ``tile_for`` picks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smmb_tpu_torch.formats.packed import pack_ternary_device
+    from smmb_tpu_torch.kernels import _build
+    from smmb_tpu_torch.kernels.packed_spmm import quantize_rows, tile_for
+    from smmb_tpu_torch.utils import rng
+
+    fn = _build.packed_spmm_lib().smmb_packed_spmm
+    gen = rng.make_generator(7, dev)
+    picked = {}
+    for (m, k, n) in ((256, 4096, 4096), (1, 4096, 4096), (1, 1024, 8192),
+                      (32, 1024, 3072), (5, 1024, 8192)):
+        p = pack_ternary_device(rng.rand_ternary(gen, (k, n), non_zero=10))
+        x = rng.rand_dense(gen, (m, k))
+        for mode, cdt in ((1, torch.bfloat16), (2, torch.int8)):
+            xq, scale = (x.to(cdt), None) if mode == 1 else quantize_rows(x)
+            outs, us = {}, {}
+            for bm in (16, 64):
+                for bn in (64, 128):
+                    out = torch.empty((m, n), device=dev)
+
+                    def call():
+                        rc = fn(xq.data_ptr(), p.data.data_ptr(), None,
+                                None if scale is None else scale.data_ptr(),
+                                out.data_ptr(), m, k, n, p.data.shape[0], mode, 0,
+                                bm, bn, 1, 0, 0.0, torch.cuda.current_stream().cuda_stream)
+                        check(rc == 0, f"B1 launch at tile {bm}x{bn}: CUDA error {rc}")
+
+                    call()
+                    torch.cuda.synchronize()
+                    outs[bm, bn] = out.clone()
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        for _ in range(30):
+                            call()
+                        torch.cuda.synchronize()
+                    us[bm, bn] = sum(e.self_device_time_total for e in prof.key_averages()
+                                     if e.device_type == DeviceType.CUDA) / 30
+            first = outs[16, 64]
+            check(all(torch.equal(first, o) for o in outs.values()),
+                  f"B1 tiles disagree at {m}x{k}x{n} {cdt}")
+            pick = tile_for(m, n, cdt)[:2]
+            picked[m, k, n, cdt] = us[pick]
+            print(json.dumps({"b1_device_us": [m, k, n], "mode": str(cdt).split(".")[1],
+                              "tile_for": list(pick),
+                              "by_tile": {f"{a}x{b}": v for (a, b), v in us.items()}}),
+                  flush=True)
+    log("B1 device times by tile, bitwise equal across tiles: " + ", ".join(
+        f"{m}x{k}x{n} {str(c).split('.')[1]} {v:.2f} us" for (m, k, n, c), v in picked.items()))
 
 
 def card_line() -> str:
@@ -144,6 +226,7 @@ def main() -> int:
         packed_spmm,
         packed_spmm_plain,
         quantize_rows,
+        tile_for,
     )
     from smmb_tpu_torch.models.mlp import (
         TernaryMLPConfig,
@@ -171,6 +254,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "Function properties" in line or "spill" in line:
                 print(f"    {src}: {line.strip()}")
+    # B1's bf16 and W2A8 modes run on the tensor cores: the built library's
+    # SASS holds HMMA (bf16 mma.sync) and IMMA (int8 mma.sync) instructions
+    sass = _sass(_build.library_path("packed_spmm.cu"))
+    hmma, imma = sass.count("HMMA"), sass.count("IMMA")
+    log(f"packed_spmm.cu SASS: {hmma} HMMA, {imma} IMMA")
+    check(hmma > 0, "B1's bf16 mode has no HMMA in its SASS")
+    check(imma > 0, "B1's W2A8 mode has no IMMA in its SASS")
 
     # ---------------------------------------------------------------- 3
     # tolerances, each relative to max(1, max|Y|):
@@ -213,6 +303,21 @@ def main() -> int:
                       f"bias={bias is not None}: err {err:.3e} > {lim:.3e}")
                 n_checked += 1
         log(f"kernel == plain at {m}x{k}x{n} in f32, bf16, int8")
+    # one K walk for every M: row r of an M-row call is bitwise the M=1 call
+    # of row r in the tensor-core modes, whatever tile the wrapper picks
+    for (k, n) in ((1024, 8192), (4096, 4096)):
+        p = pack_ternary_device(rng.rand_ternary(gen, (k, n), non_zero=10))
+        b = rng.rand_dense(gen, (n,))
+        xr = rng.rand_dense(gen, (256, k))
+        for cdt in (torch.bfloat16, torch.int8):
+            ones = torch.cat([packed_spmm(xr[r:r + 1], p, b, ALPHA, compute_dtype=cdt)
+                              for r in range(256)])
+            for m in (2, 5, 16, 17, 64, 256):
+                y = packed_spmm(xr[:m], p, b, ALPHA, compute_dtype=cdt)
+                check(torch.equal(y, ones[:m]), f"B1 rows of M={m} != M=1 calls "
+                      f"{cdt} {k}x{n} (tile {tile_for(m, n, cdt)})")
+        log(f"B1 rows of M in (2, 5, 16, 17, 64, 256) == M=1 calls at {k}x{n}, "
+            "bf16 and int8")
     x3 = rng.rand_dense(gen, (3, 4, 512))
     p3 = pack_ternary_device(rng.rand_ternary(gen, (512, 256)))
     y3 = packed_spmm(x3, p3, None, ALPHA)
@@ -295,7 +400,8 @@ def main() -> int:
         dense_s, dense_by = roofline_bound(2.0 * m * n * k, n_bytes, spec, name)
         per_mode[name] = {
             "mode": name, "shape": [m, k, n], "nnz": nnz, "max_abs_err": max_err,
-            "ms": t_kernel.min_s * 1e3, "mean_ms": t_kernel.mean_s * 1e3,
+            "ms": t_kernel.min_s * 1e3, "cuda_core_ms": B1_CUDA_CORE_MS[name],
+            "mean_ms": t_kernel.mean_s * 1e3,
             "std_ms": t_kernel.std_s * 1e3, "plain_ms": t_plain.min_s * 1e3,
             "library_ms": t_lib.min_s * 1e3, "bound_ms": bound_s * 1e3,
             "bound_by": bound_by, "dense_bound_ms": dense_s * 1e3,
@@ -303,16 +409,42 @@ def main() -> int:
         }
         print(json.dumps(per_mode[name]), flush=True)
 
-    x1 = rng.rand_dense(hgen, (1, k))
-    t1 = measure(lambda: packed_spmm(x1, hp, hb, ALPHA, compute_dtype=torch.bfloat16))
-    t1_plain = measure(
-        lambda: packed_spmm_plain(x1, hp, hb, ALPHA, compute_dtype=torch.bfloat16))
-    b1, b1_by = roofline_bound(sparse_flops(1, n, nnz),
-                               spmm_bytes(1, n, k, weight_bytes=hp.weight_bytes()),
-                               spec, "bf16")
-    print(json.dumps({"mode": "bf16", "shape": [1, k, n], "ms": t1.min_s * 1e3,
-                      "plain_ms": t1_plain.min_s * 1e3, "bound_ms": b1 * 1e3,
-                      "bound_by": b1_by}), flush=True)
+    # M=1: the headline's W, and the LM head's shape (1 x 1024 x 8192, as
+    # ``lm`` runs it every decode step), each beside torch.matmul on the
+    # dense bf16 W in the same call
+    head_w = rng.rand_ternary(hgen, (1024, 8192), non_zero=2)
+    head_nnz = int(torch.count_nonzero(head_w))
+    head_p = pack_ternary_device(head_w, nnz=head_nnz)
+    m1_rows = {}
+    for label, (p1, nnz1, b1_) in {"m1_4096": (hp, nnz, hb),
+                                   "lm_head": (head_p, head_nnz, None)}.items():
+        k1, n1 = p1.rows, p1.cols
+        x1 = rng.rand_dense(hgen, (1, k1))
+        y1 = packed_spmm(x1, p1, b1_, None, compute_dtype=torch.bfloat16)
+        ref1 = packed_spmm_plain(x1, p1, b1_, None, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        err1 = float((y1 - ref1).abs().max())
+        check(err1 <= 1e-5 * max(1.0, float(ref1.abs().max())), f"B1 M=1 {label}")
+        t1 = measure(lambda: packed_spmm(x1, p1, b1_, None, compute_dtype=torch.bfloat16))
+        t1_plain = measure(
+            lambda: packed_spmm_plain(x1, p1, b1_, None, compute_dtype=torch.bfloat16))
+        w1 = unpack_ternary(p1).to(torch.bfloat16)
+        t1_lib = measure(torch.matmul, x1.to(torch.bfloat16), w1)
+        bnd, bnd_by = roofline_bound(sparse_flops(1, n1, nnz1),
+                                     spmm_bytes(1, n1, k1, weight_bytes=p1.weight_bytes()),
+                                     spec, "bf16")
+        m1_rows[label] = {"mode": "bf16", "shape": [1, k1, n1], "max_abs_err": err1,
+                          "ms": t1.min_s * 1e3, "plain_ms": t1_plain.min_s * 1e3,
+                          "library_ms": t1_lib.min_s * 1e3, "bound_ms": bnd * 1e3,
+                          "bound_by": bnd_by, "tile": list(tile_for(1, n1))}
+        print(json.dumps(m1_rows[label]), flush=True)
+    time_b1_tiles(torch, dev)
+    log("B1 at the headline, ms now / the CUDA-core kernel's: " + ", ".join(
+        f"{name} {r['ms']:.4f} / {r['cuda_core_ms']}" for name, r in per_mode.items())
+        + f"; torch.matmul bf16 {per_mode['bf16']['library_ms']:.4f}; LM head M=1 "
+        f"{m1_rows['lm_head']['ms']:.4f} (torch.matmul "
+        f"{m1_rows['lm_head']['library_ms']:.4f}; the CUDA-core kernel's head "
+        f"took {B1_CUDA_CORE_HEAD_DEVICE_MS} ms of device time a decode step)")
 
     for use_kernel in (True, False):
         r = run_mlp_bench(4, 4096, 256, 10, use_kernel=use_kernel, device=dev)
@@ -353,6 +485,7 @@ def main() -> int:
         "bound_ms": main_mode["bound_ms"],
         "bound_by": main_mode["bound_by"],
         "library_ms": main_mode["library_ms"],
+        "design": "mma.sync",
     }, *bcsr_rows, *fused_rows, *flash_rows, *int8_rows, *pipe_rows]}
     log(f"all phases passed in {time.time() - T0:.1f}s")
     print(json.dumps(summary), flush=True)

@@ -106,7 +106,8 @@ def packed_spmm_lib() -> ctypes.CDLL:
     return _load("packed_spmm.cu", {"smmb_packed_spmm": [
         _P, _P, _P, _P, _P,  # x, w, bias, scale, out
         _I, _I, _I, _I,  # m, k, n, kp
-        _I, _I, _I, _F,  # x_mode, out_bf16, has_alpha, alpha
+        _I, _I, _I, _I, _I,  # x_mode, out_bf16, bm, bn, aligned
+        _I, _F,  # has_alpha, alpha
         _P,  # stream
     ]})
 

@@ -4,19 +4,26 @@ and its plain PyTorch version.
 Replaces the Pallas TPU kernel ``smmb_tpu/kernels/packed_spmm.py::packed_spmm``
 (``pallas_call`` at :388, body ``_kernel`` at :50). The kernel is
 ``csrc/packed_spmm.cu``, built with ``nvcc`` for ``sm_90a`` at first use
-(``_build.py``) and called through ctypes. Its design: one block per 64×128
-output tile, a loop inside the block over K in chunks of 8 packed rows (32
-logical rows, a slice of each of the 4 planes), the chunk's X and decoded W
-staged in shared memory, a 4×8 register micro-tile per thread, no split-K
-and no atomics. f32 mode runs f32 FMA (never TF32); bf16 mode converts the
-bf16 X to f32 and accumulates in f32; W2A8 mode multiplies int8 codes with
-dp4a (four planes per instruction) into int32 and dequantizes per row.
+(``_build.py``) and called through ctypes. Two designs, one per kind of
+arithmetic, neither with split-K or atomics:
+
+- f32 mode (the parity mode, never TF32): CUDA cores, one block per 64×128
+  output tile, K in chunks of 8 packed rows, the chunk's X and decoded W
+  staged in shared memory, a 4×8 register micro-tile per thread.
+- bf16 and W2A8 modes: tensor cores through the warp MMA (``mma.sync``
+  m16n8k16 bf16 → f32, m16n8k32 s8 → s32). W crosses shared memory as raw
+  packed bytes and is decoded in registers into the B fragments; X is
+  staged by 16-byte ``cp.async`` as four plane runs a row and loaded by
+  ``ldmatrix``; a ring of K chunks of ``K_CHUNK`` packed rows. The tile is
+  ``tile_for(m, n)``: BM 16 or 64 by M, BN 64/128 so that the grid fills
+  about one wave of the card's 132 SMs. Each output element sums in one
+  register in the same K order for every tile, so row r of an M-row call
+  equals the M=1 call bitwise.
 
 Bound on this card: at the M=256, K=N=4096, ~10% nnz headline the bytes
 (X, packed W, bias and Y moved once) bound the bf16 and int8 modes and the
-f32 mode's operations bound it (no tensor cores without TF32). The kernel
-runs on CUDA cores and is far from the bf16/int8 bounds; its times are in
-PERF.md (measured by chip_smoke.py).
+f32 mode's operations bound it (no tensor cores without TF32). Its times
+are in PERF.md (measured by chip_smoke.py).
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``packed_spmm_plain``. There is no fallback from one to the other.
@@ -34,6 +41,37 @@ from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 _X_MODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
 DECODES = ("shift", "fold")
+
+K_CHUNK = 32  # packed rows a K chunk of the tensor-core modes (csrc TC_PK)
+F32_TILE = (64, 128, 8)  # the f32 kernel's fixed BM, BN and K chunk
+NUM_SMS = 132  # an H100 SXM's SMs: the grid should fill about one wave
+
+
+def tile_for(m: int, n: int, compute_dtype=torch.bfloat16) -> tuple[int, int, int]:
+    """(BM, BN, K chunk in packed rows) of the kernel for an (m, n) output.
+
+    The tensor-core modes take BM = 16 up to M = 32 (M ≤ 16 is one m16
+    fragment; at M = 32 two 16-row blocks of 8 warps were faster on an H100
+    than one 32-row block, so there is no 32-row tile) and BM = 64 above,
+    and BN = 128 when that grid has at least 3/4 of a wave of blocks, else
+    64. The K chunk is ``K_CHUNK`` whatever the tile: the K
+    walk, and so every row's result, does not depend on M. The f32 mode has
+    one tile.
+    """
+    if compute_dtype == torch.float32:
+        return F32_TILE
+    bm = 16 if m <= 32 else 64
+    rows = -(-m // bm)
+    bn = 128 if rows * -(-n // 128) >= NUM_SMS * 3 // 4 else 64
+    return bm, bn, K_CHUNK
+
+
+def pieces_aligned(k: int, n: int, x_ptr: int, w_ptr: int, compute_dtype) -> bool:
+    """Whether the tensor-core kernel may copy X and W rows in 16-byte
+    pieces: K a multiple of the piece's elements (8 bf16, 16 int8 codes), N
+    of 16 bytes, and both pointers 16-byte aligned. Else it loads elements."""
+    per_piece = 16 if compute_dtype == torch.int8 else 8
+    return k % per_piece == 0 and n % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -119,8 +157,9 @@ def packed_spmm(
         (W2A8: per-row absmax int8 X, int32 sums, per-row dequant).
       block_m/n/k, decode: kept for compatibility with the JAX signature.
         They choose among TPU tilings and decode strategies with identical
-        results; the Hopper kernel has one tiling and one decode. ``decode``
-        must be "shift" or "fold" and ``block_k`` a multiple of 512.
+        results; the Hopper kernel picks its tile by ``tile_for`` and has
+        one decode. ``decode`` must be "shift" or "fold" and ``block_k`` a
+        multiple of 512.
     Returns:
       (..., N) in x.dtype.
     """
@@ -152,6 +191,8 @@ def packed_spmm(
     out = torch.empty((m, w.cols), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
+    bm, bn, _ = tile_for(m, w.cols, compute_dtype)
+    aligned = pieces_aligned(k, w.cols, xq.data_ptr(), w.data.data_ptr(), compute_dtype)
     fn = _build.packed_spmm_lib().smmb_packed_spmm
     with torch.cuda.device(x.device):
         rc = fn(
@@ -161,6 +202,7 @@ def packed_spmm(
             out.data_ptr(),
             m, k, w.cols, w.data.shape[0],
             _X_MODE[compute_dtype], int(x.dtype == torch.bfloat16),
+            bm, bn, int(aligned),
             int(alpha is not None), 0.0 if alpha is None else float(alpha),
             torch.cuda.current_stream(x.device).cuda_stream,
         )

@@ -31,7 +31,7 @@ from smmb_tpu_torch.kernels import bcsr_spmm as bk
 from smmb_tpu_torch.kernels import flash_attention as fa
 from smmb_tpu_torch.kernels import flash_decode as fd
 from smmb_tpu_torch.kernels import fused_mlp as fk
-from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
+from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain, tile_for
 from smmb_tpu_torch.models import attention as tattn
 from smmb_tpu_torch.models import lm as tlm
 from smmb_tpu_torch.models import mlp as tmlp
@@ -61,8 +61,12 @@ def _setup(seed, m, k, n, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("m,k,n", [(1, 512, 1024), (8, 1024, 640), (100, 512, 512),
-                                   (4, 100, 256), (65, 2048, 129), (256, 4096, 4096)])
+                                   (4, 100, 256), (65, 2048, 129), (256, 4096, 4096),
+                                   (1, 1024, 8192), (17, 1000, 640), (33, 2048, 1024),
+                                   (8, 100, 129)])
 def test_kernel_matches_plain(cuda, cdt, m, k, n):
+    # k=100, n=129 and int8 at k=1000 take the tensor-core kernel's element
+    # loads (pieces_aligned is False there)
     x, p, b = _setup(31 + m, m, k, n, cuda)
     for bias, alpha in ((b, ALPHA), (None, None)):
         before = packed_spmm.launches
@@ -96,6 +100,50 @@ def test_kernel_rejects_bad_inputs(cuda):
         packed_spmm(x, p.to("cpu"), b)
     with pytest.raises(ValueError):
         packed_spmm(x, p, b[:100])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("k,n", [(1024, 8192), (4096, 4096)])
+def test_kernel_rows_equal_the_m1_call(cuda, cdt, k, n):
+    """Row r of an M-row call is bitwise the M=1 call of row r, whatever
+    tile the wrapper picks for M (one K walk for every M)."""
+    x, p, b = _setup(41, 256, k, n, cuda)
+    ones = torch.cat([packed_spmm(x[r:r + 1], p, b, ALPHA, compute_dtype=cdt)
+                      for r in range(256)])
+    for m in (2, 5, 16, 17, 64, 256):
+        y = packed_spmm(x[:m], p, b, ALPHA, compute_dtype=cdt)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ones[:m]), f"{cdt} M={m} tile {tile_for(m, n, cdt)}"
+
+
+@pytest.mark.cuda
+def test_kernel_misaligned_x_pointer(cuda):
+    """A bf16 X whose data starts 2 bytes past a 16-byte boundary takes the
+    element loads and gives the aligned call's result bitwise."""
+    x, p, b = _setup(44, 12, 512, 640, cuda)
+    xb = x.to(torch.bfloat16)
+    flat = torch.empty(xb.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(12, 512)
+    shifted.copy_(xb)
+    assert shifted.data_ptr() % 16 != 0
+    want = packed_spmm(xb, p, b, ALPHA, compute_dtype=torch.bfloat16)
+    got = packed_spmm(shifted, p, b, ALPHA, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_f32_mode_rows_and_plain(cuda):
+    """The f32 parity mode (CUDA cores): within 1e-4 of the plain version,
+    and its rows independent of M."""
+    x, p, b = _setup(45, 64, 2048, 640, cuda)
+    y = packed_spmm(x, p, b, ALPHA)
+    ref = packed_spmm_plain(x, p, b, ALPHA)
+    torch.cuda.synchronize()
+    assert_close(y, ref, 1e-4 * max(1.0, float(ref.abs().max())), "f32 mode")
+    assert torch.equal(packed_spmm(x[:5], p, b, ALPHA), y[:5])
+    assert torch.equal(packed_spmm(x[3:4], p, b, ALPHA), y[3:4])
 
 
 @pytest.mark.cuda

@@ -21,7 +21,15 @@ from smmb_tpu.formats.packed import pack_ternary as jpack
 from smmb_tpu.kernels import packed_spmm as jspmm
 from smmb_tpu.ops.spmm import packed_spmm_jnp
 from smmb_tpu_torch.formats.packed import pack_ternary
-from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, quantize_rows
+from smmb_tpu_torch.kernels.packed_spmm import (
+    F32_TILE,
+    K_CHUNK,
+    NUM_SMS,
+    packed_spmm,
+    pieces_aligned,
+    quantize_rows,
+    tile_for,
+)
 from smmb_tpu_torch.utils.compare import TOL_DENSE, assert_close
 
 torch.set_num_threads(2)
@@ -169,3 +177,47 @@ def test_cpu_call_does_not_count_a_launch():
         packed_spmm(torch.from_numpy(x), pack_ternary(w, device="cpu"),
                     torch.from_numpy(b), ALPHA, compute_dtype=cdt)
     assert packed_spmm.launches == before
+
+
+# N of the paths' B1 calls: the LM head (8192), its fused qkv (3072), d_ff
+# (4096), d_model (1024), the spec draft (256), the tests' odd widths
+PATH_NS = (129, 256, 640, 1024, 2048, 3072, 4096, 8192)
+
+
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("n", PATH_NS)
+def test_tile_for_every_m(cdt, n):
+    """For M = 1..300 the tile is an allowed one, the grid fits the launch
+    limits, and the K chunk is one constant: the K walk (and so each row's
+    result) does not depend on M."""
+    chunks = set()
+    for m in range(1, 301):
+        bm, bn, pk = tile_for(m, n, cdt)
+        assert bm in (16, 64) and bn in (64, 128)
+        assert -(-m // bm) <= 2 or bm == 64, "up to M = 32 two 16-row blocks at most"
+        assert -(-m // bm) <= 65535 and -(-n // bn) <= 2 ** 31 - 1
+        chunks.add(pk)
+    assert chunks == {K_CHUNK}
+
+
+def test_tile_for_fills_about_a_wave():
+    # the headline (M=256, N=4096) and the LM head at M=1 (N=8192): 128 blocks
+    for m, n, tile in ((256, 4096, (64, 128)), (1, 8192, (16, 64)), (5, 8192, (16, 64)),
+                       (17, 3072, (16, 64)), (32, 3072, (16, 64)), (33, 1024, (64, 64)), (8192, 4096, (64, 128))):
+        bm, bn, _ = tile_for(m, n)
+        assert (bm, bn) == tile
+    assert -(-256 // 64) * -(-4096 // 128) <= NUM_SMS
+    assert all(tile_for(m, 4096, torch.float32) == F32_TILE for m in (1, 17, 256))
+
+
+@pytest.mark.parametrize("cdt,k,n,ptrs,want", [
+    (torch.bfloat16, 4096, 4096, (0, 256), True),
+    (torch.bfloat16, 100, 256, (0, 0), False),  # K not a multiple of 8
+    (torch.bfloat16, 2048, 129, (0, 0), False),  # N not a multiple of 16
+    (torch.bfloat16, 512, 640, (2, 0), False),  # X 2 bytes past a boundary
+    (torch.int8, 1000, 640, (0, 0), False),  # K not a multiple of 16
+    (torch.int8, 1024, 640, (0, 48), True),
+    (torch.int8, 1024, 640, (0, 8), False),  # W 8 bytes past a boundary
+])
+def test_pieces_aligned(cdt, k, n, ptrs, want):
+    assert pieces_aligned(k, n, *ptrs, cdt) is want
