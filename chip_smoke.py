@@ -7,7 +7,9 @@ which exits non-zero on failure:
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every CUDA kernel of the path from the sources in the checkout,
    and count the HMMA and IMMA instructions in B1's SASS (``cuobjdump``):
-   its bf16 and W2A8 modes run on ``mma.sync``, so both must be there;
+   its bf16 and W2A8 modes run on ``mma.sync``, so both must be there; and
+   the HMMA in ``flash_attention.cu``'s SASS (B9's and B9p's bf16 body),
+   with the registers and spills ``ptxas -v`` gives its mma kernels;
 3. each kernel against its plain PyTorch version on the card, in every
    mode, at the test shapes and the headline shapes, with and without bias
    and PReLU, and the launch counter rising once per call; B1's row
@@ -45,15 +47,20 @@ which exits non-zero on failure:
     call raising its launch count by one; chunk row c equals the decode
     step at pos + c and row r of a B = 4 call the row served alone, bitwise;
 11. B9 (flash prefill) against its plain version in f32 and bf16: the LM
-    prefill, T = 512 causal, T = 200, GQA, a window, non-causal, hd = 64;
+    prefill, T = 512 causal, T = 200, GQA, a window, non-causal, hd = 64,
+    256 and 512, with the body ``kernel_route`` picks at each (bf16 at hd
+    64 and 128 on the tensor cores, the rest on CUDA cores);
 12. the flash LM path: ``generate(use_flash=True)`` at the ``lm`` defaults
     with every kernel's launch count, its teacher-forced logits against the
     plain path, ``lm_prefill_chunked`` against ``lm_prefill``,
     ``block_extend`` (C = 4) bitwise per row against four decode steps,
     µs/token and the decode bench with and without flash, and the
     ``bench/trace.py --lm`` step with and without flash;
-13. times of B4 and B9 at the path shapes and at one long shape each:
-    kernel, plain version, bound, and ``scaled_dot_product_attention``;
+13. times of B4 and B9 at the path shapes and at one long shape each, and
+    B9 at T = 4096 bf16 non-causal too (each long bf16 B9 row held against
+    its plain version): kernel, plain version, bound, and
+    ``scaled_dot_product_attention``, beside the recorded times of B9's
+    earlier CUDA-core bf16 body;
 14. B2 (BCSR block SpMM) against its plain version in f32 and bf16: the
     tests' 8×128 blocks (both ``x_resident`` values bitwise equal), 128×128
     blocks at M = 100, M = 140 with ``block_m`` = 64, the empty matrix (no
@@ -88,9 +95,9 @@ which exits non-zero on failure:
     version, bound, ``torch.matmul`` on the dense Wqkv (B7) and
     ``scaled_dot_product_attention`` on the dequantized bf16 cache (B8);
 20. B9p (``flash_attention(pipeline_p=True)``) against its plain version in
-    f32 and bf16 at phase 11's causal shapes, bitwise the serial kernel
-    where both take the same tile, counted apart from B9, the non-causal
-    call refused; and the LM prefill with B9p in B9's place, counted,
+    f32 and bf16 at phase 11's causal shapes, with the body each takes,
+    bitwise the serial kernel where both take the same body and tile,
+    counted apart from B9, the non-causal call refused; and the LM prefill with B9p in B9's place, counted,
     bitwise the serial prefill's logits;
 21. the serving controls at the ``lm`` defaults with the spec bench's draft:
     ``generate_speculative(use_flash=True)`` in bf16 (k = 4, 64 steps) with
@@ -102,8 +109,9 @@ which exits non-zero on failure:
     best beside beam 1's);
     ``fork_cache`` to 4 rows and a decode step against the plain routing;
 22. times of B9p against the serial kernel, its plain version, its bound and
-    ``scaled_dot_product_attention`` at the LM prefill and at T = 4096 bf16,
-    and the three rows of ``python -m smmb_tpu_torch spec``.
+    ``scaled_dot_product_attention`` at the LM prefill and at T = 4096 bf16
+    (beside the earlier CUDA-core body's recorded times), and the three
+    rows of ``python -m smmb_tpu_torch spec``.
 
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
@@ -125,6 +133,10 @@ ALPHA = 0.2
 # time a decode step from bench/trace.py --lm (PERF.md section 5)
 B1_CUDA_CORE_MS = {"f32": 0.380, "bf16": 0.3773, "int8": 0.273}
 B1_CUDA_CORE_HEAD_DEVICE_MS = 0.065
+# B9's and B9p's times at T=4096 bf16 causal (B=1, H=8, hd 128) before
+# their tensor-core redesign: the CUDA-core body, measured by this script on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's B9 and B9p rows)
+B9_CUDA_CORE_MS = {"serial": 6.506, "pipe": 8.105}
 
 
 def log(msg: str) -> None:
@@ -146,6 +158,25 @@ def _sass(lib) -> str:
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+
+def _ptxas_kernels(text: str, pattern: str) -> list:
+    """Registers and spills of the kernels whose mangled name matches
+    ``pattern``, from ``nvcc -Xptxas -v`` output: ``[(groups, registers,
+    spill stores, spill loads)]``."""
+    import re
+
+    out, name, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = re.search(pattern, line)
+        elif "spill stores" in line:
+            spills = tuple(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif "Used" in line and "registers" in line and name:
+            out.append((name.groups(), int(re.search(r"Used (\d+) registers", line)[1]),
+                        *spills))
+            name = None
+    return out
 
 
 def time_b1_tiles(torch, dev) -> None:
@@ -261,6 +292,17 @@ def main() -> int:
     log(f"packed_spmm.cu SASS: {hmma} HMMA, {imma} IMMA")
     check(hmma > 0, "B1's bf16 mode has no HMMA in its SASS")
     check(imma > 0, "B1's W2A8 mode has no IMMA in its SASS")
+    # B9's and B9p's bf16 body runs on mma.sync: HMMA in flash_attention.cu
+    fa_hmma = _sass(_build.library_path("flash_attention.cu")).count("HMMA")
+    log(f"flash_attention.cu SASS: {fa_hmma} HMMA")
+    check(fa_hmma > 0, "B9's bf16 body has no HMMA in its SASS")
+    if "flash_attention.cu" in build_logs:
+        for (hd, pipe), regs, stores, loads in _ptxas_kernels(
+                build_logs["flash_attention.cu"], r"flash_prefill_mma_kernelILi(\d+)ELb([01])E"):
+            log(f"B9{'p' if pipe == '1' else ''} mma body hd {hd}: {regs} registers, "
+                f"{stores} bytes spill stores, {loads} bytes spill loads")
+    else:
+        log("flash_attention.cu was up to date: no ptxas report this run")
 
     # ---------------------------------------------------------------- 3
     # tolerances, each relative to max(1, max|Y|):
@@ -847,6 +889,11 @@ FLASH_PREFILL_SHAPES = [
 ]
 
 
+def _route(route) -> str:
+    """A kernel_route result as a log phrase: body and tile."""
+    return f"{route.body} body, tile {route.tile}"
+
+
 def _held(torch, name, y, ref, tol, what) -> float:
     """Max abs error of a kernel's result against its plain version, checked
     against ``tol`` relative to max(1, max|ref|)."""
@@ -911,7 +958,9 @@ def check_flash_kernels(torch, dev) -> dict:
     log("phase 10 passed: B4 agrees with its plain version, rows bitwise")
 
     for label, b, h, kvh, t, hd, causal, window in FLASH_PREFILL_SHAPES:
+        routes = {}
         for dt in (torch.float32, torch.bfloat16):
+            routes[dt] = fa.kernel_route(dt, hd)
             q = (rng.rand_dense(gen, (b, t, h, hd)) * 4.0).to(dt).permute(0, 2, 1, 3)
             k = rng.rand_dense(gen, (b, kvh, t, hd), dtype=dt)
             v = rng.rand_dense(gen, (b, kvh, t, hd), dtype=dt)
@@ -924,7 +973,8 @@ def check_flash_kernels(torch, dev) -> dict:
             if (label, dt) == ("lm prefill", torch.float32):
                 errs["flash_attention"] = err
         log(f"B9 == plain at {label} (B={b} H={h} KVH={kvh} T={t} hd={hd} "
-            f"causal={causal} window={window}) in f32 and bf16")
+            f"causal={causal} window={window}) in f32 ({_route(routes[torch.float32])}) "
+            f"and bf16 ({_route(routes[torch.bfloat16])})")
     log("phase 11 passed: B9 agrees with its plain version")
     return errs
 
@@ -1096,28 +1146,46 @@ def time_flash_kernels(torch, dev, spec, errs, flash) -> list:
                      "mean_ms": t_k.mean_s * 1e3, "plain_ms": t_p.min_s * 1e3,
                      "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes,
                      "library_ms": t_l.min_s * 1e3})
-    # B9: the path's prefill in f32 (its projections are f32), the long in bf16
-    for label, b, h, t, dt in (("lm prefill", 1, 8, 32, f32), ("long", 1, 8, 4096, bf16)):
+    # B9: the path's prefill in f32 (its projections are f32), the long in
+    # bf16, causal (the triangular walk) and not (every kv tile)
+    for label, b, h, t, dt, causal in (("lm prefill", 1, 8, 32, f32, True),
+                                       ("long", 1, 8, 4096, bf16, True),
+                                       ("long non-causal", 1, 8, 4096, bf16, False)):
         q = (rng.rand_dense(gen, (b, h, t, 128)) * 4.0).to(dt)
         k = rng.rand_dense(gen, (b, h, t, 128), dtype=dt)
         v = rng.rand_dense(gen, (b, h, t, 128), dtype=dt)
-        t_k = measure(lambda: fa.flash_attention(q, k, v))
-        t_p = measure(lambda: fa.flash_attention_plain(q, k, v))
-        t_l = measure(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        route = fa.kernel_route(dt, 128)
+        if dt == bf16:  # the long rows are the mma body's: hold them too
+            _held(torch, "B9", fa.flash_attention(q, k, v, causal=causal),
+                  fa.flash_attention_plain(q, k, v, causal=causal), 2.0 ** -7, label)
+        t_k = measure(lambda: fa.flash_attention(q, k, v, causal=causal))
+        t_p = measure(lambda: fa.flash_attention_plain(q, k, v, causal=causal))
+        t_l = measure(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
         n_bytes = 2 * nbytes(q) + nbytes(k, v)
-        ops = 4.0 * b * h * 128 * t * (t + 1) / 2
+        ops = 4.0 * b * h * 128 * t * ((t + 1) / 2 if causal else t)
         bound, by = roofline_bound(ops, n_bytes, spec, "f32" if dt == f32 else "bf16")
         rows.append({"kernel": "B9 flash_attention", "shape": label, "B": b, "H": h,
-                     "T": t, "dtype": str(dt), "ms": t_k.min_s * 1e3,
+                     "T": t, "dtype": str(dt), "causal": causal, "body": route.body,
+                     "tile": route.tile, "ms": t_k.min_s * 1e3,
                      "mean_ms": t_k.mean_s * 1e3, "plain_ms": t_p.min_s * 1e3,
                      "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes,
                      "ops": ops, "library_ms": t_l.min_s * 1e3})
+        if label == "long":
+            rows[-1]["cuda_core_ms"] = B9_CUDA_CORE_MS["serial"]
     for r in rows:
         print(json.dumps({**r, "library": "torch.nn.functional.scaled_dot_product_attention"}),
               flush=True)
+    b9 = {r["shape"]: r for r in rows if r["kernel"].startswith("B9")}
+    log(f"B9 at T=4096 bf16 ({b9['long']['body']} body): causal {b9['long']['ms']:.4f} ms "
+        f"(the CUDA-core body's: {B9_CUDA_CORE_MS['serial']} ms; SDPA "
+        f"{b9['long']['library_ms']:.4f}, bound {b9['long']['bound_ms']:.4f}), non-causal "
+        f"{b9['long non-causal']['ms']:.4f} ms (SDPA "
+        f"{b9['long non-causal']['library_ms']:.4f}, bound "
+        f"{b9['long non-causal']['bound_ms']:.4f})")
     for name, src, line, row in (
             ("flash_attention_decode", "flash_decode", "flash_decode.py:412", rows[0]),
-            ("flash_attention", "flash_attention", "flash_attention.py:662", rows[2])):
+            ("flash_attention", "flash_attention", "flash_attention.py:662",
+             b9["lm prefill"])):
         summary.append({
             "name": name, "route": "cuda",
             "source": f"smmb_tpu_torch/kernels/csrc/{src}.cu",
@@ -1126,6 +1194,8 @@ def time_flash_kernels(torch, dev, spec, errs, flash) -> list:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    summary[-1].update(design="mma.sync (bf16, hd 64 and 128); CUDA cores (f32, others)",
+                       long_bf16_ms=b9["long"]["ms"])
     log("phase 13 passed: B4 and B9 timed at the path and long shapes")
     return summary
 
@@ -1678,8 +1748,9 @@ def check_pipe_kernel(torch, dev, lm) -> dict:
     for label, b, h, kvh, t, hd, causal, window in FLASH_PREFILL_SHAPES:
         if not causal:
             continue
-        bt = fa.kernel_tile(hd, True)
+        routes = {}
         for dt in (torch.float32, torch.bfloat16):
+            route = routes[dt] = fa.kernel_route(dt, hd, True)
             q = (rng.rand_dense(gen, (b, t, h, hd)) * 4.0).to(dt).permute(0, 2, 1, 3)
             k = rng.rand_dense(gen, (b, kvh, t, hd), dtype=dt)
             v = rng.rand_dense(gen, (b, kvh, t, hd), dtype=dt)
@@ -1689,16 +1760,17 @@ def check_pipe_kernel(torch, dev, lm) -> dict:
             check((fn.launches, fn.pipe_launches) == (before[0], before[1] + 1),
                   f"B9p counts one pipe launch and no serial one {what}")
             err = _held(torch, "B9p", y, fa.flash_attention_plain(
-                q, k, v, window=window, block_kv=bt, pipeline_p=True), tol[dt], what)
-            if bt == fa.kernel_tile(hd):
+                q, k, v, window=window, block_kv=route.tile, pipeline_p=True), tol[dt], what)
+            if route == fa.kernel_route(dt, hd):
                 serial = fn(q, k, v, window=window)
                 torch.cuda.synchronize()
                 check(torch.equal(y, serial), f"B9p != the serial kernel bitwise {what}")
                 n_bitwise += 1
             if (label, dt) == ("lm prefill", torch.float32):
                 out["max_abs_err"] = err
-        log(f"B9p == plain at {label} (B={b} H={h} KVH={kvh} T={t} hd={hd} window={window}, "
-            f"tile {bt}) in f32 and bf16")
+        log(f"B9p == plain at {label} (B={b} H={h} KVH={kvh} T={t} hd={hd} window={window}) "
+            f"in f32 ({_route(routes[torch.float32])}) and bf16 "
+            f"({_route(routes[torch.bfloat16])})")
     q = torch.zeros((1, 2, 8, 128), device=dev)
     try:
         fn(q, q, q, causal=False, pipeline_p=True)
@@ -1966,10 +2038,15 @@ def time_serving_controls(torch, dev, spec, pipe) -> list:
                      "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes, "ops": ops,
                      "library_ms": t_l.min_s * 1e3,
                      "library": "torch.nn.functional.scaled_dot_product_attention "
-                                "(is_causal)"})
+                                "(is_causal)", "body": fa.kernel_route(dt, 128, True).body})
+        if label == "long":
+            rows[-1]["cuda_core_ms"] = B9_CUDA_CORE_MS["pipe"]
+            rows[-1]["cuda_core_serial_ms"] = B9_CUDA_CORE_MS["serial"]
         print(json.dumps(rows[-1]), flush=True)
-    log(f"B9p at T=4096 bf16: {rows[1]['ms']:.3f} ms vs serial {rows[1]['serial_ms']:.3f} ms "
-        f"(bound {rows[1]['bound_ms']:.4f} ms, SDPA {rows[1]['library_ms']:.4f} ms)")
+    log(f"B9p at T=4096 bf16 ({rows[1]['body']} body): {rows[1]['ms']:.4f} ms vs serial "
+        f"{rows[1]['serial_ms']:.4f} ms (the CUDA-core body's: B9p "
+        f"{B9_CUDA_CORE_MS['pipe']} ms, serial {B9_CUDA_CORE_MS['serial']} ms; bound "
+        f"{rows[1]['bound_ms']:.4f} ms, SDPA {rows[1]['library_ms']:.4f} ms)")
 
     t = time.time()
     bench = spec_bench.main([])

@@ -182,7 +182,7 @@ def flash_attention_lib() -> ctypes.CDLL:
     args = [
         _P, strides, _P, strides, _P, strides, _P, strides,  # q, k, v, out
         _I, _I, _I, _I, _I, _I, _I,  # bf16, b, t, s, h, kvh, hd
-        _I, _I, _F, _I,  # causal, window, qscale, tile
+        _I, _I, _F, _I, _I,  # causal, window, qscale, body, tile
         _P,  # stream
     ]
     return _load("flash_attention.cu", {"smmb_flash_attention": args,

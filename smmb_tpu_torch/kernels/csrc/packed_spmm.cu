@@ -4,7 +4,8 @@
 //
 // Replaces the Pallas TPU kernel smmb_tpu/kernels/packed_spmm.py::_kernel
 // (pallas_call at packed_spmm.py:388). The layout of W and its decode are
-// in packed_decode.cuh, shared with fused_mlp.cu.
+// in packed_decode.cuh, shared with fused_mlp.cu; the cp.async, ldmatrix
+// and mma wrappers in mma_sm90.cuh, shared with flash_attention.cu.
 //
 // Two kernels, one per kind of arithmetic:
 //   * packed_spmm_float (f32 parity mode): CUDA cores, f32 FMA, no TF32;
@@ -51,8 +52,10 @@
 
 #include <type_traits>
 
+#include "mma_sm90.cuh"
 #include "packed_decode.cuh"
 
+using namespace smmb_mma;
 using namespace smmb_packed;
 
 namespace {
@@ -195,47 +198,6 @@ template <class T>
 __device__ __forceinline__ int w_off(int r, int c) {
   const int piece = (c >> 4) ^ ((r >> T::SWZ_SHIFT) & T::SWZ_MASK);
   return r * T::TBN + piece * 16 + (c & 15);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (nothing is read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma(int (&c)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Field i of the two packed bytes in bits 0-7 and 8-15 of x, as a bf16 pair

@@ -7,58 +7,112 @@ The kernel is ``csrc/flash_attention.cu``, built with ``nvcc`` for
 ``sm_90a`` at first use (``_build.py``) and called through ctypes: a block
 owns a tile of query rows of one KV head's query heads and walks the live
 kv tiles in ascending order, so the (T, S) score tensor never reaches device
-memory. Its tile is 64 rows and columns, or 32 / 16 where a wide head would
-not fit a block's shared memory; any hd is taken as it is (JAX pads to 128).
+memory. It has two device bodies, and ``kernel_route`` names the one a call
+takes, with its tile (the one place that decides):
 
-Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs the
-plain version. There is no fallback from one to the other. Each call that
-reaches the kernel adds one to ``flash_attention.launches``.
+* **mma** (bf16 at hd 64 and 128): tensor cores, ``mma.sync`` m16n8k16 with
+  bf16 inputs and f32 sums, FlashAttention-2's shape. A block of 4 warps
+  owns 64 query rows (16 a warp) and walks kv tiles of 64 columns through
+  a two-slot ``cp.async`` ring; scores, softmax, P and the output
+  accumulator stay in registers. Rounding points: q·qscale to bf16, the
+  scores and P·V as the MMA's f32 sums, p to bf16 from the f32 exp2, the
+  output acc / l to bf16.
+* **cuda_core** (f32 at any hd, bf16 at other widths): the first port's
+  body, f32 FMAs on CUDA cores (no TF32), 256 threads, tile 64 rows and
+  columns, or 32 / 16 where a wide head would not fit a block's shared
+  memory (``kernel_tile``). Rounding points: q·qscale to q's dtype, the
+  scores and P·V as fmaf chains in f32, p to v's dtype, acc / l to q's
+  dtype.
+
+Both bodies share the plain version ``flash_attention_plain`` as their
+reference (the same rounding points, with the products exact in f64 and
+rounded once to f32). Any hd is taken as it is (JAX pads to 128).
+
+Dispatch: a CUDA tensor launches the body ``kernel_route`` names or raises;
+a CPU tensor runs the plain version. There is no fallback from one to the
+other. Each call that reaches the kernel adds one to
+``flash_attention.launches``.
 
 ``pipeline_p=True`` (causal only) is B9p, the TPU's software-pipelined
-variant (``_flash_kernel_pipe`` :253, ``pallas_call`` at :607): the second
-kernel of ``csrc/flash_attention.cu``, with P double-buffered so that step
-s's scores and softmax sit beside step s−1's P·V. It computes the serial
-kernel's rounded operations in another schedule, so at the same tile its
-output is the serial kernel's bitwise; its plain version walks the tiles in
-the pipelined order. Its launches count in ``flash_attention.pipe_launches``.
-No model entry point passes it, as in JAX.
+variant (``_flash_kernel_pipe`` :253, ``pallas_call`` at :607): the same
+body under its compile-time schedule switch, where step s's scores sit
+beside step s−1's pending P·V. It computes the serial walk's rounded
+operations in another schedule, so at the same tile its output is the
+serial kernel's bitwise (``kernel_route`` gives both the same tile wherever
+both fit); its plain version walks the tiles in the pipelined order. Its
+launches count in ``flash_attention.pipe_launches``. No model entry point
+passes it, as in JAX.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from smmb_tpu_torch.kernels import _build
 from smmb_tpu_torch.kernels.flash_decode import LOG2E, MAX_SHARED_BYTES, NEG, _exp2
 
-KV_TILE = 64  # the kernel's widest tile
+KV_TILE = 64  # the widest tile of both bodies
 TILES = (64, 32, 16)
+MMA_HEAD_DIMS = (64, 128)  # the head widths the mma body is built for
+MMA_TILE = 64  # its query rows and kv columns
+
+
+class Route(NamedTuple):
+    """The device body a call takes ("mma" or "cuda_core") and its tile."""
+
+    body: str
+    tile: int
 
 
 def shared_bytes(bt: int, hd: int) -> int:
-    """Shared memory of one kernel block with ``bt`` query rows and kv
+    """Shared memory of one CUDA-core block with ``bt`` query rows and kv
     columns (``smem_bytes`` in csrc/flash_attention.cu)."""
     return 4 * (2 * bt * (hd + 1) + 2 * bt * hd + bt * (bt + 1) + 3 * bt)
 
 
 def shared_bytes_pipe(bt: int, hd: int) -> int:
-    """Shared memory of one pipelined (B9p) block: the serial block and a
-    second (bt, bt + 1) p buffer."""
+    """Shared memory of one pipelined (B9p) CUDA-core block: the serial
+    block and a second (bt, bt + 1) p buffer."""
     return shared_bytes(bt, hd) + 4 * bt * (bt + 1)
 
 
+def shared_bytes_mma(hd: int) -> int:
+    """Shared memory of one mma block, serial or pipelined
+    (``MmaTile::SMEM``): the bf16 Q tile and two slots each of K and V."""
+    return 2 * MMA_TILE * hd * 5
+
+
 def kernel_tile(hd: int, pipeline_p: bool = False) -> int:
-    """The widest of the kernel's tiles whose block fits shared memory
-    (the pipelined block's under ``pipeline_p``)."""
+    """The widest of the CUDA-core body's tiles whose block fits shared
+    memory (the pipelined block's under ``pipeline_p``)."""
     size = shared_bytes_pipe if pipeline_p else shared_bytes
     for bt in TILES:
         if size(bt, hd) <= MAX_SHARED_BYTES:
             return bt
     raise ValueError(f"head_dim {hd} is too wide for the flash kernel's "
                      "shared memory")
+
+
+def kernel_route(dtype: torch.dtype, hd: int, pipeline_p: bool = False) -> Route:
+    """The body and tile a CUDA call with this dtype, head width and
+    schedule takes: the tensor-core body for bf16 at the widths it is built
+    for (one tile for both schedules), else the CUDA-core body."""
+    if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS:
+        return Route("mma", MMA_TILE)
+    return Route("cuda_core", kernel_tile(hd, pipeline_p))
+
+
+def _aligned(x):
+    """x, or a contiguous copy where the mma body's 16-byte copies could
+    not read it in place (a misaligned pointer, or a stride that is not a
+    whole number of 8-element pieces)."""
+    if x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _check(q, k, v, causal, window, pipeline_p):
@@ -160,8 +214,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     views of the projections are read in place. ``causal``: row t attends
     columns ≤ t (and > t − window under ``window``). ``scale`` defaults to
     1/sqrt(hd). ``block_q`` / ``block_kv`` are the TPU kernel's tiles,
-    honoured by the plain version (``block_kv``); the CUDA kernel's tiles
-    follow hd. ``pipeline_p`` (causal only) runs B9p, the pipelined kernel.
+    honoured by the plain version (``block_kv``); the CUDA kernel's body
+    and tile follow dtype and hd (``kernel_route``). ``pipeline_p``
+    (causal only) runs B9p, the pipelined kernel.
     Returns (B, H, T, hd) in q's dtype (a head view of a (B, T, H, hd)
     tensor on the card).
     """
@@ -179,8 +234,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{k.dtype}, {v.dtype}")
     b, h, t, hd = q.shape
     kvh, s_len = k.shape[1], k.shape[2]
-    bt = kernel_tile(hd, pipeline_p)
+    route = kernel_route(q.dtype, hd, pipeline_p)
     q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+    if route.body == "mma":
+        q, k, v = (_aligned(x) for x in (q, k, v))
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
     qscale = torch.tensor(scale * LOG2E, dtype=q.dtype).item()
@@ -193,7 +250,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), strides[0], k.data_ptr(), strides[1], v.data_ptr(),
             strides[2], out.data_ptr(), strides[3], int(q.dtype == torch.bfloat16),
             b, t, s_len, h, kvh, hd, int(causal), window if window is not None else 0,
-            qscale, bt, torch.cuda.current_stream(q.device).cuda_stream)
+            qscale, int(route.body == "mma"), route.tile,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     if pipeline_p:

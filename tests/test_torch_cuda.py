@@ -11,9 +11,9 @@ Tolerances, relative to max(1, max|Y|): f32 1e-4 (f32 sums in another
 order); bf16 compute with f32 X and Y 1e-5 (the same bf16 values summed in
 f32 in another order); int8 1e-6 (same codes, exact int32 sums, the same
 separately rounded epilogue). The fused kernels (B3, B5, B6) and the flash
-kernels (B4, B9) and the BCSR kernel (B2): f32 1e-4 and bf16 2**-7 (a staged
-value, or B2's f32 sum rounded once to bf16, can round to the neighbouring
-bf16). The int8 cache's kernels: B7's q as B3's; its codes bitwise the
+kernels (B4, B9 on both of its bodies) and the BCSR kernel (B2): f32 1e-4
+and bf16 2**-7 (a staged value, or B2's f32 sum rounded once to bf16, can
+round to the neighbouring bf16). The int8 cache's kernels: B7's q as B3's; its codes bitwise the
 quantize of B3's f32 output (codes within 1 and scales within 1e-5 of the
 plain version, whose f32 sums run in another order); B8 against its plain
 version as B4, and within 2e-2 relative of B4 on the dequantized cache (p
@@ -306,6 +306,49 @@ def test_flash_attention_matches_plain(cuda, dt, b, h, kvh, t, hd, causal, windo
                  FUSED_TOL[dt] * max(1.0, float(ref.float().abs().max())), "B9")
 
 
+# B9's tensor-core body: hd 64 and 128, GQA 8/2, a window, a ragged last
+# tile (T=200), non-causal, and g = 3 (64-row blocks of 21 tokens)
+MMA_SHAPES = [
+    (1, 8, 8, 256, 64, True, None), (1, 8, 8, 256, 128, True, None),
+    (1, 8, 2, 512, 128, True, None), (1, 8, 8, 512, 128, True, 64),
+    (2, 8, 8, 200, 128, True, None), (1, 8, 8, 256, 128, False, None),
+    (1, 4, 2, 130, 64, False, None), (1, 6, 2, 100, 64, True, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kvh,t,hd,causal,window", MMA_SHAPES)
+def test_flash_attention_mma_body_matches_plain(cuda, b, h, kvh, t, hd, causal, window):
+    """bf16 at hd 64 and 128 runs the mma.sync body (kernel_route says so)
+    and agrees with the plain version at 2**-7 of max(1, max|Y|)."""
+    assert fa.kernel_route(torch.bfloat16, hd) == ("mma", 64)
+    rs = np.random.default_rng(t + hd + 7)
+    q = _normal(rs, (b, t, h, hd), torch.bfloat16, cuda, 4.0).permute(0, 2, 1, 3)
+    k = _normal(rs, (b, kvh, t, hd), torch.bfloat16, cuda)
+    v = _normal(rs, (b, kvh, t, hd), torch.bfloat16, cuda)
+    before = fa.flash_attention.launches
+    y = fa.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa.flash_attention.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert_close(y.float(), ref.float(),
+                 FUSED_TOL[torch.bfloat16] * max(1.0, float(ref.float().abs().max())),
+                 "B9 mma")
+
+
+@pytest.mark.cuda
+def test_flash_attention_mma_body_misaligned_view(cuda):
+    """A view the mma body cannot copy in 16-byte pieces (odd pointer) is
+    copied by the wrapper, and the result equals the aligned call's."""
+    rs = np.random.default_rng(3)
+    flat = _normal(rs, (1 + 8 * 128 * 64,), torch.bfloat16, cuda)
+    q = flat[1:].view(1, 8, 128, 64)
+    y = fa.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert torch.equal(y, fa.flash_attention(q.clone(), q.clone(), q.clone()))
+
+
 @pytest.mark.cuda
 def test_generate_flash_launch_counts_and_tokens(cuda):
     cfg = tlm.TernaryLMConfig(vocab=512, d_model=512, n_heads=4, d_ff=1024,
@@ -328,6 +371,7 @@ def test_generate_flash_launch_counts_and_tokens(cuda):
 @pytest.mark.parametrize("b,h,kvh,t,hd,window", [
     (1, 8, 8, 32, 128, None), (2, 8, 2, 200, 128, None), (1, 4, 4, 300, 64, 64),
     (1, 2, 2, 70, 256, None),
+    *((b, h, kvh, t, hd, window) for b, h, kvh, t, hd, causal, window in MMA_SHAPES if causal),
 ])
 def test_flash_pipeline_p_bitwise_serial(cuda, dt, b, h, kvh, t, hd, window):
     """B9p equals the serial kernel bitwise where both take the same tile,
@@ -340,10 +384,11 @@ def test_flash_pipeline_p_bitwise_serial(cuda, dt, b, h, kvh, t, hd, window):
     y = fa.flash_attention(q, k, v, window=window, pipeline_p=True)
     assert (fa.flash_attention.launches, fa.flash_attention.pipe_launches) == \
         (before[0], before[1] + 1)
-    assert fa.kernel_tile(hd, True) == fa.kernel_tile(hd)
+    route = fa.kernel_route(dt, hd, True)
+    assert route == fa.kernel_route(dt, hd)
     serial = fa.flash_attention(q, k, v, window=window)
     ref = fa.flash_attention_plain(q, k, v, window=window, pipeline_p=True,
-                                   block_kv=fa.kernel_tile(hd, True))
+                                   block_kv=route.tile)
     torch.cuda.synchronize()
     assert torch.equal(y, serial)
     assert_close(y.float(), ref.float(),

@@ -14,6 +14,8 @@ this random model's large attention scores amplify that to ~2e-3 of outputs
 near 360 on the plain attention path as much as on the flash path.
 """
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -150,6 +152,71 @@ def test_flash_pipeline_p_tile_and_counter():
     q = _t(_normal(7, 1, 2, 8, 64))
     tfa.flash_attention(q, q, q, pipeline_p=True)  # a CPU tensor: the plain version
     assert (tfa.flash_attention.launches, tfa.flash_attention.pipe_launches) == before
+
+
+# ------------------------------------------------------ B9's routing
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,hd,pipeline_p,want", [
+    (_BF16, 64, False, ("mma", 64)), (_BF16, 64, True, ("mma", 64)),
+    (_BF16, 128, False, ("mma", 64)), (_BF16, 128, True, ("mma", 64)),
+    (_BF16, 96, False, ("cuda_core", 64)), (_BF16, 256, False, ("cuda_core", 32)),
+    (_BF16, 256, True, ("cuda_core", 32)), (_BF16, 512, False, ("cuda_core", 16)),
+    (_BF16, 512, True, ("cuda_core", 16)),
+    (_F32, 64, False, ("cuda_core", 64)), (_F32, 64, True, ("cuda_core", 64)),
+    (_F32, 128, False, ("cuda_core", 64)), (_F32, 128, True, ("cuda_core", 64)),
+    (_F32, 200, True, ("cuda_core", 32)), (_F32, 256, False, ("cuda_core", 32)),
+    (_F32, 512, True, ("cuda_core", 16)),
+], ids=lambda x: str(x).replace("torch.", ""))
+def test_kernel_route_truth_table(dtype, hd, pipeline_p, want):
+    """bf16 at hd 64 and 128 takes the tensor-core body at its 64-row tile;
+    f32 at any width and bf16 at other widths the CUDA-core body."""
+    assert tfa.kernel_route(dtype, hd, pipeline_p) == want
+
+
+@pytest.mark.parametrize("dtype", [_BF16, _F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd", [64, 96, 128, 200, 256, 512])
+def test_kernel_route_tiles_and_shared_memory(dtype, hd):
+    """Serial and pipelined calls take the same body, and the same tile
+    wherever the pipelined block fits the serial tile (so B9p can be held
+    bitwise to B9); each body's block fits shared memory at its tile."""
+    serial, pipe = tfa.kernel_route(dtype, hd), tfa.kernel_route(dtype, hd, True)
+    assert serial.body == pipe.body
+    for route, pipeline_p in ((serial, False), (pipe, True)):
+        if route.body == "mma":
+            size = tfa.shared_bytes_mma(hd)
+        else:
+            size = (tfa.shared_bytes_pipe if pipeline_p else tfa.shared_bytes)(route.tile, hd)
+        assert size <= 232448
+    both_fit = serial.body == "mma" or \
+        tfa.shared_bytes_pipe(serial.tile, hd) <= 232448
+    assert (serial.tile == pipe.tile) == both_fit
+
+
+def test_mma_body_shared_bytes_and_widths_match_the_source():
+    """The wrapper's account of the mma body agrees with csrc: 80 KB at hd
+    128 (the bf16 Q tile and two slots each of K and V), and a launch
+    instantiated for each width the router sends there."""
+    assert tfa.shared_bytes_mma(128) == 81920 and tfa.shared_bytes_mma(64) == 40960
+    src = (Path(tfa.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+    assert "QBYTES + 4 * KV" in src
+    for hd in tfa.MMA_HEAD_DIMS:
+        assert f"launch_mma<{hd}, PIPE>" in src
+
+
+def test_mma_inputs_aligned_in_place_or_copied():
+    """The mma body's 16-byte copies read aligned tensors in place; a
+    misaligned pointer or stride gets a contiguous copy of the same values."""
+    base = torch.arange(2 * 3 * 8 * 64 + 8, dtype=torch.float32).to(_BF16)
+    x = base[:2 * 3 * 8 * 64].view(2, 3, 8, 64)
+    assert tfa._aligned(x) is x
+    odd = base[1:1 + 2 * 3 * 8 * 64].view(2, 3, 8, 64)
+    got = tfa._aligned(odd)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous() and torch.equal(got, odd)
+    wide = torch.zeros(2, 3, 8, 68, dtype=_BF16)[..., :64]  # token stride 68
+    got = tfa._aligned(wide)
+    assert got is not wide and all(s % 8 == 0 for s in got.stride()[:3])
 
 
 # ---------------------------------------------------------------- B4
