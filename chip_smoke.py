@@ -9,7 +9,8 @@ which exits non-zero on failure:
    and count the HMMA and IMMA instructions in B1's SASS (``cuobjdump``):
    its bf16 and W2A8 modes run on ``mma.sync``, so both must be there; and
    the HMMA in ``flash_attention.cu``'s SASS (B9's and B9p's bf16 body),
-   with the registers and spills ``ptxas -v`` gives its mma kernels;
+   with the registers and spills ``ptxas -v`` gives its mma kernels and
+   ``flash_decode.cu``'s kernels (B4 and B8);
 3. each kernel against its plain PyTorch version on the card, in every
    mode, at the test shapes and the headline shapes, with and without bias
    and PReLU, and the launch counter rising once per call; B1's row
@@ -43,9 +44,13 @@ which exits non-zero on failure:
 9. times of B3, B5 and B6 at the path's shapes: kernel, plain version,
    bound, and ``torch.matmul`` on the pre-decoded dense bf16 weights;
 10. B4 (flash decode / chunk) against its plain version in f32 and bf16 at
-    the LM path's shapes, the decode bench's, GQA, a window and B = 4, each
-    call raising its launch count by one; chunk row c equals the decode
-    step at pos + c and row r of a B = 4 call the row served alone, bitwise;
+    the LM path's shapes, the decode bench's, GQA, a window and B = 4, and
+    at pos 8191 of S = 8192 (alone, under GQA 8/2 with a window of 1000
+    whose edge lies inside a span, at B = 4, and at pos 7938, where the
+    chunk straddles a span boundary), each call raising its launch count by
+    one, with the blocks of each launch (at least 128 at pos 8191 alone); chunk
+    row c equals the decode step at pos + c and row r of a B = 4 call the
+    row served alone, bitwise;
 11. B9 (flash prefill) against its plain version in f32 and bf16: the LM
     prefill, T = 512 causal, T = 200, GQA, a window, non-causal, hd = 64,
     256 and 512, with the body ``kernel_route`` picks at each (bf16 at hd
@@ -55,12 +60,14 @@ which exits non-zero on failure:
     plain path, ``lm_prefill_chunked`` against ``lm_prefill``,
     ``block_extend`` (C = 4) bitwise per row against four decode steps,
     µs/token and the decode bench with and without flash, and the
-    ``bench/trace.py --lm`` step with and without flash;
+    ``bench/trace.py --lm`` step with and without flash (B4's device time
+    in it);
 13. times of B4 and B9 at the path shapes and at one long shape each, and
     B9 at T = 4096 bf16 non-causal too (each long bf16 B9 row held against
     its plain version): kernel, plain version, bound, and
     ``scaled_dot_product_attention``, beside the recorded times of B9's
-    earlier CUDA-core bf16 body;
+    earlier CUDA-core bf16 body and of B4's unsplit kernel at pos 8191; B4's
+    blocks, and its and SDPA's device time alone (the profiler);
 14. B2 (BCSR block SpMM) against its plain version in f32 and bf16: the
     tests' 8×128 blocks (both ``x_resident`` values bitwise equal), 128×128
     blocks at M = 100, M = 140 with ``block_m`` = 64, the empty matrix (no
@@ -83,17 +90,20 @@ which exits non-zero on failure:
     (flash decode / chunk over the int8 cache) at the path shape, GQA, a
     window and B = 4, chunk rows (C = 4) bitwise the decode rows and batch
     rows the rows served alone, and within 2e-2 of B4 on the dequantized
-    cache; each call raising its launch count by one;
+    cache, also at phase 10's four shapes of S = 8192; each call raising its
+    launch count by one;
 18. the int8 LM path at the ``lm`` defaults: ``generate(kv_quant=True,
     use_flash=True)`` and ``generate(kv_quant=True)`` with every kernel's
     launch count, their teacher-forced logits against the same routing with
     plain versions, ``lm_prefill_chunked`` (B7, B8's chunk entry) against
     the plain routing, ``block_extend`` (C = 4) bitwise per row against
     four decode steps, µs/token of ``lm --kv-quant`` with and without
-    ``--flash``, and the traced int8 decode step;
+    ``--flash``, and the traced int8 decode step (B8's device time in it);
 19. times of B7 and B8 at the path shapes and B8 at pos 8191: kernel, plain
     version, bound, ``torch.matmul`` on the dense Wqkv (B7) and
-    ``scaled_dot_product_attention`` on the dequantized bf16 cache (B8);
+    ``scaled_dot_product_attention`` on the dequantized bf16 cache (B8); B8's
+    blocks and device time alone and SDPA's, beside the unsplit kernel's
+    recorded time at pos 8191;
 20. B9p (``flash_attention(pipeline_p=True)``) against its plain version in
     f32 and bf16 at phase 11's causal shapes, with the body each takes,
     bitwise the serial kernel where both take the same body and tile,
@@ -137,6 +147,14 @@ B1_CUDA_CORE_HEAD_DEVICE_MS = 0.065
 # their tensor-core redesign: the CUDA-core body, measured by this script on
 # an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's B9 and B9p rows)
 B9_CUDA_CORE_MS = {"serial": 6.506, "pipe": 8.105}
+# B4's and B8's times at pos 8191 of S=8192 (B=1, H=KVH=8, hd 128, bf16)
+# before the split of the cache across blocks: one block per (KV head,
+# batch row), measured by this script on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md's B4 and B8 rows)
+FLASH_DECODE_UNSPLIT_MS = {"B4": 0.912, "B8": 1.141}
+FLASH_DECODE_DESIGN = ("cache split into S-fixed spans, grid (live spans, KVH, B); cp.async "
+                       "ring in the storage type; last block combines in ascending span "
+                       "order; CUDA cores")
 
 
 def log(msg: str) -> None:
@@ -177,6 +195,33 @@ def _ptxas_kernels(text: str, pattern: str) -> list:
                         *spills))
             name = None
     return out
+
+
+def _decode_types(mangled: str) -> str:
+    """flash_decode_kernel's template arguments (q's type, the cache's, and
+    whether the compute dtype is bf16) from their mangled form: f float, a
+    int8, 13__nv_bfloat16 and its back-reference S<n>_ bf16, Lb0E/Lb1E the
+    flag."""
+    import re
+
+    names = {"f": "f32", "a": "int8"}
+    types, flag = mangled.split("Lb")
+    q, cache = (names.get(t, "bf16") for t in re.findall(r"13__nv_bfloat16|S\d*_|f|a", types))
+    return f"q {q}, cache {cache}, compute {'bf16' if flag.startswith('1') else 'f32'}"
+
+
+def _kernel_us(trace: dict, name: str) -> float:
+    """Device µs a call of the kernels whose name holds ``name`` in a
+    bench/trace.py report."""
+    return sum(r["us"] for r in trace["kernels"] if name in r["name"])
+
+
+def _device_us(fn, n: int = 30) -> float:
+    """Device µs per call of ``fn`` (every kernel it launches), by the
+    profiler (bench/trace.py's kernel breakdown)."""
+    from smmb_tpu_torch.bench.trace import kernel_breakdown
+
+    return sum(r["us"] for r in kernel_breakdown(fn, n_calls=n))
 
 
 def time_b1_tiles(torch, dev) -> None:
@@ -303,6 +348,13 @@ def main() -> int:
                 f"{stores} bytes spill stores, {loads} bytes spill loads")
     else:
         log("flash_attention.cu was up to date: no ptxas report this run")
+    if "flash_decode.cu" in build_logs:
+        for (args,), regs, stores, loads in _ptxas_kernels(
+                build_logs["flash_decode.cu"], r"flash_decode_kernelI(\w+?)EEv"):
+            log(f"B4/B8 flash_decode_kernel<{_decode_types(args)}>: {regs} registers, "
+                f"{stores} bytes spill stores, {loads} bytes spill loads")
+    else:
+        log("flash_decode.cu was up to date: no ptxas report this run")
 
     # ---------------------------------------------------------------- 3
     # tolerances, each relative to max(1, max|Y|):
@@ -872,10 +924,18 @@ def time_fused_kernels(torch, dev, spec, path_err, lm) -> list:
 
 # ---------------------------------------------------------- flash slice
 # B4 at the shapes of the paths: (label, B, H, KVH, S, pos, window); hd 128
+# (the split spans 64 columns at S = 224 and 1024, 256 at S = 8192: the
+# chunks at pos - 4 .. pos of "span edge", "decode bench" and "long
+# straddle" cross a span boundary, and the window of 1000 at pos 8191 has
+# its edge inside a span)
 FLASH_DECODE_SHAPES = [
     ("lm path", 1, 8, 8, 224, 32, None), ("lm path", 1, 8, 8, 224, 95, None),
+    ("span edge", 1, 8, 8, 224, 66, None),
     ("decode bench", 1, 8, 8, 1024, 512, None), ("GQA 8/2", 1, 8, 2, 1024, 512, None),
     ("window 64", 1, 8, 8, 1024, 512, 64), ("B=4", 4, 8, 8, 1024, 512, None),
+    ("long", 1, 8, 8, 8192, 8191, None), ("long straddle", 1, 8, 8, 8192, 7938, None),
+    ("long GQA 8/2 window 1000", 1, 8, 2, 8192, 8191, 1000),
+    ("long B=4", 4, 8, 8, 8192, 8191, None),
 ]
 # B9: (label, B, H, KVH, T, hd, causal, window); hd 256 and 512 take the
 # kernel's 32- and 16-row tiles
@@ -904,6 +964,11 @@ def _held(torch, name, y, ref, tol, what) -> float:
     lim = tol * max(1.0, float(ref.float().abs().max()))
     check(err <= lim, f"{name} kernel vs plain {what}: err {err:.3e} > {lim:.3e}")
     return err
+
+
+def _decode_blocks(fd, b, kvh, s, pos, window, nq=1) -> int:
+    """Blocks of one B4/B8 launch: (live spans, KVH, B)."""
+    return fd.live_spans(pos, nq, window, fd.split_cols(s))[1] * kvh * b
 
 
 def _decode_inputs(torch, gen, b, nq, h, kvh, s, cache_dtype):
@@ -953,8 +1018,11 @@ def check_flash_kernels(torch, dev) -> dict:
             for r in range(b if b > 1 else 0):
                 row = dec(q[r:r + 1, 0], kc[r:r + 1], vc[r:r + 1], pos, **kw)
                 check(torch.equal(y[r:r + 1], row), f"B4 batch row {r} != alone {what}")
+        blocks = _decode_blocks(fd, b, kvh, s, pos, window)
+        check(label != "long" or blocks >= 128, f"B4 {label}: {blocks} blocks")
         log(f"B4 == plain at {label}, B={b} H={h} KVH={kvh} S={s} pos={pos} "
-            f"window={window} in f32 and bf16; chunk and batch rows bitwise")
+            f"window={window} ({blocks} blocks) in f32 and bf16; chunk and batch rows "
+            "bitwise")
     log("phase 10 passed: B4 agrees with its plain version, rows bitwise")
 
     for label, b, h, kvh, t, hd, causal, window in FLASH_PREFILL_SHAPES:
@@ -1098,12 +1166,16 @@ def run_flash_lm_path(torch, dev, lm) -> dict:
                "decode_step_us": d.step_s * 1e6, "decode_frac_roofline": d.frac_roofline,
                "decode_prefill_us": d.prefill_s * 1e6, "trace_launches": tr["launches"],
                "trace_call_us": tr["call_us"], "trace_kernel_us": tr["kernel_us"],
-               "trace_busy_share": tr["busy_share"]}
+               "trace_busy_share": tr["busy_share"],
+               "trace_flash_decode_us": _kernel_us(tr, "flash_decode_kernel")}
         print(json.dumps(row), flush=True)
         out[flash] = row
-    log(f"phase 12 passed: flash step {out[True]['trace_launches']:.0f} launches, busy "
+    log(f"phase 12 passed: flash step {out[True]['trace_launches']:.0f} launches, "
+        f"{out[True]['trace_kernel_us']:.1f} us of device time (B4 "
+        f"{out[True]['trace_flash_decode_us']:.1f}), busy "
         f"{out[True]['trace_busy_share']:.3f} (without flash "
-        f"{out[False]['trace_launches']:.0f}, {out[False]['trace_busy_share']:.3f})")
+        f"{out[False]['trace_launches']:.0f}, {out[False]['trace_kernel_us']:.1f} us, "
+        f"{out[False]['trace_busy_share']:.3f})")
     return out
 
 
@@ -1138,14 +1210,21 @@ def time_flash_kernels(torch, dev, spec, errs, flash) -> list:
         qb = q.to(bf16)[:, :, None]
         gqa = {"enable_gqa": True} if kvh < h else {}
         t_l = measure(lambda: F.scaled_dot_product_attention(qb, kl, vl, **gqa))
+        # device time alone (the per-call time is the host's at these shapes)
+        dev_k = _device_us(lambda: fd.flash_attention_decode(q, kc, vc, pos, **kw))
+        dev_l = _device_us(lambda: F.scaled_dot_product_attention(qb, kl, vl, **gqa))
         out = fd.flash_attention_decode(q, kc, vc, pos, **kw)
         n_bytes = nbytes(q, kl, vl, out)
         bound, by = roofline_bound(4.0 * b * h * live * 128, n_bytes, spec, "bf16")
         rows.append({"kernel": "B4 flash_attention_decode", "shape": label,
-                     "B": b, "H": h, "KVH": kvh, "S": s, "pos": pos, "ms": t_k.min_s * 1e3,
-                     "mean_ms": t_k.mean_s * 1e3, "plain_ms": t_p.min_s * 1e3,
+                     "B": b, "H": h, "KVH": kvh, "S": s, "pos": pos,
+                     "blocks": _decode_blocks(fd, b, kvh, s, pos, None),
+                     "ms": t_k.min_s * 1e3, "mean_ms": t_k.mean_s * 1e3,
+                     "device_us": dev_k, "plain_ms": t_p.min_s * 1e3,
                      "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes,
-                     "library_ms": t_l.min_s * 1e3})
+                     "library_ms": t_l.min_s * 1e3, "library_device_us": dev_l})
+        if label == "long":
+            rows[-1]["unsplit_ms"] = FLASH_DECODE_UNSPLIT_MS["B4"]
     # B9: the path's prefill in f32 (its projections are f32), the long in
     # bf16, causal (the triangular walk) and not (every kv tile)
     for label, b, h, t, dt, causal in (("lm prefill", 1, 8, 32, f32, True),
@@ -1175,6 +1254,12 @@ def time_flash_kernels(torch, dev, spec, errs, flash) -> list:
     for r in rows:
         print(json.dumps({**r, "library": "torch.nn.functional.scaled_dot_product_attention"}),
               flush=True)
+    b4 = {r["shape"]: r for r in rows if r["kernel"].startswith("B4")}
+    log("B4 (bf16, B=1, H=KVH=8): " + "; ".join(
+        f"{k} pos {r['pos']} of S={r['S']}, {r['blocks']} blocks: {r['ms']:.4f} ms a call, "
+        f"{r['device_us']:.2f} us on the device (SDPA {r['library_ms']:.4f} ms, "
+        f"{r['library_device_us']:.2f} us; bound {r['bound_ms'] * 1e3:.2f} us)"
+        for k, r in b4.items()) + f"; unsplit at pos 8191: {FLASH_DECODE_UNSPLIT_MS['B4']} ms")
     b9 = {r["shape"]: r for r in rows if r["kernel"].startswith("B9")}
     log(f"B9 at T=4096 bf16 ({b9['long']['body']} body): causal {b9['long']['ms']:.4f} ms "
         f"(the CUDA-core body's: {B9_CUDA_CORE_MS['serial']} ms; SDPA "
@@ -1194,6 +1279,8 @@ def time_flash_kernels(torch, dev, spec, errs, flash) -> list:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    summary[0].update(design=FLASH_DECODE_DESIGN, device_us=b4["lm path"]["device_us"],
+                      long_ms=b4["long"]["ms"], long_device_us=b4["long"]["device_us"])
     summary[-1].update(design="mma.sync (bf16, hd 64 and 128); CUDA cores (f32, others)",
                        long_bf16_ms=b9["long"]["ms"])
     log("phase 13 passed: B4 and B9 timed at the path and long shapes")
@@ -1375,6 +1462,9 @@ QUANT_QKV_SHAPES = [
 QUANT_DECODE_SHAPES = [
     ("lm path", 1, 8, 8, 224, 95, None), ("GQA 8/2", 1, 8, 2, 1024, 512, None),
     ("window 64", 1, 8, 8, 1024, 512, 64), ("B=4", 4, 8, 8, 1024, 512, None),
+    ("long", 1, 8, 8, 8192, 8191, None), ("long straddle", 1, 8, 8, 8192, 7938, None),
+    ("long GQA 8/2 window 1000", 1, 8, 2, 8192, 8191, 1000),
+    ("long B=4", 4, 8, 8, 8192, 8191, None),
 ]
 
 
@@ -1481,9 +1571,11 @@ def check_int8_kernels(torch, dev) -> dict:
             for r in range(b if b > 1 else 0):
                 row = dec(q[r:r + 1, 0], kv[r:r + 1], sc[r:r + 1], pos, **kw)
                 check(torch.equal(y[r:r + 1], row), f"B8 batch row {r} != alone {what}")
+        blocks = _decode_blocks(fd, b, kvh, s, pos, window)
+        check(label != "long" or blocks >= 128, f"B8 {label}: {blocks} blocks")
         log(f"B8 == plain at {label}, B={b} H={h} KVH={kvh} S={s} pos={pos} "
-            f"window={window} in f32 and bf16; within 2e-2 of B4; chunk and batch rows "
-            "bitwise")
+            f"window={window} ({blocks} blocks) in f32 and bf16; within 2e-2 of B4; chunk "
+            "and batch rows bitwise")
     log("phase 17 passed: B7 and B8 agree with their plain versions")
     return errs
 
@@ -1632,11 +1724,13 @@ def run_int8_lm_path(torch, dev, lm) -> dict:
                                               "flash": flash, "pos": args.prompt_len})
         row = {"kv_quant": True, "flash": flash, "lm_us_per_token": runs[flash],
                "trace_launches": tr["launches"], "trace_call_us": tr["call_us"],
-               "trace_kernel_us": tr["kernel_us"], "trace_busy_share": tr["busy_share"]}
+               "trace_kernel_us": tr["kernel_us"], "trace_busy_share": tr["busy_share"],
+               "trace_flash_decode_us": _kernel_us(tr, "flash_decode_kernel")}
         print(json.dumps(row), flush=True)
         out[flash].update(row)
     log(f"phase 18 passed: int8 flash step {out[True]['trace_launches']:.0f} launches, "
-        f"{out[True]['trace_kernel_us']:.1f} us of device time, busy "
+        f"{out[True]['trace_kernel_us']:.1f} us of device time (B8 "
+        f"{out[True]['trace_flash_decode_us']:.1f}), busy "
         f"{out[True]['trace_busy_share']:.3f} (without flash "
         f"{out[False]['trace_launches']:.0f}, {out[False]['trace_kernel_us']:.1f} us, "
         f"{out[False]['trace_busy_share']:.3f})")
@@ -1700,18 +1794,29 @@ def time_int8_kernels(torch, dev, spec, errs, int8) -> list:
         qb = q.to(bf16)[:, :, None]
         gqa = {"enable_gqa": True} if kvh < h else {}
         t_l = measure(lambda: F.scaled_dot_product_attention(qb, kl, vl, **gqa))
+        dev_k = _device_us(lambda: fd.flash_attention_decode_quant(q, kv, sc, pos, **kw))
+        dev_l = _device_us(lambda: F.scaled_dot_product_attention(qb, kl, vl, **gqa))
         out = fd.flash_attention_decode_quant(q, kv, sc, pos, **kw)
         n_bytes = nbytes(q, kv[:, :live], sc[..., :live], out)
         bound, by = roofline_bound(4.0 * b * h * live * 128, n_bytes, spec, "bf16")
         rows.append({"kernel": "B8 flash_attention_decode_quant", "shape": label, "B": b,
-                     "H": h, "KVH": kvh, "S": s, "pos": pos, "ms": t_k.min_s * 1e3,
-                     "mean_ms": t_k.mean_s * 1e3, "plain_ms": t_p.min_s * 1e3,
+                     "H": h, "KVH": kvh, "S": s, "pos": pos,
+                     "blocks": _decode_blocks(fd, b, kvh, s, pos, None),
+                     "ms": t_k.min_s * 1e3, "mean_ms": t_k.mean_s * 1e3,
+                     "device_us": dev_k, "plain_ms": t_p.min_s * 1e3,
                      "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes,
-                     "library_ms": t_l.min_s * 1e3,
+                     "library_ms": t_l.min_s * 1e3, "library_device_us": dev_l,
                      "library": "torch.nn.functional.scaled_dot_product_attention on the "
                                 "dequantized bf16 live prefix (dequantization not timed)"})
+        if label == "long":
+            rows[-1]["unsplit_ms"] = FLASH_DECODE_UNSPLIT_MS["B8"]
     for r in rows:
         print(json.dumps(r), flush=True)
+    log("B8 (bf16, B=1, H=KVH=8): " + "; ".join(
+        f"{r['shape']} pos {r['pos']} of S={r['S']}, {r['blocks']} blocks: {r['ms']:.4f} ms "
+        f"a call, {r['device_us']:.2f} us on the device (SDPA {r['library_ms']:.4f} ms, "
+        f"{r['library_device_us']:.2f} us; bound {r['bound_ms'] * 1e3:.2f} us)"
+        for r in rows[1:]) + f"; unsplit at pos 8191: {FLASH_DECODE_UNSPLIT_MS['B8']} ms")
     launches = int8[True]["launches"]
     summary = []
     for name, src, line, row in (
@@ -1725,6 +1830,8 @@ def time_int8_kernels(torch, dev, spec, errs, int8) -> list:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    summary[1].update(design=FLASH_DECODE_DESIGN, device_us=rows[1]["device_us"],
+                      long_ms=rows[2]["ms"], long_device_us=rows[2]["device_us"])
     log("phase 19 passed: B7 and B8 timed at the path shapes and B8 at pos 8191")
     return summary
 

@@ -75,7 +75,8 @@ def lm_decode_step_fn(args):
 
 
 def report(fn, label: dict, *args) -> dict:
-    """Print the kernel rows and the summary line of ``fn(*args)``."""
+    """Print the kernel rows and the summary line of ``fn(*args)``; returns
+    the summary with the rows under ``kernels``."""
     t = measure(fn, *args, reps=5)
     rows = kernel_breakdown(fn, *args)
     for r in rows:
@@ -88,7 +89,7 @@ def report(fn, label: dict, *args) -> dict:
         "busy_share": kernel_us / (t.min_s * 1e6),
     }
     print(json.dumps(summary))
-    return summary
+    return {**summary, "kernels": rows}
 
 
 def showcase_breakdown(cases=None, seed: int = 0) -> list[dict]:

@@ -158,8 +158,9 @@ def fused_mlp_lib() -> ctypes.CDLL:
 @functools.cache
 def flash_decode_lib() -> ctypes.CDLL:
     """``flash_decode.cu`` (B4, and B8 in its int8 mode)."""
-    shape = [_I, _I, _I, _I, _I, _I, _I,  # b, nq, h, kvh, hd, s, pos
-             _I, _F, _I,  # window, qscale, cbf16
+    shape = [_P, _P,  # ws, counters
+             _I, _I, _I, _I, _I, _I, _I,  # b, nq, h, kvh, hd, s, pos
+             _I, _I, _I, _F, _I,  # window, span, nspans, qscale, cbf16
              _P]  # stream
     return _load("flash_decode.cu", {
         "smmb_flash_decode": [

@@ -250,6 +250,18 @@ def test_generate_launch_counts_and_tokens(cuda):
     assert torch.equal(toks, plain)
 
 
+# B4 and B8: (B, H, KVH, S, pos, window). The kernel splits the cache into
+# spans of 64 columns at S <= 2048 and 256 at S = 8192: the chunks at
+# pos - 4 .. pos of the S = 224 pos 66, S = 1024 and pos 7938 shapes
+# straddle a span boundary, and the window of 1000 at pos 8191 has its edge
+# inside a span.
+DECODE_SHAPES = [
+    (1, 8, 8, 224, 95, None), (1, 8, 2, 1024, 512, None), (2, 4, 4, 300, 260, 64),
+    (4, 8, 8, 1024, 512, None), (1, 8, 8, 224, 66, None), (1, 8, 8, 8192, 8191, None),
+    (1, 8, 8, 8192, 7938, None), (1, 8, 2, 8192, 8191, 1000), (4, 8, 8, 8192, 8191, None),
+]
+
+
 def _normal(rs, shape, dtype, dev, scale=1.0):
     return (torch.from_numpy(rs.standard_normal(shape).astype(np.float32)) * scale).to(
         device=dev, dtype=dtype)
@@ -257,10 +269,7 @@ def _normal(rs, shape, dtype, dev, scale=1.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,kvh,s,pos,window", [
-    (1, 8, 8, 224, 95, None), (1, 8, 2, 1024, 512, None), (2, 4, 4, 300, 260, 64),
-    (4, 8, 8, 1024, 512, None),
-])
+@pytest.mark.parametrize("b,h,kvh,s,pos,window", DECODE_SHAPES)
 def test_flash_decode_matches_plain_rows_bitwise(cuda, cdt, b, h, kvh, s, pos, window):
     rs = np.random.default_rng(pos + h)
     q = _normal(rs, (b, 5, h, 128), torch.float32, cuda, 8.0)
@@ -515,10 +524,7 @@ def _int8_cache(rs, b, s, kvh, n, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,kvh,s,pos,window", [
-    (1, 8, 8, 224, 95, None), (1, 8, 2, 1024, 512, None), (2, 4, 4, 300, 260, 64),
-    (4, 8, 8, 1024, 512, None),
-])
+@pytest.mark.parametrize("b,h,kvh,s,pos,window", DECODE_SHAPES)
 def test_flash_decode_quant_matches_plain_rows_bitwise(cuda, cdt, b, h, kvh, s, pos, window):
     rs = np.random.default_rng(pos + h + 1)
     cache = _int8_cache(rs, b, s, kvh, pos + 1, cuda)
@@ -542,6 +548,38 @@ def test_flash_decode_quant_matches_plain_rows_bitwise(cuda, cdt, b, h, kvh, s, 
         assert torch.equal(chunk[:, c], dec(q[:, c], kv, sc, pos - 4 + c, **kw))
     for r in range(b):
         assert torch.equal(y[r:r + 1], dec(q[r:r + 1, 0], kv[r:r + 1], sc[r:r + 1], pos, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["B4", "B8"])
+def test_flash_decode_one_launch_per_call(cuda, quant):
+    """Each call is one launch of one kernel, over (live spans, KVH, B)
+    blocks: no memset and no second combine kernel; at pos 8191 of S = 8192
+    the grid has at least 128 blocks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rs = np.random.default_rng(11)
+    b, h, kvh, s, pos = 1, 8, 8, 8192, 8191
+    q = _normal(rs, (b, h, 128), torch.float32, cuda, 8.0)
+    if quant:
+        cache = _int8_cache(rs, b, s, kvh, pos + 1, cuda)
+        bufs, fn = (cache["kv"], cache["kv_scale"]), fd.flash_attention_decode_quant
+    else:
+        bufs = tuple(_normal(rs, (b, s, kvh * 128), torch.bfloat16, cuda) for _ in range(2))
+        fn = fd.flash_attention_decode
+    fn(q, *bufs, pos, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    before = fn.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn(q, *bufs, pos, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+    assert fn.launches == before + 5
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert [e.key for e in events if "flash_decode_kernel" not in e.key] == []
+    assert sum(e.count for e in events) == 5
+    assert fd.live_spans(pos, 1, None, fd.split_cols(s))[1] * kvh * b >= 128
 
 
 @pytest.mark.cuda
