@@ -9,8 +9,9 @@ which exits non-zero on failure:
    and count the HMMA and IMMA instructions in B1's SASS (``cuobjdump``):
    its bf16 and W2A8 modes run on ``mma.sync``, so both must be there; and
    the HMMA in ``flash_attention.cu``'s SASS (B9's and B9p's bf16 body),
-   with the registers and spills ``ptxas -v`` gives its mma kernels and
-   ``flash_decode.cu``'s kernels (B4 and B8);
+   with the registers and spills ``ptxas -v`` gives its mma kernels,
+   ``flash_decode.cu``'s kernels (B4 and B8) and B5's and B6's
+   ``mlp_items_kernel``;
 3. each kernel against its plain PyTorch version on the card, in every
    mode, at the test shapes and the headline shapes, with and without bias
    and PReLU, and the launch counter rising once per call; B1's row
@@ -31,10 +32,16 @@ which exits non-zero on failure:
    output bitwise equal; the full-width MLP forward;
 6. the fused LM kernels (B3 fused_norm_qkv, B5 fused_block_tail, B6
    fused_mlp) against their plain versions in f32 and bf16 compute at the
-   shapes of the LM path (and B3 at a GQA width, N = 1536), each call
-   raising its launch count by one;
+   shapes of the LM path (and B3 at a GQA width, N = 1536), B5 at M = 9
+   (512/1536) and B5 and B6 at d = 2048, H = 8192 (more items than the
+   card holds blocks), each call raising its launch count by one, with B5's
+   and B6's grid and item count;
 7. row identity: row 0 of an M = 8 call equals the M = 1 call bitwise
-   (B3, B5, B6);
+   (B3, B5, B6), and rows 0, 5, 31 of B6 at M = 32 and row 8 of B5 at
+   M = 9; B5 and B6 (one cooperative launch each) bitwise equal at the
+   occupancy grid and at forced grids of 1, 7 and 33 blocks, a grid larger
+   than the card holds refused, one kernel event a call in the profiler,
+   and a logged probe of a B5 call captured in a CUDA graph and replayed;
 8. the LM main path: ``generate`` at the default configuration of
    ``python -m smmb_tpu_torch lm`` (4 layers, d_model 1024, 8 heads, d_ff
    4096, vocab 8192, batch 1, 32-token prompt, 64 greedy steps, bf16) with
@@ -42,7 +49,9 @@ which exits non-zero on failure:
    held against the plain path (the kernels' plain versions in their place)
    teacher-forced on its tokens, and µs/token from ``bench/lm_bench.py``;
 9. times of B3, B5 and B6 at the path's shapes: kernel, plain version,
-   bound, and ``torch.matmul`` on the pre-decoded dense bf16 weights;
+   bound, and ``torch.matmul`` on the pre-decoded dense bf16 weights; each
+   kernel's device time alone and ``torch.matmul``'s (the profiler), beside
+   the earlier multi-launch kernels' recorded ``FUSED_PARENT_US``;
 10. B4 (flash decode / chunk) against its plain version in f32 and bf16 at
     the LM path's shapes, the decode bench's, GQA, a window and B = 4, and
     at pos 8191 of S = 8192 (alone, under GQA 8/2 with a window of 1000
@@ -61,7 +70,7 @@ which exits non-zero on failure:
     ``block_extend`` (C = 4) bitwise per row against four decode steps,
     µs/token and the decode bench with and without flash, and the
     ``bench/trace.py --lm`` step with and without flash (B4's device time
-    in it);
+    in it, and B5's device time and launches);
 13. times of B4 and B9 at the path shapes and at one long shape each, and
     B9 at T = 4096 bf16 non-causal too (each long bf16 B9 row held against
     its plain version): kernel, plain version, bound, and
@@ -98,9 +107,11 @@ which exits non-zero on failure:
     plain versions, ``lm_prefill_chunked`` (B7, B8's chunk entry) against
     the plain routing, ``block_extend`` (C = 4) bitwise per row against
     four decode steps, µs/token of ``lm --kv-quant`` with and without
-    ``--flash``, and the traced int8 decode step (B8's device time in it);
+    ``--flash``, and the traced int8 decode step (B8's device time in it,
+    and B5's device time and launches);
 19. times of B7 and B8 at the path shapes and B8 at pos 8191: kernel, plain
-    version, bound, ``torch.matmul`` on the dense Wqkv (B7) and
+    version, bound, ``torch.matmul`` on the dense Wqkv (B7, with both
+    device times alone by the profiler) and
     ``scaled_dot_product_attention`` on the dequantized bf16 cache (B8); B8's
     blocks and device time alone and SDPA's, beside the unsplit kernel's
     recorded time at pos 8191;
@@ -127,6 +138,10 @@ The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 1 and
 prints no result.
+
+``python3 chip_smoke.py --fused-ab DIR`` instead holds B3, B7, B5 and B6 of
+this checkout against those of DIR, an earlier tree of the port: every
+output bitwise, and both sides' device µs a call (``fused_ab``).
 """
 
 import contextlib
@@ -134,8 +149,10 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 T0 = time.time()
+HERE = Path(__file__).resolve().parent
 ALPHA = 0.2
 # B1's times at the headline (M=256, K=N=4096, ~10% nnz) before its
 # tensor-core redesign: the CUDA-core kernel, measured by this script on an
@@ -216,6 +233,13 @@ def _kernel_us(trace: dict, name: str) -> float:
     return sum(r["us"] for r in trace["kernels"] if name in r["name"])
 
 
+def _b5_step(trace: dict) -> dict:
+    """B5's device µs and launches a decode step in a bench/trace.py report."""
+    rows = [r for r in trace["kernels"] if "mlp_items_kernel" in r["name"]]
+    return {"trace_b5_us": sum(r["us"] for r in rows),
+            "trace_b5_launches": sum(r["launches"] for r in rows)}
+
+
 def _device_us(fn, n: int = 30) -> float:
     """Device µs per call of ``fn`` (every kernel it launches), by the
     profiler (bench/trace.py's kernel breakdown)."""
@@ -229,9 +253,6 @@ def time_b1_tiles(torch, dev) -> None:
     paths' shapes under every tile of the tensor-core kernel, through its C
     entry; every tile's output bitwise equal (one K walk for every tile).
     Logs the device µs under the tile ``tile_for`` picks."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from smmb_tpu_torch.formats.packed import pack_ternary_device
     from smmb_tpu_torch.kernels import _build
     from smmb_tpu_torch.kernels.packed_spmm import quantize_rows, tile_for
@@ -261,12 +282,7 @@ def time_b1_tiles(torch, dev) -> None:
                     call()
                     torch.cuda.synchronize()
                     outs[bm, bn] = out.clone()
-                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                        for _ in range(30):
-                            call()
-                        torch.cuda.synchronize()
-                    us[bm, bn] = sum(e.self_device_time_total for e in prof.key_averages()
-                                     if e.device_type == DeviceType.CUDA) / 30
+                    us[bm, bn] = _device_us(call)
             first = outs[16, 64]
             check(all(torch.equal(first, o) for o in outs.values()),
                   f"B1 tiles disagree at {m}x{k}x{n} {cdt}")
@@ -348,6 +364,13 @@ def main() -> int:
                 f"{stores} bytes spill stores, {loads} bytes spill loads")
     else:
         log("flash_attention.cu was up to date: no ptxas report this run")
+    if "fused_mlp.cu" in build_logs:
+        for (mt, tail), regs, stores, loads in _ptxas_kernels(
+                build_logs["fused_mlp.cu"], r"mlp_items_kernelILi(\d+)ELb([01])E"):
+            log(f"{'B5' if tail == '1' else 'B6'} mlp_items_kernel<{mt} rows>: {regs} "
+                f"registers, {stores} bytes spill stores, {loads} bytes spill loads")
+    else:
+        log("fused_mlp.cu was up to date: no ptxas report this run")
     if "flash_decode.cu" in build_logs:
         for (args,), regs, stores, loads in _ptxas_kernels(
                 build_logs["flash_decode.cu"], r"flash_decode_kernelI(\w+?)EEv"):
@@ -632,19 +655,128 @@ def _fused_kwargs(name, cdt):
     return dict(alpha=ALPHA, eps=1e-6, compute_dtype=cdt)
 
 
+def _kernel_kwargs(name, cdt):
+    """``_fused_kwargs`` plus a hidden slab that divides every H here (the
+    TPU kernel's slab, checked by the wrappers; the CUDA kernels ignore it)."""
+    slab = {} if name == "fused_norm_qkv" else {"block_h": 512}
+    return {**_fused_kwargs(name, cdt), **slab}
+
+
 def _rows(args, name, r0, r1):
     """The inputs restricted to rows [r0, r1) (activations only)."""
     n_act = 2 if name == "fused_block_tail" else 1
     return tuple(a[r0:r1] if i < n_act else a for i, a in enumerate(args))
 
 
-# the LM path's shapes: B3 at M=1 (and the GQA width), B5 at M=1, B6 at M=32
+# the LM path's shapes: B3 at M=1 (and the GQA width), B5 at M=1, B6 at M=32;
+# B5 at a speculative verify's M=9 on the tests' 512/1536, and B5 and B6 at
+# d=2048, H=8192 with M=9 (two row tiles: more items than the card holds
+# blocks, so blocks walk several items a phase)
 FUSED_SHAPES = [
     ("fused_norm_qkv", 1, 1024, 3072), ("fused_norm_qkv", 1, 1024, 1536),
     ("fused_norm_qkv", 8, 1024, 3072), ("fused_block_tail", 1, 1024, 4096),
     ("fused_block_tail", 8, 1024, 4096), ("fused_mlp", 32, 1024, 4096),
     ("fused_mlp", 1, 1024, 4096), ("fused_mlp", 3, 512, 1024),
+    ("fused_block_tail", 9, 512, 1536), ("fused_block_tail", 9, 2048, 8192),
+    ("fused_mlp", 9, 2048, 8192),
 ]
+# the device µs a call at the path shapes (bf16) of B3, B7 and the earlier
+# multi-launch B5 (three launches) and B6 (two), by the profiler: the median
+# of the earlier tree's four runs of ``--fused-ab`` on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md's B3, B5, B6 and B7 rows); logged in phases 9 and
+# 19 beside this run's own times
+FUSED_PARENT_US = {"fused_norm_qkv": 11.50, "fused_block_tail": 34.84, "fused_mlp": 37.35,
+                   "fused_norm_qkv_quant": 12.05}
+FUSED_DESIGN = ("one cooperative launch over the card; items fixed by the shapes in "
+                "phases between grid syncs; the earlier kernels' sums kept bitwise")
+
+
+# ``--fused-ab DIR``: B3, B7, B5 and B6 of this checkout against DIR's (an
+# earlier tree of the port, ``git archive <commit> | tar -x -C DIR``) at the
+# LM path's shapes, the rows of a chunk and of a speculative verify, and a
+# wider block: (kernel, M, d, N or H, compute dtype)
+FUSED_AB_CASES = [
+    ("fused_norm_qkv", 1, 1024, 3072, "bf16"), ("fused_norm_qkv_quant", 1, 1024, 3072, "bf16"),
+    ("fused_block_tail", 1, 1024, 4096, "bf16"), ("fused_block_tail", 1, 1024, 4096, "f32"),
+    ("fused_block_tail", 5, 1024, 4096, "bf16"), ("fused_block_tail", 9, 512, 1536, "f32"),
+    ("fused_block_tail", 1, 2048, 8192, "bf16"), ("fused_block_tail", 32, 1024, 4096, "bf16"),
+    ("fused_mlp", 32, 1024, 4096, "bf16"), ("fused_mlp", 32, 1024, 4096, "f32"),
+    ("fused_mlp", 1, 1024, 4096, "bf16"), ("fused_mlp", 9, 2048, 8192, "bf16"),
+]
+
+
+def fused_side(out) -> int:
+    """One side of ``--fused-ab``, run with the side's package first on
+    ``sys.path``: every case's outputs saved to ``out``, and a JSON line a
+    case with its device µs and kernel launches a call by this checkout's
+    profiler breakdown (bench/trace.py)."""
+    import importlib.util
+
+    import torch
+
+    from smmb_tpu_torch.kernels import fused_mlp as fk
+    from smmb_tpu_torch.utils import rng
+
+    spec = importlib.util.spec_from_file_location(
+        "_smoke_trace", HERE / "smmb_tpu_torch" / "bench" / "trace.py")
+    trace = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trace)
+    dev = torch.device("cuda")
+    outs = []
+    for i, (name, m, d, n, cdt) in enumerate(FUSED_AB_CASES):
+        gen = rng.make_generator(100 + i, dev)
+        cdt = torch.bfloat16 if cdt == "bf16" else torch.float32
+        if name == "fused_norm_qkv_quant":
+            args, kw = _b7_inputs(torch, gen, m, d, (n - d) // 256, 128, dev)
+            kw["compute_dtype"] = cdt
+        else:
+            args, kw = _fused_inputs(torch, gen, name, m, d, n, dev), _kernel_kwargs(name, cdt)
+        fn = getattr(fk, name)
+        y = fn(*args, **kw)
+        outs.append([t.cpu() for t in (y if isinstance(y, tuple) else (y,))])
+        rows = trace.kernel_breakdown(lambda: fn(*args, **kw), n_calls=50)
+        print(json.dumps({"case": FUSED_AB_CASES[i], "device_us": sum(r["us"] for r in rows),
+                          "launches": sum(r["launches"] for r in rows),
+                          "kernels": [r["name"][:60] for r in rows]}), flush=True)
+    torch.save(outs, out)
+    return 0
+
+
+def fused_ab(other) -> int:
+    """``--fused-ab DIR``: every case of ``FUSED_AB_CASES`` through DIR's
+    kernels and this checkout's, each side in a process of its own, in
+    turns (DIR, this, this, DIR, twice); one JSON line a case with each
+    side's device µs in every run and whether this side's outputs equal
+    DIR's bitwise. Exits 1 if any output differs."""
+    import tempfile
+
+    import torch
+
+    print(card_line(), flush=True)
+    runs = {"other": [], "this": []}
+    with tempfile.TemporaryDirectory() as work:
+        for i, side in enumerate(("other", "this", "this", "other") * 2):
+            out = Path(work) / f"{side}{i}.pt"
+            proc = subprocess.run(
+                [sys.executable, str(HERE / "chip_smoke.py"), "--fused-side",
+                 str(other if side == "other" else HERE), str(out)],
+                capture_output=True, text=True, timeout=900)
+            check(proc.returncode == 0, f"{side} side failed:\n{proc.stdout}\n{proc.stderr}")
+            rows = [json.loads(line) for line in proc.stdout.splitlines()
+                    if line.startswith("{")]
+            for r in rows:
+                print(json.dumps({"side": side, "run": i, **r}), flush=True)
+            runs[side].append((rows, torch.load(out)))
+    same_all = True
+    for j, case in enumerate(FUSED_AB_CASES):
+        same = all(torch.equal(a, b) for a, b in zip(runs["other"][0][1][j],
+                                                      runs["this"][0][1][j]))
+        same_all &= same
+        print(json.dumps({"case": case, "bitwise": same, **{
+            f"{side}_{key}": [rows[j][key] for rows, _ in runs[side]]
+            for side in runs for key in ("device_us", "launches")}}), flush=True)
+    print(json.dumps({"all_bitwise": same_all}), flush=True)
+    return 0 if same_all else 1
 
 
 def check_fused_kernels(torch, dev) -> dict:
@@ -664,7 +796,7 @@ def check_fused_kernels(torch, dev) -> dict:
         for cdt in (torch.float32, torch.bfloat16):
             kw = _fused_kwargs(name, cdt)
             before = fn.launches
-            y = fn(*args, **kw)
+            y = fn(*args, **_kernel_kwargs(name, cdt))
             check(fn.launches == before + 1, f"{name} launch count")
             ref = plain(*args, **kw)
             torch.cuda.synchronize()
@@ -676,7 +808,15 @@ def check_fused_kernels(torch, dev) -> dict:
                   f"err {err:.3e} > {lim:.3e}")
             if cdt == torch.bfloat16 and (m, d, n_or_h) == _path_shape(name):
                 path_err[name] = err
-        log(f"{name} == plain at M={m}, {d}x{n_or_h} in f32 and bf16")
+        items = ""
+        if name != "fused_norm_qkv":
+            a = d if name == "fused_block_tail" else None
+            grid = fk.items_grid(m, d, n_or_h, d, a, dev)
+            most = fk.most_items(m, n_or_h, d, a)
+            items = f", {grid} blocks for at most {most} items a phase"
+            if d == 2048:
+                check(most > grid, f"{name} at d=2048: {most} items fit {grid} blocks")
+        log(f"{name} == plain at M={m}, {d}x{n_or_h} in f32 and bf16{items}")
     # bf16 x in, bf16 out
     args = _fused_inputs(torch, gen, "fused_mlp", 4, 1024, 2048, dev, torch.bfloat16)
     y = fk.fused_mlp(*args, **_fused_kwargs("fused_mlp", torch.bfloat16))
@@ -697,8 +837,98 @@ def check_fused_kernels(torch, dev) -> dict:
             row = fn(*_rows(args, name, 0, 1), **kw)
             torch.cuda.synchronize()
             check(torch.equal(chunk[:1], row), f"{name} row 0 of M=8 != M=1 ({cdt})")
-    log("phase 7 passed: row 0 of an M=8 call equals the M=1 call bitwise")
+    # B6 at the prefill's M=32 and B5 at a verify's M=9: rows bitwise M=1
+    for name, m, d, n_or_h, rows in (("fused_mlp", 32, 1024, 4096, (0, 5, 31)),
+                                     ("fused_block_tail", 9, 512, 1536, (8,))):
+        fn = getattr(fk, name)
+        args = _fused_inputs(torch, gen, name, m, d, n_or_h, dev)
+        for cdt in (torch.float32, torch.bfloat16):
+            kw = _kernel_kwargs(name, cdt)
+            chunk = fn(*args, **kw)
+            for r in rows:
+                row = fn(*_rows(args, name, r, r + 1), **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(chunk[r:r + 1], row), f"{name} row {r} of M={m} != M=1 "
+                      f"({cdt})")
+    log("phase 7 passed: row 0 of an M=8 call, rows 0, 5, 31 of B6 at M=32 and row 8 of "
+        "B5 at M=9 equal the M=1 calls bitwise")
+    check_fused_launch(torch, dev, gen)
     return path_err
+
+
+def check_fused_launch(torch, dev, gen) -> None:
+    """Phase 7, B5 and B6 as one cooperative launch: the output bitwise the
+    same at the occupancy grid and at forced grids of 1, 7 and 33 blocks (a
+    grid larger than the card holds refused with an error); one kernel event
+    a call in the profiler, the launch counter +1 a call; and a probe, logged,
+    of whether a B5 call can be captured in a CUDA graph, whose replay must
+    then be bitwise the eager call."""
+    from smmb_tpu_torch.bench.trace import kernel_breakdown
+    from smmb_tpu_torch.kernels import fused_mlp as fk
+
+    bf16 = torch.bfloat16
+    for name, m, d, n_or_h in (("fused_block_tail", 1, 1024, 4096),
+                               ("fused_block_tail", 9, 512, 1536),
+                               ("fused_mlp", 32, 1024, 4096), ("fused_mlp", 9, 2048, 8192)):
+        fn = getattr(fk, name)
+        args = _fused_inputs(torch, gen, name, m, d, n_or_h, dev)
+        grid = fk.items_grid(m, d, n_or_h, d, d if name == "fused_block_tail" else None, dev)
+        for cdt in (torch.float32, torch.bfloat16):
+            kw = _kernel_kwargs(name, cdt)
+            base = fn(*args, **kw)
+            for forced in (1, 7, 33, grid):
+                y = fn(*args, **kw, _grid=forced)
+                torch.cuda.synchronize()
+                check(torch.equal(y, base), f"{name} M={m} {d}x{n_or_h} {cdt}: grid {forced} "
+                      f"differs from the occupancy grid {grid}")
+        try:
+            fn(*args, **_kernel_kwargs(name, torch.bfloat16), _grid=1 << 20)
+            refused = False
+        except RuntimeError:
+            refused = True
+        check(refused, f"{name}: a grid of 2**20 blocks was not refused")
+        log(f"{name} M={m} {d}x{n_or_h}: bitwise equal at grids 1, 7, 33 and {grid}")
+    for name, m, d, n_or_h in (("fused_block_tail", 1, 1024, 4096), ("fused_mlp", 32, 1024, 4096)):
+        fn = getattr(fk, name)
+        args, kw = _fused_inputs(torch, gen, name, m, d, n_or_h, dev), _kernel_kwargs(name, bf16)
+        calls = [0]
+
+        def call():
+            calls[0] += 1
+            fn(*args, **kw)
+
+        before = fn.launches
+        rows = kernel_breakdown(call, n_calls=5)
+        check(fn.launches - before == calls[0], f"{name}: launches counted "
+              f"{fn.launches - before} for {calls[0]} calls")
+        check([r["name"] for r in rows if "mlp_items_kernel" not in r["name"]] == []
+              and sum(r["launches"] for r in rows) == 1, f"{name}: not one kernel a call: {rows}")
+    log("B5 and B6: one kernel event a call in the profiler, counted once a call")
+    args = _fused_inputs(torch, gen, "fused_block_tail", 1, 1024, 4096, dev)
+    kw = _fused_kwargs("fused_block_tail", bf16)
+    eager = fk.fused_block_tail(*args, **kw)
+    try:  # the probe records whether the card captures a cooperative launch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fk.fused_block_tail(*args, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = fk.fused_block_tail(*args, **kw)
+        captured = None
+    except Exception as exc:
+        torch.cuda.synchronize()
+        captured = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+    if captured is None:
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(y, eager), "B5 replayed from a CUDA graph differs from the eager call")
+        probe = "captured and replayed, bitwise the eager call"
+    else:
+        probe = f"not captured: {captured}"
+    print(json.dumps({"b5_cuda_graph": probe}), flush=True)
+    log(f"B5 in a CUDA graph: {probe}")
 
 
 def _path_shape(name):
@@ -897,12 +1127,16 @@ def time_fused_kernels(torch, dev, spec, path_err, lm) -> list:
         ops = 2.0 * m * sum(nnz)  # the ±1 entries this data holds, per row
         bound_s, bound_by = roofline_bound(ops, n_bytes, spec, "bf16")
         # library yardstick: torch.matmul on the pre-decoded dense bf16
-        # weights, one call per product of the kernel, times summed
+        # weights, one call per product of the kernel, times summed; and
+        # both sides' device time alone by the profiler (the per-call time
+        # of an M=1 call is the host's)
         dense = [unpack_ternary(p, torch.bfloat16) for p in planes]
-        t_lib = 0.0
+        t_lib, dev_lib = 0.0, 0.0
         for w in dense:
             a = rng.rand_dense(gen, (m, w.shape[0]), dtype=torch.bfloat16)
             t_lib += measure(torch.matmul, a, w).min_s
+            dev_lib += _device_us(lambda: torch.matmul(a, w))
+        dev_k = _device_us(lambda: fn(*args, **kw))
         row = {
             "name": name, "route": "cuda",
             "source": "smmb_tpu_torch/kernels/csrc/fused_mlp.cu",
@@ -910,15 +1144,21 @@ def time_fused_kernels(torch, dev, spec, path_err, lm) -> list:
             "launches": lm["launches"][name], "max_abs_err": path_err[name],
             "ms": t_kernel.min_s * 1e3, "plain_ms": t_plain.min_s * 1e3,
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-            "library_ms": t_lib * 1e3,
+            "library_ms": t_lib * 1e3, "device_us": dev_k, "library_device_us": dev_lib,
         }
-        print(json.dumps({**row, "shape": [m, d, n_or_h], "bytes": n_bytes,
+        if name != "fused_norm_qkv":
+            row["design"] = FUSED_DESIGN
+        print(json.dumps({**row, "parent_device_us_recorded": FUSED_PARENT_US[name],
+                          "shape": [m, d, n_or_h], "bytes": n_bytes,
                           "ops": ops, "mean_ms": t_kernel.mean_s * 1e3,
                           "launches_are": per_launch[name],
                           "library": f"torch.matmul bf16 on pre-decoded dense W, "
                                      f"sum of {len(dense)} products"}), flush=True)
         rows.append(row)
-    log("phase 9 passed: fused kernels timed at the path shapes")
+    log("phase 9 passed: fused kernels timed at the path shapes; device us now / the "
+        "earlier kernels' / torch.matmul's: " + ", ".join(
+            f"{r['name']} {r['device_us']:.2f} / {FUSED_PARENT_US[r['name']]} / "
+            f"{r['library_device_us']:.2f}" for r in rows))
     return rows
 
 
@@ -1167,12 +1407,14 @@ def run_flash_lm_path(torch, dev, lm) -> dict:
                "decode_prefill_us": d.prefill_s * 1e6, "trace_launches": tr["launches"],
                "trace_call_us": tr["call_us"], "trace_kernel_us": tr["kernel_us"],
                "trace_busy_share": tr["busy_share"],
-               "trace_flash_decode_us": _kernel_us(tr, "flash_decode_kernel")}
+               "trace_flash_decode_us": _kernel_us(tr, "flash_decode_kernel"),
+               **_b5_step(tr)}
         print(json.dumps(row), flush=True)
         out[flash] = row
     log(f"phase 12 passed: flash step {out[True]['trace_launches']:.0f} launches, "
         f"{out[True]['trace_kernel_us']:.1f} us of device time (B4 "
-        f"{out[True]['trace_flash_decode_us']:.1f}), busy "
+        f"{out[True]['trace_flash_decode_us']:.1f}, B5 {out[True]['trace_b5_us']:.1f} in "
+        f"{out[True]['trace_b5_launches']:.0f} launches), busy "
         f"{out[True]['trace_busy_share']:.3f} (without flash "
         f"{out[False]['trace_launches']:.0f}, {out[False]['trace_kernel_us']:.1f} us, "
         f"{out[False]['trace_busy_share']:.3f})")
@@ -1725,12 +1967,14 @@ def run_int8_lm_path(torch, dev, lm) -> dict:
         row = {"kv_quant": True, "flash": flash, "lm_us_per_token": runs[flash],
                "trace_launches": tr["launches"], "trace_call_us": tr["call_us"],
                "trace_kernel_us": tr["kernel_us"], "trace_busy_share": tr["busy_share"],
-               "trace_flash_decode_us": _kernel_us(tr, "flash_decode_kernel")}
+               "trace_flash_decode_us": _kernel_us(tr, "flash_decode_kernel"),
+               **_b5_step(tr)}
         print(json.dumps(row), flush=True)
         out[flash].update(row)
     log(f"phase 18 passed: int8 flash step {out[True]['trace_launches']:.0f} launches, "
         f"{out[True]['trace_kernel_us']:.1f} us of device time (B8 "
-        f"{out[True]['trace_flash_decode_us']:.1f}), busy "
+        f"{out[True]['trace_flash_decode_us']:.1f}, B5 {out[True]['trace_b5_us']:.1f} in "
+        f"{out[True]['trace_b5_launches']:.0f} launches), busy "
         f"{out[True]['trace_busy_share']:.3f} (without flash "
         f"{out[False]['trace_launches']:.0f}, {out[False]['trace_kernel_us']:.1f} us, "
         f"{out[False]['trace_busy_share']:.3f})")
@@ -1775,6 +2019,9 @@ def time_int8_kernels(torch, dev, spec, errs, int8) -> list:
                  "ms": t_k.min_s * 1e3, "mean_ms": t_k.mean_s * 1e3,
                  "plain_ms": t_p.min_s * 1e3, "bound_ms": bound * 1e3, "bound_by": by,
                  "bytes": n_bytes, "ops": ops, "library_ms": t_l.min_s * 1e3,
+                 "device_us": _device_us(lambda: fk.fused_norm_qkv_quant(*args, **kw)),
+                 "library_device_us": _device_us(lambda: torch.matmul(a, dense)),
+                 "parent_device_us_recorded": FUSED_PARENT_US["fused_norm_qkv_quant"],
                  "library": "torch.matmul bf16 on the pre-decoded dense Wqkv"})
     # B8: bf16 compute, q in f32 as B7 gives it
     for label, b, h, kvh, s, pos in (("lm path", 1, 8, 8, 224, 95),
@@ -1830,8 +2077,12 @@ def time_int8_kernels(torch, dev, spec, errs, int8) -> list:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    summary[0].update(device_us=rows[0]["device_us"],
+                      library_device_us=rows[0]["library_device_us"])
     summary[1].update(design=FLASH_DECODE_DESIGN, device_us=rows[1]["device_us"],
                       long_ms=rows[2]["ms"], long_device_us=rows[2]["device_us"])
+    log(f"B7: {rows[0]['device_us']:.2f} us on the device (torch.matmul "
+        f"{rows[0]['library_device_us']:.2f})")
     log("phase 19 passed: B7 and B8 timed at the path shapes and B8 at pos 8191")
     return summary
 
@@ -2174,4 +2425,9 @@ def time_serving_controls(torch, dev, spec, pipe) -> list:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fused-side"]:
+        sys.path.insert(0, sys.argv[2])
+        sys.exit(fused_side(sys.argv[3]))
+    if sys.argv[1:2] == ["--fused-ab"]:
+        sys.exit(fused_ab(Path(sys.argv[2]).resolve()))
     sys.exit(main())

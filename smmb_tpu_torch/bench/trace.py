@@ -29,25 +29,59 @@ from smmb_tpu_torch.bench.mlp_bench import build_mlp
 from smmb_tpu_torch.models.mlp import mlp_forward
 
 
+# calls of a profiler session's warm-up step, one entry a session: a
+# session whose counts show lost events is run again with a longer warm-up
+WARM_CALLS = (10, 50, 250)
+EDGE_S = 0.02  # idle seconds at each edge of the measured step
+
+
 def kernel_breakdown(fn, *args, n_calls: int = 10) -> list[dict]:
     """[{name, us, launches}] of each device kernel per call of ``fn(*args)``,
     by device time (the CPU-side operators that launched them are left out,
-    so no time is counted twice)."""
+    so no time is counted twice).
+
+    In a session that follows others in the same process the profiler loses
+    kernel events (seen on an H100) in two ways: the first kernels recorded
+    after the session starts, more of them the more sessions came before;
+    and kernels whose device timestamps fall outside the measured step,
+    when the device clock reads some hundred µs off the host's. So each
+    session opens with a warm-up step of ``WARM_CALLS`` calls whose events
+    are discarded, and leaves ``EDGE_S`` idle at each edge of the measured
+    step. ``fn`` must make the same launches on every call: a session in
+    which some kernel's events are not a whole number a call lost events,
+    and is run again with the next, longer warm-up; after the last this
+    raises."""
+    import time
+
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_calls):
-            fn(*args)
-        torch.cuda.synchronize()
-    rows = [
-        {"name": evt.key, "us": evt.self_device_time_total / n_calls,
-         "launches": evt.count / n_calls}
-        for evt in prof.key_averages()
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0
-    ]
+    for warm in WARM_CALLS:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(warm):
+                fn(*args)
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(EDGE_S)
+            for _ in range(n_calls):
+                fn(*args)
+            torch.cuda.synchronize()
+            time.sleep(EDGE_S)
+            prof.step()
+        # the schedule's step annotation spans the step on the device too
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                  and not e.key.startswith("ProfilerStep")]
+        if events and all(e.count % n_calls == 0 for e in events):
+            break
+    else:
+        raise RuntimeError(f"the profiler lost kernel events in {len(WARM_CALLS)} sessions: "
+                           f"{[(e.key, e.count) for e in events]} for {n_calls} calls")
+    rows = [{"name": e.key, "us": e.self_device_time_total / n_calls,
+             "launches": e.count // n_calls} for e in events]
     return sorted(rows, key=lambda r: -r["us"])
 
 

@@ -140,18 +140,20 @@ def fused_mlp_lib() -> ctypes.CDLL:
         ],
         "smmb_fused_mlp": [
             _P, _I, _P, _P, _P,  # x, x_bf16, wu, s_up, b_up
-            _P, _P, _P, _P, _P,  # wd, s_down, b_down, ws, out
-            _I, _I, _I, _I, _F, _I,  # m, k, h, kout, alpha, cbf16
+            _P, _I, _P, _P,  # wd, ldd, s_down, b_down
+            _P, _P, _P,  # up, ws, out
+            _I, _I, _I, _I, _F, _I, _I,  # m, k, h, kout, alpha, cbf16, grid
             _P,  # stream
         ],
         "smmb_fused_block_tail": [
             _P, _I, _P, _I,  # att, att_bf16, x, x_bf16
             _P, _P, _P, _P,  # wo, s_wo, b_wo, g2
             _P, _P, _P, _P, _P, _P,  # wu, s_up, b_up, wd, s_down, b_down
-            _P, _P, _P,  # resid, ws, out
-            _I, _I, _I, _I, _F, _F, _I,  # m, a, dm, h, alpha, eps, cbf16
+            _P, _P, _P, _P,  # resid, up, ws, out
+            _I, _I, _I, _I, _F, _F, _I, _I,  # m, a, dm, h, alpha, eps, cbf16, grid
             _P,  # stream
         ],
+        "smmb_fused_items_capacity": [_I, _I, _I],  # tail, rows, kmax
     })
 
 

@@ -15,17 +15,22 @@ Replaces the Pallas TPU kernels of ``smmb_tpu/kernels/fused_mlp.py``:
 The kernels are ``csrc/fused_mlp.cu``, built with ``nvcc`` for ``sm_90a`` at
 first use (``_build.py``) and called through ctypes. Their design (a fixed
 split of K over the 8 warps of a block, the hidden axis cut into tiles of 128
-units with one f32 partial each, summed in tile order by a second launch, no
-atomics) is described in the source. At the decode shapes every product is
+units with one f32 partial each, summed in tile order, no atomics) is
+described in the source. B6 and B5 are one cooperative launch each over as
+many blocks as fit the card, walking lists of work items fixed by the shapes
+(``work_items``) in phases separated by grid syncs; their workspaces
+(``workspace_shapes``) come from here. At the decode shapes every product is
 bound by the packed weight bytes.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs the
 plain version. There is no fallback from one to the other. Each wrapper adds
-one to its ``launches`` count per call that reaches its kernel (B6 and B5
-are two and three CUDA launches under one call).
+one to its ``launches`` count per call that reaches its kernel, one CUDA
+launch each.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -37,6 +42,12 @@ FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 HIDDEN_TILE = 128  # hidden units per block of the CUDA kernels
 ROWS_PER_BLOCK = 8  # activation rows a block stages (1 when M = 1)
 MAX_SHARED_BYTES = 232448  # dynamic shared memory a Hopper block may use
+WARPS = 8  # a block's warps: the fixed split of K into eighths
+ITEM_COLS = 32  # columns of a B5/B6 product item (one a lane)
+DOWN_COLS = 256  # output columns of a B5/B6 down item (one a thread)
+SUM_COLS = 32  # output columns of a B5/B6 sum item (a warp a row, a lane a column)
+PIECE_ROWS = 16  # packed rows of a warp's 16-byte cp.async piece
+RING = 4  # pieces a warp keeps in flight
 
 
 def shared_bytes(k: int) -> int:
@@ -52,6 +63,71 @@ def fits_shared(k: int) -> bool:
     """Hopper limit of every fused kernel: its staged rows fit a block's
     shared memory (k ≤ 6656 at 8 rows a block)."""
     return shared_bytes(k) <= MAX_SHARED_BYTES
+
+
+def item_rows(m: int) -> int:
+    """Rows of a row tile of B5's and B6's items: 1 at M = 1, else 8."""
+    return 1 if m == 1 else ROWS_PER_BLOCK
+
+
+def items_shared_bytes(k: int, m: int = ROWS_PER_BLOCK) -> int:
+    """Shared memory of one block of B5's and B6's one-launch kernel for
+    staged rows of width ``k`` (B5: the larger of A and D): the (rows, k) f32
+    rows, the warps' cp.async rings (the partial sums reuse them), and the
+    norm's scratch (``items_smem_bytes`` in csrc/fused_mlp.cu)."""
+    r = item_rows(m)
+    return 4 * (r * k + r + WARPS * r) + WARPS * RING * PIECE_ROWS * ITEM_COLS
+
+
+def fits_shared_items(k: int, m: int = ROWS_PER_BLOCK) -> bool:
+    """The one-launch block's own limit (k ≤ 6656 at 8 rows, as
+    ``fits_shared``, which stays the routes' limit and implies this one)."""
+    return items_shared_bytes(k, m) <= MAX_SHARED_BYTES
+
+
+def eighths(k: int) -> list[tuple[int, int]]:
+    """The packed rows [p0, p1) of K that each warp of a product item sums,
+    in warp order (the fixed split of every fused kernel)."""
+    kp = k // 4
+    return [(w * kp // WARPS, (w + 1) * kp // WARPS) for w in range(WARPS)]
+
+
+def work_items(h: int, kout: int, a: int | None = None) -> dict[str, list[tuple]]:
+    """The items of one row tile of B6 (``a`` None) or B5 (``a`` = A, ``kout``
+    = D), phase by phase, in the order the kernel numbers them: "wo" and
+    "up" are product chunks (c0, c1) of columns, each summed by the 8
+    ``eighths`` of K; "down" is (hidden tile, c0, c1), and "sum" (c0, c1)
+    adds a column's hidden tiles in tile order, columns past ``kout`` cut
+    off. A function of the shapes alone: M multiplies the list by its row
+    tiles, and the grid only assigns items to blocks."""
+    def cut(width):
+        return [(c, min(c + width, kout)) for c in range(0, kout, width)]
+
+    return {
+        "wo": [] if a is None else [(c, c + ITEM_COLS) for c in range(0, kout, ITEM_COLS)],
+        "up": [(c, c + ITEM_COLS) for c in range(0, h, ITEM_COLS)],
+        "down": [(t, c0, c1) for t in range(h // HIDDEN_TILE) for c0, c1 in cut(DOWN_COLS)],
+        "sum": cut(SUM_COLS),
+    }
+
+
+def most_items(m: int, h: int, kout: int, a: int | None = None) -> int:
+    """The largest phase's item count of a call, the grid's cap: the
+    lengths of ``work_items``' lists counted without building them (the
+    wrapper asks on every call)."""
+    per_tile = max(0 if a is None else kout // ITEM_COLS, h // ITEM_COLS,
+                   h // HIDDEN_TILE * -(-kout // DOWN_COLS), -(-kout // SUM_COLS))
+    return -(-m // item_rows(m)) * per_tile
+
+
+def workspace_shapes(m: int, h: int, kout: int, tail: bool) -> dict[str, tuple]:
+    """The f32 workspaces of a B6 (``tail`` False) or B5 call: the hidden
+    layer between the up and down phases, each hidden tile's partial of the
+    down product, and B5's residual."""
+    shapes = {"up": (m, h), "ws": (h // HIDDEN_TILE, m, kout)}
+    if tail:
+        shapes["resid"] = (m, kout)
+    return shapes
 
 
 def quant_shared_bytes(d: int, hd: int) -> int:
@@ -99,12 +175,66 @@ def _vec(v: torch.Tensor, dev) -> torch.Tensor:
     return v.to(device=dev, dtype=torch.float32).contiguous()
 
 
-def _words(w: TernaryPacked, dev) -> torch.Tensor:
+def _words(w: TernaryPacked, dev, align: int = 4) -> torch.Tensor:
     data = w.data
     if data.device != dev or data.dtype != torch.int8:
         raise ValueError("packed planes must be int8 tensors on x's device")
     data = data.contiguous()
-    return data if data.data_ptr() % 4 == 0 else data.clone()
+    return data if data.data_ptr() % align == 0 else data.clone()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (B5's and B6's rows are
+    read 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _items_words(w: TernaryPacked, dev) -> torch.Tensor:
+    """A plane for B5's and B6's 16-byte copies: 16-byte aligned, its rows
+    padded with zero columns to a multiple of 16 bytes."""
+    data = _words(w, dev, 16)
+    pad = -data.shape[1] % 16
+    return torch.nn.functional.pad(data, (0, pad)) if pad else data
+
+
+def _workspace(m, h, kout, tail, dev) -> tuple[torch.Tensor, dict]:
+    """One f32 buffer holding the workspaces of ``workspace_shapes`` (the
+    one whose size may not be a multiple of 4 last, so each starts 16-byte
+    aligned), and each one's address."""
+    shapes = workspace_shapes(m, h, kout, tail)
+    sizes = {name: math.prod(shapes[name]) for name in ("resid", "up", "ws") if name in shapes}
+    buf = torch.empty(sum(sizes.values()), dtype=torch.float32, device=dev)
+    ptrs, at = {}, buf.data_ptr()
+    for name, n in sizes.items():
+        ptrs[name] = at
+        at += 4 * n
+    return buf, ptrs
+
+
+def _check_items_shared(name: str, k: int, m: int) -> None:
+    if not fits_shared_items(k, m):
+        raise ValueError(f"{name}: rows of width {k} need {items_shared_bytes(k, m)} bytes "
+                         f"of shared memory, more than a block's {MAX_SHARED_BYTES}")
+
+
+_CAPACITY: dict = {}  # (device, B5?, rows a tile, staged width) → blocks that fit at once
+
+
+def items_grid(m: int, k: int, h: int, kout: int, a: int | None = None,
+               device=None) -> int:
+    """The grid a B6 (``a`` None) or B5 call (``a`` = A, ``k`` = ``kout`` =
+    D) of these shapes takes on the card: the blocks that fit it at once
+    (asked of the card once per kernel and width), at most ``most_items``."""
+    key = (device, a is not None, item_rows(m), max(k, a or 0))
+    blocks = _CAPACITY.get(key)
+    if blocks is None:
+        with torch.cuda.device(device):
+            blocks = _build.fused_mlp_lib().smmb_fused_items_capacity(*key[1:])
+        if blocks <= 0:
+            raise RuntimeError(f"fused items capacity: CUDA error {-blocks}")
+        _CAPACITY[key] = blocks
+    return min(blocks, most_items(m, h, kout, a))
 
 
 def _cuda_call(name: str, x: torch.Tensor, *args) -> None:
@@ -323,15 +453,18 @@ def fused_mlp(
     alpha: float,
     compute_dtype=torch.bfloat16,
     block_h: int = 1024,
+    _grid: int = 0,
 ) -> torch.Tensor:
     """``prelu(s_up·(X @ Wup) + b_up, alpha) @ Wdown · s_down + b_down`` in
-    one call; the (M, H) hidden layer never reaches device memory.
+    one call (one launch on the card).
 
     x: (M, K) float; w_up packed (K, H), w_down packed (H, K_out); s_up and
     s_down scalars (0-d tensors or floats); b_up (H,), b_down (K_out,).
     ``block_h`` is the TPU kernel's hidden slab, checked as JAX checks it;
     the CUDA kernel cuts H into its own tiles of 128 units, which only
     changes the order of the f32 sums. Returns (M, K_out) in x.dtype.
+    ``_grid`` forces the launch's block count (0: ``items_grid``), for the
+    checks that the result does not depend on it.
     """
     _check_float("fused_mlp", compute_dtype)
     m, k = x.shape
@@ -349,18 +482,20 @@ def fused_mlp(
     if x.dtype not in FLOAT_DTYPES:
         raise TypeError(f"fused_mlp takes f32 or bf16 x, got {x.dtype}")
     dev = x.device
-    xc = x.contiguous()
+    xc = _aligned(x)
     su, sd = _scalar(s_up, dev), _scalar(s_down, dev)
     bu, bd = _vec(b_up, dev), _vec(b_down, dev)
-    wu, wd = _words(w_up, dev), _words(w_down, dev)
+    wu, wd = _items_words(w_up, dev), _items_words(w_down, dev)
     out = torch.empty((m, kout), dtype=x.dtype, device=dev)
     if m == 0:
         return out
-    ws = torch.empty((h // HIDDEN_TILE, m, kout), dtype=torch.float32, device=dev)
+    _check_items_shared("fused_mlp", k, m)
+    buf, ws = _workspace(m, h, kout, False, dev)
     _cuda_call("fused_mlp", xc, xc.data_ptr(), int(x.dtype == torch.bfloat16),
-               wu.data_ptr(), su.data_ptr(), bu.data_ptr(), wd.data_ptr(),
-               sd.data_ptr(), bd.data_ptr(), ws.data_ptr(), out.data_ptr(),
-               m, k, h, kout, float(alpha), int(compute_dtype == torch.bfloat16))
+               wu.data_ptr(), su.data_ptr(), bu.data_ptr(), wd.data_ptr(), wd.shape[1],
+               sd.data_ptr(), bd.data_ptr(), ws["up"], ws["ws"], out.data_ptr(),
+               m, k, h, kout, float(alpha), int(compute_dtype == torch.bfloat16),
+               _grid or items_grid(m, k, h, kout, None, dev))
     fused_mlp.launches += 1
     return out
 
@@ -399,8 +534,9 @@ def fused_block_tail(
     eps: float,
     compute_dtype=torch.bfloat16,
     block_h: int = 1024,
+    _grid: int = 0,
 ) -> torch.Tensor:
-    """The transformer block's tail in one call::
+    """The transformer block's tail in one call (one launch on the card)::
 
         resid = x + s_wo·(att @ Wo) + b_wo
         h     = rmsnorm(resid, norm2, eps)
@@ -410,7 +546,8 @@ def fused_block_tail(
     att: (M, A) pre-``wo`` attention mix; x: (M, D) residual stream, read
     in f32. A row's result is bitwise independent of the other rows in the
     call (M = 1 against M = C: the speculative-decoding contract). Returns
-    (M, D) in x.dtype.
+    (M, D) in x.dtype. ``_grid`` forces the launch's block count (0:
+    ``items_grid``), for the checks that the result does not depend on it.
     """
     _check_float("fused_block_tail", compute_dtype)
     m, a = att.shape
@@ -431,23 +568,23 @@ def fused_block_tail(
         raise TypeError(f"fused_block_tail takes f32 or bf16 att and x, got "
                         f"{att.dtype} and {x.dtype}")
     dev = x.device
-    attc, xc = att.contiguous(), x.contiguous()
+    attc, xc = _aligned(att), _aligned(x)
     if attc.device != dev:
         raise ValueError("att must be on x's device")
     swo, su, sd = _scalar(s_wo, dev), _scalar(s_up, dev), _scalar(s_down, dev)
-    bwo, g2 = _vec(b_wo, dev), _vec(norm2, dev)
+    bwo, g2 = _vec(b_wo, dev), _aligned(_vec(norm2, dev))
     bu, bd = _vec(b_up, dev), _vec(b_down, dev)
-    wod, wu, wd = _words(wo, dev), _words(w_up, dev), _words(w_down, dev)
+    wod, wu, wd = (_items_words(w, dev) for w in (wo, w_up, w_down))
     out = torch.empty((m, dm), dtype=x.dtype, device=dev)
     if m == 0:
         return out
-    resid = torch.empty((m, dm), dtype=torch.float32, device=dev)
-    ws = torch.empty((h // HIDDEN_TILE, m, dm), dtype=torch.float32, device=dev)
-    ptrs = [t.data_ptr() for t in (wod, swo, bwo, g2, wu, su, bu, wd, sd, bd,
-                                   resid, ws, out)]
+    _check_items_shared("fused_block_tail", max(a, dm), m)
+    buf, ws = _workspace(m, h, dm, True, dev)
+    ptrs = [t.data_ptr() for t in (wod, swo, bwo, g2, wu, su, bu, wd, sd, bd)]
     _cuda_call("fused_block_tail", xc, attc.data_ptr(), int(att.dtype == torch.bfloat16),
-               xc.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, m, a, dm, h,
-               float(alpha), float(eps), int(compute_dtype == torch.bfloat16))
+               xc.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, ws["resid"], ws["up"],
+               ws["ws"], out.data_ptr(), m, a, dm, h, float(alpha), float(eps),
+               int(compute_dtype == torch.bfloat16), _grid or items_grid(m, dm, h, dm, a, dev))
     fused_block_tail.launches += 1
     return out
 

@@ -203,7 +203,8 @@ def _fused_args(name, seed, m, d, h, dev):
     ("fused_norm_qkv", 1, 1024, 3072), ("fused_norm_qkv", 5, 1024, 1536),
     ("fused_norm_qkv", 2, 512, 1536), ("fused_mlp", 32, 1024, 4096),
     ("fused_mlp", 1, 512, 2048), ("fused_block_tail", 1, 1024, 4096),
-    ("fused_block_tail", 9, 512, 1536),
+    ("fused_block_tail", 9, 512, 1536), ("fused_block_tail", 1, 2048, 8192),
+    ("fused_block_tail", 32, 1024, 4096), ("fused_mlp", 9, 2048, 8192),
 ])
 def test_fused_kernel_matches_plain(cuda, cdt, name, m, d, h):
     args, kw = _fused_args(name, m + d, m, d, h, cuda)
@@ -231,6 +232,97 @@ def test_fused_kernel_row_identity(cuda, cdt, name):
     for r in (0, 5):
         one = tuple(a[r:r + 1] if i < n_act else a for i, a in enumerate(args))
         assert torch.equal(chunk[r:r + 1], fn(*one, compute_dtype=cdt, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_fused_items_rows_equal_the_m1_call(cuda, cdt):
+    """B6 at the prefill's M=32 and B5 at a verify's M=9: rows bitwise the
+    M=1 calls (two row tiles and a one-row tile walk the same items)."""
+    for name, m, d, h, rows in (("fused_mlp", 32, 1024, 4096, (0, 5, 31)),
+                                ("fused_block_tail", 9, 512, 1536, (0, 8))):
+        args, kw = _fused_args(name, 21, m, d, h, cuda)
+        n_act = 2 if name == "fused_block_tail" else 1
+        fn = getattr(fk, name)
+        chunk = fn(*args, compute_dtype=cdt, **kw)
+        for r in rows:
+            one = tuple(a[r:r + 1] if i < n_act else a for i, a in enumerate(args))
+            assert torch.equal(chunk[r:r + 1], fn(*one, compute_dtype=cdt, **kw)), (name, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,m,d,h", [("fused_block_tail", 1, 1024, 4096),
+                                        ("fused_block_tail", 9, 512, 1536),
+                                        ("fused_mlp", 32, 1024, 4096),
+                                        ("fused_mlp", 9, 2048, 8192)])
+def test_fused_items_grid_does_not_change_the_result(cuda, name, m, d, h):
+    """One cooperative launch at any grid: blocks walk the same fixed items,
+    so forced grids of 1, 7 and 33 blocks give the occupancy grid's output
+    bitwise; a grid the card cannot hold at once is refused."""
+    args, kw = _fused_args(name, 5, m, d, h, cuda)
+    fn = getattr(fk, name)
+    a = d if name == "fused_block_tail" else None
+    grid = fk.items_grid(m, d, h, d, a, cuda)
+    assert 0 < grid <= fk.most_items(m, h, d, a)
+    for cdt in (torch.float32, torch.bfloat16):
+        base = fn(*args, compute_dtype=cdt, **kw)
+        for forced in (1, 7, 33, grid):
+            assert torch.equal(fn(*args, compute_dtype=cdt, _grid=forced, **kw), base)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fn(*args, compute_dtype=torch.bfloat16, _grid=1 << 20, **kw)
+    assert torch.equal(fn(*args, compute_dtype=torch.bfloat16, **kw),
+                       fn(*args, compute_dtype=torch.bfloat16, _grid=grid, **kw))
+
+
+def _counted_breakdown(fn, call, n_calls=5):
+    """bench/trace.py's kernel rows of ``call`` (which calls the wrapper
+    ``fn`` once), and whether ``fn.launches`` rose once a call."""
+    from smmb_tpu_torch.bench.trace import kernel_breakdown
+
+    calls = [0]
+
+    def counted():
+        calls[0] += 1
+        call()
+
+    before = fn.launches
+    rows = kernel_breakdown(counted, n_calls=n_calls)
+    return rows, fn.launches - before == calls[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,m", [("fused_block_tail", 1), ("fused_mlp", 32)])
+def test_fused_items_one_launch_per_call(cuda, name, m):
+    """B5 and B6 are one kernel a call (no memset, no second launch), and
+    the counter rises once a call."""
+    args, kw = _fused_args(name, 9, m, 1024, 4096, cuda)
+    fn = getattr(fk, name)
+    rows, counted = _counted_breakdown(
+        fn, lambda: fn(*args, compute_dtype=torch.bfloat16, **kw))
+    assert counted
+    assert [r["name"] for r in rows if "mlp_items_kernel" not in r["name"]] == []
+    assert sum(r["launches"] for r in rows) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_fused_mlp_ragged_output_columns(cuda, cdt):
+    """B6 with K_out = 1000 (not a multiple of the 16-byte copies): the
+    plane's rows are padded for the copies, the columns past K_out unwritten."""
+    rs = np.random.default_rng(31)
+    x = torch.from_numpy(rs.uniform(-1, 1, (3, 512)).astype(np.float32)).to(cuda)
+    wu = pack_ternary(rs.choice(np.array([-1.0, 0.0, 1.0], np.float32), (512, 1024)),
+                      device=cuda)
+    wd = pack_ternary(rs.choice(np.array([-1.0, 0.0, 1.0], np.float32), (1024, 1000)),
+                      device=cuda)
+    bu = torch.from_numpy(rs.uniform(-1, 1, 1024).astype(np.float32)).to(cuda)
+    bd = torch.from_numpy(rs.uniform(-1, 1, 1000).astype(np.float32)).to(cuda)
+    s = torch.tensor(0.7, device=cuda)
+    y = fk.fused_mlp(x, wu, s, bu, wd, s, bd, alpha=ALPHA, compute_dtype=cdt)
+    ref = fk.fused_mlp_plain(x, wu, s, bu, wd, s, bd, alpha=ALPHA, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    assert y.shape == (3, 1000)
+    assert_close(y, ref, FUSED_TOL[cdt] * max(1.0, float(ref.abs().max())), "ragged B6")
 
 
 @pytest.mark.cuda
@@ -556,9 +648,6 @@ def test_flash_decode_one_launch_per_call(cuda, quant):
     """Each call is one launch of one kernel, over (live spans, KVH, B)
     blocks: no memset and no second combine kernel; at pos 8191 of S = 8192
     the grid has at least 128 blocks."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     rs = np.random.default_rng(11)
     b, h, kvh, s, pos = 1, 8, 8, 8192, 8191
     q = _normal(rs, (b, h, 128), torch.float32, cuda, 8.0)
@@ -568,17 +657,11 @@ def test_flash_decode_one_launch_per_call(cuda, quant):
     else:
         bufs = tuple(_normal(rs, (b, s, kvh * 128), torch.bfloat16, cuda) for _ in range(2))
         fn = fd.flash_attention_decode
-    fn(q, *bufs, pos, compute_dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    before = fn.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn(q, *bufs, pos, compute_dtype=torch.bfloat16)
-        torch.cuda.synchronize()
-    assert fn.launches == before + 5
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    assert [e.key for e in events if "flash_decode_kernel" not in e.key] == []
-    assert sum(e.count for e in events) == 5
+    rows, counted = _counted_breakdown(
+        fn, lambda: fn(q, *bufs, pos, compute_dtype=torch.bfloat16))
+    assert counted
+    assert [r["name"] for r in rows if "flash_decode_kernel" not in r["name"]] == []
+    assert sum(r["launches"] for r in rows) == 1
     assert fd.live_spans(pos, 1, None, fd.split_cols(s))[1] * kvh * b >= 128
 
 
