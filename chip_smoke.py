@@ -10,8 +10,8 @@ which exits non-zero on failure:
    its bf16 and W2A8 modes run on ``mma.sync``, so both must be there; and
    the HMMA in ``flash_attention.cu``'s SASS (B9's and B9p's bf16 body),
    with the registers and spills ``ptxas -v`` gives its mma kernels,
-   ``flash_decode.cu``'s kernels (B4 and B8) and B5's and B6's
-   ``mlp_items_kernel``;
+   ``flash_decode.cu``'s kernels (B4 and B8), B5's and B6's
+   ``mlp_items_kernel`` and B3's and B7's ``qkv_items_kernel``;
 3. each kernel against its plain PyTorch version on the card, in every
    mode, at the test shapes and the headline shapes, with and without bias
    and PReLU, and the launch counter rising once per call; B1's row
@@ -27,21 +27,24 @@ which exits non-zero on failure:
    library call on the same inputs, beside the recorded times of B1's
    earlier CUDA-core kernel; B1 at
    M = 1 on the headline's W and at the LM head's 1×1024×8192, each beside
-   ``torch.matmul`` on the dense bf16 W; B1's device time in bf16 and
+   ``torch.matmul`` on the dense bf16 W, per call and on the device (the
+   profiler); B1's device time in bf16 and
    int8 under each of its four tiles at the paths' shapes, every tile's
    output bitwise equal; the full-width MLP forward;
 6. the fused LM kernels (B3 fused_norm_qkv, B5 fused_block_tail, B6
    fused_mlp) against their plain versions in f32 and bf16 compute at the
-   shapes of the LM path (and B3 at a GQA width, N = 1536), B5 at M = 9
-   (512/1536) and B5 and B6 at d = 2048, H = 8192 (more items than the
-   card holds blocks), each call raising its launch count by one, with B5's
-   and B6's grid and item count;
+   shapes of the LM path (and B3 at a GQA width, N = 1536, and at M = 5),
+   B5 at M = 9 (512/1536) and B5 and B6 at d = 2048, H = 8192 (more items
+   than the card holds blocks), each call raising its launch count by one,
+   with B5's and B6's grid and item count and B3's blocks;
 7. row identity: row 0 of an M = 8 call equals the M = 1 call bitwise
-   (B3, B5, B6), and rows 0, 5, 31 of B6 at M = 32 and row 8 of B5 at
-   M = 9; B5 and B6 (one cooperative launch each) bitwise equal at the
-   occupancy grid and at forced grids of 1, 7 and 33 blocks, a grid larger
-   than the card holds refused, one kernel event a call in the profiler,
-   and a logged probe of a B5 call captured in a CUDA graph and replayed;
+   (B3, B5, B6), every row of B3 and B7 at M = 5, rows 0, 5, 31 of B6 at
+   M = 32 and row 8 of B5 at M = 9; B5 and B6 (one cooperative launch
+   each) bitwise equal at the occupancy grid and at forced grids of 1, 7
+   and 33 blocks, a grid larger than the card holds refused; one kernel
+   event a call in the profiler for B3, B7, B5 and B6; and logged probes
+   of a B5, a B3 and a B7 call captured in a CUDA graph and replayed, each
+   replay bitwise the eager call;
 8. the LM main path: ``generate`` at the default configuration of
    ``python -m smmb_tpu_torch lm`` (4 layers, d_model 1024, 8 heads, d_ff
    4096, vocab 8192, batch 1, 32-token prompt, 64 greedy steps, bf16) with
@@ -51,7 +54,7 @@ which exits non-zero on failure:
 9. times of B3, B5 and B6 at the path's shapes: kernel, plain version,
    bound, and ``torch.matmul`` on the pre-decoded dense bf16 weights; each
    kernel's device time alone and ``torch.matmul``'s (the profiler), beside
-   the earlier multi-launch kernels' recorded ``FUSED_PARENT_US``;
+   the earlier kernels' recorded ``FUSED_PARENT_US``;
 10. B4 (flash decode / chunk) against its plain version in f32 and bf16 at
     the LM path's shapes, the decode bench's, GQA, a window and B = 4, and
     at pos 8191 of S = 8192 (alone, under GQA 8/2 with a window of 1000
@@ -70,7 +73,7 @@ which exits non-zero on failure:
     ``block_extend`` (C = 4) bitwise per row against four decode steps,
     µs/token and the decode bench with and without flash, and the
     ``bench/trace.py --lm`` step with and without flash (B4's device time
-    in it, and B5's device time and launches);
+    in it, and B5's and B3's device time and launches);
 13. times of B4 and B9 at the path shapes and at one long shape each, and
     B9 at T = 4096 bf16 non-causal too (each long bf16 B9 row held against
     its plain version): kernel, plain version, bound, and
@@ -93,7 +96,8 @@ which exits non-zero on failure:
     dense W;
 17. the int8 cache's kernels against their plain versions in f32 and bf16:
     B7 (norm + QKV with the int8 K/V epilogue) at the LM shape, at GQA
-    (N = 1536) and at hd 256 (a head across two column tiles), its q bitwise
+    (N = 1536), at hd 256 and 512 (a span's cluster of 8 blocks, one and two
+    items a block) and at M = 5 and 8, its q bitwise
     B3's, its codes and scales bitwise the plain quantize of B3's f32 output
     (within 1 code of a bf16 output's), row 0 of M = 8 bitwise M = 1; B8
     (flash decode / chunk over the int8 cache) at the path shape, GQA, a
@@ -108,7 +112,7 @@ which exits non-zero on failure:
     the plain routing, ``block_extend`` (C = 4) bitwise per row against
     four decode steps, µs/token of ``lm --kv-quant`` with and without
     ``--flash``, and the traced int8 decode step (B8's device time in it,
-    and B5's device time and launches);
+    and B5's and B7's device time and launches);
 19. times of B7 and B8 at the path shapes and B8 at pos 8191: kernel, plain
     version, bound, ``torch.matmul`` on the dense Wqkv (B7, with both
     device times alone by the profiler) and
@@ -233,11 +237,15 @@ def _kernel_us(trace: dict, name: str) -> float:
     return sum(r["us"] for r in trace["kernels"] if name in r["name"])
 
 
-def _b5_step(trace: dict) -> dict:
-    """B5's device µs and launches a decode step in a bench/trace.py report."""
-    rows = [r for r in trace["kernels"] if "mlp_items_kernel" in r["name"]]
-    return {"trace_b5_us": sum(r["us"] for r in rows),
-            "trace_b5_launches": sum(r["launches"] for r in rows)}
+def _fused_step(trace: dict) -> dict:
+    """B5's and B3's (or B7's) device µs and launches a decode step in a
+    bench/trace.py report."""
+    out = {}
+    for key, name in (("b5", "mlp_items_kernel"), ("qkv", "qkv_items_kernel")):
+        rows = [r for r in trace["kernels"] if name in r["name"]]
+        out[f"trace_{key}_us"] = sum(r["us"] for r in rows)
+        out[f"trace_{key}_launches"] = sum(r["launches"] for r in rows)
+    return out
 
 
 def _device_us(fn, n: int = 30) -> float:
@@ -368,6 +376,10 @@ def main() -> int:
         for (mt, tail), regs, stores, loads in _ptxas_kernels(
                 build_logs["fused_mlp.cu"], r"mlp_items_kernelILi(\d+)ELb([01])E"):
             log(f"{'B5' if tail == '1' else 'B6'} mlp_items_kernel<{mt} rows>: {regs} "
+                f"registers, {stores} bytes spill stores, {loads} bytes spill loads")
+        for (mt, quant), regs, stores, loads in _ptxas_kernels(
+                build_logs["fused_mlp.cu"], r"qkv_items_kernelILi(\d+)ELb([01])E"):
+            log(f"{'B7' if quant == '1' else 'B3'} qkv_items_kernel<{mt} rows>: {regs} "
                 f"registers, {stores} bytes spill stores, {loads} bytes spill loads")
     else:
         log("fused_mlp.cu was up to date: no ptxas report this run")
@@ -546,21 +558,27 @@ def main() -> int:
         t1_plain = measure(
             lambda: packed_spmm_plain(x1, p1, b1_, None, compute_dtype=torch.bfloat16))
         w1 = unpack_ternary(p1).to(torch.bfloat16)
-        t1_lib = measure(torch.matmul, x1.to(torch.bfloat16), w1)
+        x1b = x1.to(torch.bfloat16)
+        t1_lib = measure(torch.matmul, x1b, w1)
         bnd, bnd_by = roofline_bound(sparse_flops(1, n1, nnz1),
                                      spmm_bytes(1, n1, k1, weight_bytes=p1.weight_bytes()),
                                      spec, "bf16")
         m1_rows[label] = {"mode": "bf16", "shape": [1, k1, n1], "max_abs_err": err1,
                           "ms": t1.min_s * 1e3, "plain_ms": t1_plain.min_s * 1e3,
                           "library_ms": t1_lib.min_s * 1e3, "bound_ms": bnd * 1e3,
-                          "bound_by": bnd_by, "tile": list(tile_for(1, n1))}
+                          "bound_by": bnd_by, "tile": list(tile_for(1, n1)),
+                          "device_us": _device_us(lambda: packed_spmm(
+                              x1, p1, b1_, None, compute_dtype=torch.bfloat16)),
+                          "library_device_us": _device_us(lambda: torch.matmul(x1b, w1))}
         print(json.dumps(m1_rows[label]), flush=True)
     time_b1_tiles(torch, dev)
     log("B1 at the headline, ms now / the CUDA-core kernel's: " + ", ".join(
         f"{name} {r['ms']:.4f} / {r['cuda_core_ms']}" for name, r in per_mode.items())
         + f"; torch.matmul bf16 {per_mode['bf16']['library_ms']:.4f}; LM head M=1 "
         f"{m1_rows['lm_head']['ms']:.4f} (torch.matmul "
-        f"{m1_rows['lm_head']['library_ms']:.4f}; the CUDA-core kernel's head "
+        f"{m1_rows['lm_head']['library_ms']:.4f}), on the device "
+        f"{m1_rows['lm_head']['device_us']:.2f} us (torch.matmul "
+        f"{m1_rows['lm_head']['library_device_us']:.2f}; the CUDA-core kernel's head "
         f"took {B1_CUDA_CORE_HEAD_DEVICE_MS} ms of device time a decode step)")
 
     for use_kernel in (True, False):
@@ -668,35 +686,46 @@ def _rows(args, name, r0, r1):
     return tuple(a[r0:r1] if i < n_act else a for i, a in enumerate(args))
 
 
-# the LM path's shapes: B3 at M=1 (and the GQA width), B5 at M=1, B6 at M=32;
+# the LM path's shapes: B3 at M=1 (and the GQA width, and at M=5: the
+# 8-row tile of a chunk or a verify), B5 at M=1, B6 at M=32;
 # B5 at a speculative verify's M=9 on the tests' 512/1536, and B5 and B6 at
 # d=2048, H=8192 with M=9 (two row tiles: more items than the card holds
 # blocks, so blocks walk several items a phase)
 FUSED_SHAPES = [
     ("fused_norm_qkv", 1, 1024, 3072), ("fused_norm_qkv", 1, 1024, 1536),
-    ("fused_norm_qkv", 8, 1024, 3072), ("fused_block_tail", 1, 1024, 4096),
+    ("fused_norm_qkv", 8, 1024, 3072), ("fused_norm_qkv", 5, 1024, 3072),
+    ("fused_block_tail", 1, 1024, 4096),
     ("fused_block_tail", 8, 1024, 4096), ("fused_mlp", 32, 1024, 4096),
     ("fused_mlp", 1, 1024, 4096), ("fused_mlp", 3, 512, 1024),
     ("fused_block_tail", 9, 512, 1536), ("fused_block_tail", 9, 2048, 8192),
     ("fused_mlp", 9, 2048, 8192),
 ]
-# the device µs a call at the path shapes (bf16) of B3, B7 and the earlier
-# multi-launch B5 (three launches) and B6 (two), by the profiler: the median
-# of the earlier tree's four runs of ``--fused-ab`` on an NVIDIA H100 80GB
-# HBM3 at 700 W (PERF.md's B3, B5, B6 and B7 rows); logged in phases 9 and
-# 19 beside this run's own times
+# the device µs a call at the path shapes (bf16) of the earlier B3 and B7
+# (24 blocks of 128 columns) and multi-launch B5 (three launches) and B6
+# (two), by the profiler: the median of the earlier tree's four runs of
+# ``--fused-ab`` on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's B3, B5, B6
+# and B7 rows); logged in phases 9 and 19 beside this run's own times
 FUSED_PARENT_US = {"fused_norm_qkv": 11.50, "fused_block_tail": 34.84, "fused_mlp": 37.35,
                    "fused_norm_qkv_quant": 12.05}
 FUSED_DESIGN = ("one cooperative launch over the card; items fixed by the shapes in "
                 "phases between grid syncs; the earlier kernels' sums kept bitwise")
+QKV_DESIGN = ("one launch of one 32-column item a block, weight pieces issued before the "
+              "norm; B7's K/V span a thread block cluster sharing its absmax; the earlier "
+              "kernels' sums kept bitwise")
 
 
 # ``--fused-ab DIR``: B3, B7, B5 and B6 of this checkout against DIR's (an
 # earlier tree of the port, ``git archive <commit> | tar -x -C DIR``) at the
-# LM path's shapes, the rows of a chunk and of a speculative verify, and a
-# wider block: (kernel, M, d, N or H, compute dtype)
+# LM path's shapes, the rows of a chunk and of a speculative verify, a GQA
+# width, a wider head, B3 at the tail gate's most rows (four row tiles) and
+# a wider block: (kernel, M, d, N or H, compute dtype[, B7's head_dim, 128
+# if absent])
 FUSED_AB_CASES = [
     ("fused_norm_qkv", 1, 1024, 3072, "bf16"), ("fused_norm_qkv_quant", 1, 1024, 3072, "bf16"),
+    ("fused_norm_qkv", 5, 1024, 3072, "bf16"), ("fused_norm_qkv", 5, 1024, 3072, "f32"),
+    ("fused_norm_qkv_quant", 5, 1024, 3072, "bf16"),
+    ("fused_norm_qkv_quant", 5, 1024, 3072, "f32"), ("fused_norm_qkv", 1, 1024, 1536, "bf16"),
+    ("fused_norm_qkv_quant", 1, 1024, 3072, "bf16", 256), ("fused_norm_qkv", 32, 1024, 3072, "bf16"),
     ("fused_block_tail", 1, 1024, 4096, "bf16"), ("fused_block_tail", 1, 1024, 4096, "f32"),
     ("fused_block_tail", 5, 1024, 4096, "bf16"), ("fused_block_tail", 9, 512, 1536, "f32"),
     ("fused_block_tail", 1, 2048, 8192, "bf16"), ("fused_block_tail", 32, 1024, 4096, "bf16"),
@@ -723,11 +752,12 @@ def fused_side(out) -> int:
     spec.loader.exec_module(trace)
     dev = torch.device("cuda")
     outs = []
-    for i, (name, m, d, n, cdt) in enumerate(FUSED_AB_CASES):
+    for i, (name, m, d, n, cdt, *hd) in enumerate(FUSED_AB_CASES):
         gen = rng.make_generator(100 + i, dev)
         cdt = torch.bfloat16 if cdt == "bf16" else torch.float32
         if name == "fused_norm_qkv_quant":
-            args, kw = _b7_inputs(torch, gen, m, d, (n - d) // 256, 128, dev)
+            hd = hd[0] if hd else 128
+            args, kw = _b7_inputs(torch, gen, m, d, (n - d) // (2 * hd), hd, dev)
             kw["compute_dtype"] = cdt
         else:
             args, kw = _fused_inputs(torch, gen, name, m, d, n, dev), _kernel_kwargs(name, cdt)
@@ -808,7 +838,7 @@ def check_fused_kernels(torch, dev) -> dict:
                   f"err {err:.3e} > {lim:.3e}")
             if cdt == torch.bfloat16 and (m, d, n_or_h) == _path_shape(name):
                 path_err[name] = err
-        items = ""
+        items = f", {len(fk.qkv_blocks(d, n_or_h))} blocks a row tile"
         if name != "fused_norm_qkv":
             a = d if name == "fused_block_tail" else None
             grid = fk.items_grid(m, d, n_or_h, d, a, dev)
@@ -826,6 +856,7 @@ def check_fused_kernels(torch, dev) -> dict:
     check(float((y.float() - ref.float()).abs().max())
           <= 2.0 ** -7 * max(1.0, float(ref.float().abs().max())), "bf16 in/out fused_mlp")
     log("phase 6 passed: B3, B5, B6 agree with their plain versions")
+    check_qkv_rows(torch, dev, gen)
 
     for name in ("fused_norm_qkv", "fused_block_tail", "fused_mlp"):
         _, _, d, n_or_h = next(s for s in FUSED_SHAPES if s[0] == name)
@@ -856,13 +887,62 @@ def check_fused_kernels(torch, dev) -> dict:
     return path_err
 
 
+def check_qkv_rows(torch, dev, gen) -> None:
+    """Phase 7, B3 and B7 at M = 5 (the 8-row tile of a chunk or a verify):
+    every row bitwise the M = 1 call of that row, f32 and bf16."""
+    from smmb_tpu_torch.kernels import fused_mlp as fk
+
+    for cdt in (torch.float32, torch.bfloat16):
+        args = _fused_inputs(torch, gen, "fused_norm_qkv", 5, 1024, 3072, dev)
+        kw = _fused_kwargs("fused_norm_qkv", cdt)
+        chunk = fk.fused_norm_qkv(*args, **kw)
+        for r in range(5):
+            row = fk.fused_norm_qkv(*_rows(args, "fused_norm_qkv", r, r + 1), **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(chunk[r:r + 1], row), f"B3 row {r} of M=5 != M=1 ({cdt})")
+        for hd, kvh in ((128, 8), (256, 4)):
+            args, kw = _b7_inputs(torch, gen, 5, 1024, kvh, hd, dev)
+            kw["compute_dtype"] = cdt
+            chunk = fk.fused_norm_qkv_quant(*args, **kw)
+            for r in range(5):
+                one = fk.fused_norm_qkv_quant(args[0][r:r + 1], *args[1:], **kw)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a[r:r + 1], b) for a, b in zip(chunk, one)),
+                      f"B7 row {r} of M=5 != M=1 (hd {hd}, {cdt})")
+    log("B3 (1024x3072) and B7 (hd 128 and 256): every row of M=5 equals the M=1 call "
+        "bitwise, f32 and bf16")
+
+
+def _graph_probe(torch, fn, eager) -> str:
+    """Whether ``fn`` (one wrapper call) is captured in a CUDA graph, and,
+    if it is, that its replay is bitwise ``eager`` (checked)."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = fn()
+    except Exception as exc:
+        torch.cuda.synchronize()
+        return f"not captured: {type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
+    graph.replay()
+    torch.cuda.synchronize()
+    ys, es = (y, eager) if isinstance(y, tuple) else ((y,), (eager,))
+    check(all(torch.equal(a, b) for a, b in zip(ys, es)),
+          "a call replayed from a CUDA graph differs from the eager call")
+    return "captured and replayed, bitwise the eager call"
+
+
 def check_fused_launch(torch, dev, gen) -> None:
     """Phase 7, B5 and B6 as one cooperative launch: the output bitwise the
     same at the occupancy grid and at forced grids of 1, 7 and 33 blocks (a
     grid larger than the card holds refused with an error); one kernel event
-    a call in the profiler, the launch counter +1 a call; and a probe, logged,
-    of whether a B5 call can be captured in a CUDA graph, whose replay must
-    then be bitwise the eager call."""
+    a call in the profiler (B3 and B7 too), the launch counter +1 a call;
+    and probes, logged, of whether a B5, a B3 and a B7 call can be captured
+    in a CUDA graph, whose replay must then be bitwise the eager call."""
     from smmb_tpu_torch.bench.trace import kernel_breakdown
     from smmb_tpu_torch.kernels import fused_mlp as fk
 
@@ -888,9 +968,18 @@ def check_fused_launch(torch, dev, gen) -> None:
             refused = True
         check(refused, f"{name}: a grid of 2**20 blocks was not refused")
         log(f"{name} M={m} {d}x{n_or_h}: bitwise equal at grids 1, 7, 33 and {grid}")
-    for name, m, d, n_or_h in (("fused_block_tail", 1, 1024, 4096), ("fused_mlp", 32, 1024, 4096)):
+    one_kernel = {"fused_block_tail": "mlp_items_kernel", "fused_mlp": "mlp_items_kernel",
+                  "fused_norm_qkv": "qkv_items_kernel", "fused_norm_qkv_quant": "qkv_items_kernel"}
+    b7_args, b7_kw = _b7_inputs(torch, gen, 1, 1024, 8, 128, dev)
+    b7_kw["compute_dtype"] = bf16
+    for name, m, d, n_or_h in (("fused_block_tail", 1, 1024, 4096), ("fused_mlp", 32, 1024, 4096),
+                               ("fused_norm_qkv", 1, 1024, 3072),
+                               ("fused_norm_qkv_quant", 1, 1024, 3072)):
         fn = getattr(fk, name)
-        args, kw = _fused_inputs(torch, gen, name, m, d, n_or_h, dev), _kernel_kwargs(name, bf16)
+        if name == "fused_norm_qkv_quant":
+            args, kw = b7_args, b7_kw
+        else:
+            args, kw = _fused_inputs(torch, gen, name, m, d, n_or_h, dev), _kernel_kwargs(name, bf16)
         calls = [0]
 
         def call():
@@ -901,34 +990,21 @@ def check_fused_launch(torch, dev, gen) -> None:
         rows = kernel_breakdown(call, n_calls=5)
         check(fn.launches - before == calls[0], f"{name}: launches counted "
               f"{fn.launches - before} for {calls[0]} calls")
-        check([r["name"] for r in rows if "mlp_items_kernel" not in r["name"]] == []
+        check([r["name"] for r in rows if one_kernel[name] not in r["name"]] == []
               and sum(r["launches"] for r in rows) == 1, f"{name}: not one kernel a call: {rows}")
-    log("B5 and B6: one kernel event a call in the profiler, counted once a call")
+    log("B5, B6, B3 and B7: one kernel event a call in the profiler, counted once a call")
+    # the probes record whether the card captures a cooperative launch (B5)
+    # and a cluster launch (B7)
     args = _fused_inputs(torch, gen, "fused_block_tail", 1, 1024, 4096, dev)
     kw = _fused_kwargs("fused_block_tail", bf16)
-    eager = fk.fused_block_tail(*args, **kw)
-    try:  # the probe records whether the card captures a cooperative launch
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fk.fused_block_tail(*args, **kw)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            y = fk.fused_block_tail(*args, **kw)
-        captured = None
-    except Exception as exc:
-        torch.cuda.synchronize()
-        captured = f"{type(exc).__name__}: {str(exc).splitlines()[0][:200]}"
-    if captured is None:
-        graph.replay()
-        torch.cuda.synchronize()
-        check(torch.equal(y, eager), "B5 replayed from a CUDA graph differs from the eager call")
-        probe = "captured and replayed, bitwise the eager call"
-    else:
-        probe = f"not captured: {captured}"
-    print(json.dumps({"b5_cuda_graph": probe}), flush=True)
-    log(f"B5 in a CUDA graph: {probe}")
+    qkv = _fused_inputs(torch, gen, "fused_norm_qkv", 1, 1024, 3072, dev)
+    qkw = _fused_kwargs("fused_norm_qkv", bf16)
+    for key, fn in (("b5_cuda_graph", lambda: fk.fused_block_tail(*args, **kw)),
+                    ("b3_cuda_graph", lambda: fk.fused_norm_qkv(*qkv, **qkw)),
+                    ("b7_cuda_graph", lambda: fk.fused_norm_qkv_quant(*b7_args, **b7_kw))):
+        probe = _graph_probe(torch, fn, fn())
+        print(json.dumps({key: probe}), flush=True)
+        log(f"{key}: {probe}")
 
 
 def _path_shape(name):
@@ -1146,8 +1222,7 @@ def time_fused_kernels(torch, dev, spec, path_err, lm) -> list:
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "library_ms": t_lib * 1e3, "device_us": dev_k, "library_device_us": dev_lib,
         }
-        if name != "fused_norm_qkv":
-            row["design"] = FUSED_DESIGN
+        row["design"] = QKV_DESIGN if name == "fused_norm_qkv" else FUSED_DESIGN
         print(json.dumps({**row, "parent_device_us_recorded": FUSED_PARENT_US[name],
                           "shape": [m, d, n_or_h], "bytes": n_bytes,
                           "ops": ops, "mean_ms": t_kernel.mean_s * 1e3,
@@ -1408,13 +1483,14 @@ def run_flash_lm_path(torch, dev, lm) -> dict:
                "trace_call_us": tr["call_us"], "trace_kernel_us": tr["kernel_us"],
                "trace_busy_share": tr["busy_share"],
                "trace_flash_decode_us": _kernel_us(tr, "flash_decode_kernel"),
-               **_b5_step(tr)}
+               **_fused_step(tr)}
         print(json.dumps(row), flush=True)
         out[flash] = row
     log(f"phase 12 passed: flash step {out[True]['trace_launches']:.0f} launches, "
         f"{out[True]['trace_kernel_us']:.1f} us of device time (B4 "
         f"{out[True]['trace_flash_decode_us']:.1f}, B5 {out[True]['trace_b5_us']:.1f} in "
-        f"{out[True]['trace_b5_launches']:.0f} launches), busy "
+        f"{out[True]['trace_b5_launches']:.0f} launches, B3/B7 {out[True]['trace_qkv_us']:.1f} "
+        f"in {out[True]['trace_qkv_launches']:.0f}), busy "
         f"{out[True]['trace_busy_share']:.3f} (without flash "
         f"{out[False]['trace_launches']:.0f}, {out[False]['trace_kernel_us']:.1f} us, "
         f"{out[False]['trace_busy_share']:.3f})")
@@ -1698,7 +1774,8 @@ def time_bcsr_kernel(torch, dev, spec, errs, reference) -> list:
 # B7: (label, M, d, KVH, hd); N = d + 2·KVH·hd
 QUANT_QKV_SHAPES = [
     ("lm path", 1, 1024, 8, 128), ("GQA 8/2", 1, 1024, 2, 128), ("hd 256", 1, 1024, 4, 256),
-    ("M=8", 8, 1024, 8, 128),
+    ("M=8", 8, 1024, 8, 128), ("M=5", 5, 1024, 8, 128), ("M=5 hd 256", 5, 1024, 4, 256),
+    ("hd 512", 1, 1024, 2, 512),
 ]
 # B8: (label, B, H, KVH, S, pos, window); hd 128
 QUANT_DECODE_SHAPES = [
@@ -1968,13 +2045,14 @@ def run_int8_lm_path(torch, dev, lm) -> dict:
                "trace_launches": tr["launches"], "trace_call_us": tr["call_us"],
                "trace_kernel_us": tr["kernel_us"], "trace_busy_share": tr["busy_share"],
                "trace_flash_decode_us": _kernel_us(tr, "flash_decode_kernel"),
-               **_b5_step(tr)}
+               **_fused_step(tr)}
         print(json.dumps(row), flush=True)
         out[flash].update(row)
     log(f"phase 18 passed: int8 flash step {out[True]['trace_launches']:.0f} launches, "
         f"{out[True]['trace_kernel_us']:.1f} us of device time (B8 "
         f"{out[True]['trace_flash_decode_us']:.1f}, B5 {out[True]['trace_b5_us']:.1f} in "
-        f"{out[True]['trace_b5_launches']:.0f} launches), busy "
+        f"{out[True]['trace_b5_launches']:.0f} launches, B3/B7 {out[True]['trace_qkv_us']:.1f} "
+        f"in {out[True]['trace_qkv_launches']:.0f}), busy "
         f"{out[True]['trace_busy_share']:.3f} (without flash "
         f"{out[False]['trace_launches']:.0f}, {out[False]['trace_kernel_us']:.1f} us, "
         f"{out[False]['trace_busy_share']:.3f})")
@@ -2077,7 +2155,7 @@ def time_int8_kernels(torch, dev, spec, errs, int8) -> list:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
-    summary[0].update(device_us=rows[0]["device_us"],
+    summary[0].update(design=QKV_DESIGN, device_us=rows[0]["device_us"],
                       library_device_us=rows[0]["library_device_us"])
     summary[1].update(design=FLASH_DECODE_DESIGN, device_us=rows[1]["device_us"],
                       long_ms=rows[2]["ms"], long_device_us=rows[2]["device_us"])

@@ -15,22 +15,49 @@
 //        resid = x + s_wo (att . Wo) + b_wo;  h = rmsnorm(resid; g2, eps)
 //        y = resid + s_down (PReLU(s_up (h . Wup) + b_up) . Wdown) + b_down
 //
-// Design (first, simple version; CUDA cores only, no wgmma/TMA yet). At the
-// decode shapes (M = 1..32 rows, K = 1024) every product is a weight stream:
-// the bound is the packed bytes over the memory rate, so the kernels spread
-// the weight bytes over many blocks and read each byte once per row tile.
-//   * A block has 8 warps and owns MT rows (MT = 1 for M = 1, else 8) and
-//     128 output columns; lane l owns 4 consecutive columns and reads them
-//     as one 32-bit word per packed row. The activation rows are staged in
-//     shared memory in f32, already rounded to the compute dtype (the TPU
-//     kernel's cast before each dot).
-//   * K is split across the 8 warps of a block in a fixed way (warp w takes
-//     packed rows [w Kp/8, (w+1) Kp/8)); each warp sums its rows in order
-//     with f32 FMA (never TF32), and the 8 partial sums are added in warp
-//     order. The order of every sum depends on K and these constants only,
-//     never on M or on which rows share the call, so a row's result is
-//     bitwise the same at M = 1 and M = 8 (the speculative-decoding contract,
-//     smmb_tpu/kernels/fused_mlp.py:645-649). There are no atomics.
+// What bounds them on this card. At the decode shapes (M = 1..32 rows, K =
+// 1024) every product is a weight stream: at M = 1, B3 reads 0.786 MB of
+// packed Wqkv (1024 x 3072 at 2 bits a weight), 0.248 us at 3.35 TB/s, and
+// B5 2.4 MB. What a call costs on the device is latency: the launch, an L2
+// read of the weights, the staged rows and a 128-long FMA chain an output.
+// So the kernels spread the weight bytes over many blocks, keep each
+// block's chain short, and have a block's weight bytes in flight before it
+// stages its rows. CUDA cores only: tensor cores would change the sums.
+//   * A product item is (row tile, 32 output columns). A row tile is MT
+//     rows (MT = 1 for M = 1, else 8), staged in shared memory in f32,
+//     already rounded to the compute dtype (the TPU kernel's cast before
+//     each dot). The 8 warps of a 256-thread block take the 8 eighths of K
+//     (warp w: packed rows [w Kp/8, (w+1) Kp/8)), a lane one column; each
+//     warp sums its rows in order, the planes inside each, with f32 FMA
+//     (never TF32), and the block adds the 8 partial sums in warp order.
+//     The order of every sum depends on K and these constants only, never
+//     on M or on which rows share the call, so a row's result is bitwise
+//     the same at M = 1 and M = 8 (the speculative-decoding contract,
+//     smmb_tpu/kernels/fused_mlp.py:645-649). These are the sums of the
+//     port's first kernels (128-column blocks, a lane 4 columns read as one
+//     word), so every output is bitwise theirs. There are no atomics.
+//   * A warp's weight rows arrive by 16-byte cp.async pieces of 16 packed
+//     rows in a 4-deep ring (a 1024-row K in flight at once); a weight's
+//     float is built in the mantissa instead of by an int-to-float
+//     conversion, the same value.
+//   * B3 and B7 are one body, qkv_items_kernel<MT, QUANT>: a plain launch of
+//     one item a block, N / 32 blocks a row tile (96 at the LM's 1024 x
+//     3072, one wave on 132 SMs, where the first kernel ran 24 blocks of 128
+//     columns). A block issues its weight pieces first, then stages x in f32
+//     and takes its rows' RMSNorm (recomputed per block, in a fixed order)
+//     while they land. B7's blocks over the first d columns are B3's,
+//     writing q. A K/V span (one plane of one KV head, hd columns) is one
+//     thread block cluster of c = 8 blocks (4 where hd / 32 is not a
+//     multiple of 8), each summing hd / c of its columns in 32-column items
+//     and keeping its f32 y in shared memory. A block writes its rows'
+//     absmax into every block of the cluster (distributed shared memory),
+//     the cluster syncs once, and every block takes the maximum of the c
+//     values (exact in any order). Each
+//     block then writes the codes of its own columns with the IEEE
+//     __fdiv_rn and __float2int_rn (round half to even, as jnp.round), never
+//     roundf, a bare cast or a multiply by 1/127; the cluster's first block
+//     writes the scale. A cluster shares the span's absmax without a
+//     workspace, a grid sync or a cooperative launch; Hopper has them.
 //   * The TPU kernels carry the MLP's sum across a sequential grid axis of
 //     hidden slabs. Blocks on Hopper run in no order, so the hidden axis is
 //     cut into tiles of 128 units (32 packed rows of each of the 4 planes of
@@ -41,31 +68,10 @@
 //     phase's item count. Their phases (B5: wo, up, down, sum; B6: up, down,
 //     sum) are separated by grid syncs; each phase is a list of items fixed
 //     by the shapes, which block b takes in the contiguous range b/grid of,
-//     so no result depends on the grid size. A product item is 32 columns
-//     under the 8 warps' fixed K split (a lane a column: the 1024-column
-//     products make 32 to 128 items where the earlier 4-column lanes made 8
-//     to 32 blocks); a warp's weight rows arrive by 16-byte cp.async pieces
-//     in a ring (a 1024-row K in flight at once), and before each grid sync
-//     a block issues the copies of its first item of the next phase. The
+//     so no result depends on the grid size. Before each grid sync a block
+//     issues the weight copies of its first item of the next phase. The
 //     hidden layer goes to an f32 workspace, already in the compute dtype,
-//     between the up and down phases. Every sum is the one the earlier
-//     three- and two-launch kernels took (the same eighths, chains, warp
-//     order, tile order and epilogue order), so the outputs are bitwise
-//     theirs; a weight's float is built in the mantissa instead of by an
-//     int-to-float conversion, the same value. Workspaces come from the
-//     wrapper; there are no atomics.
-//   * Bound: at M = 1 each phase is a chain of latencies (an L2 read of the
-//     rows, a 128-long FMA chain, the sync); at M = 8..32 the f32 FMAs and
-//     the act and weight decode beside them on CUDA cores.
-//   * B7 is B3 plus a second kind of block. Its q-column blocks are B3's
-//     blocks over the first d columns. A K/V block owns one (plane, KV head)
-//     span of hd columns: hd = 256 spans two of B3's 128-column tiles, so it
-//     walks hd / 128 sub-tiles with B3's fixed K split (every y is bitwise
-//     B3's), keeping the warps' partial sums apart from the staged rows that
-//     each sub-tile reads again. It stages the span's f32 y in shared memory
-//     and takes each row's absmax (exact in any order); the scale and the
-//     codes use the IEEE __fdiv_rn and __float2int_rn (round half to even,
-//     as jnp.round), never roundf, a bare cast or a multiply by 1/127.
+//     between the up and down phases. Workspaces come from the wrapper.
 //   * B5's wo phase ends at a grid sync, so the RMSNorm over full rows sees
 //     every column before any up item reads h. Each block recomputes the
 //     norm of its rows from the f32 residual in a fixed order.
@@ -75,7 +81,7 @@
 //     rounding; rsqrt is the IEEE __frsqrt_rn (not the approximate rsqrtf).
 //   * Kernels allocate nothing, launch on the caller's stream and do not
 //     synchronise; each C entry returns the CUDA error of its launch (a
-//     refused cooperative launch included).
+//     refused cooperative or cluster launch included).
 
 #include <cooperative_groups.h>
 
@@ -90,7 +96,6 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;  // the fixed split of K inside a block
-constexpr int TILE_N = 128;          // output columns per block (4 per lane)
 constexpr int HT_PACKED = 32;        // packed rows of a hidden tile per plane
 constexpr int HT = 4 * HT_PACKED;    // hidden units per tile
 constexpr int MAX_SMEM = 232448;     // dynamic shared memory a block may use
@@ -111,78 +116,6 @@ __device__ __forceinline__ void store_elem(void* p, size_t i, float v,
 // the value a product sees: f32 as is, or rounded to bf16 (held in f32)
 __device__ __forceinline__ float to_compute(float v, int cbf16) {
   return cbf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-// columns col..col+3 of one packed row as a little-endian word (0 past n)
-__device__ __forceinline__ unsigned load_word(const int8_t* __restrict__ row,
-                                              int col, int n) {
-  if ((n & 3) == 0 && col + 3 < n)
-    return __ldg(reinterpret_cast<const unsigned*>(row + col));
-  unsigned w = 0;
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    if (col + q < n)
-      w |= static_cast<unsigned>(static_cast<uint8_t>(row[col + q])) << (8 * q);
-  return w;
-}
-
-// acc[r][q] += sum over packed rows p in [p0, p1) and planes i of
-// a[r][logical_row(p, i)] * W(p, col + q, field i), in that order.
-template <int MT>
-__device__ __forceinline__ void packed_dot(const float* __restrict__ a, int lda,
-                                           const int8_t* __restrict__ w, int n,
-                                           int col, int p0, int p1,
-                                           float (&acc)[MT][4]) {
-#pragma unroll 4
-  for (int p = p0; p < p1; ++p) {
-    const unsigned word = load_word(w + static_cast<size_t>(p) * n, col, n);
-    const int kb = logical_row(p, 0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float wv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) wv[q] = word_field(word, q, i);
-#pragma unroll
-      for (int r = 0; r < MT; ++r) {
-        const float xv = a[r * lda + kb + i * SUB];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(xv, wv[q], acc[r][q]);
-      }
-    }
-  }
-}
-
-// the K-split product of a block: warp w sums its packed rows of the (k, n)
-// plane for the 4 columns col..col+3 of its lane; the partials go to
-// red[w][r][lane * 4 + q] (red may alias a: a barrier separates the two).
-template <int MT>
-__device__ __forceinline__ void block_dot(float* a, int k,
-                                          const int8_t* __restrict__ w, int n,
-                                          int col, float* red) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kp = k / 4;
-  float acc[MT][4];
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-  packed_dot<MT>(a, k, w, n, col, warp * kp / WARPS, (warp + 1) * kp / WARPS,
-                 acc);
-  __syncthreads();  // every warp is done reading a
-#pragma unroll
-  for (int r = 0; r < MT; ++r)
-    *reinterpret_cast<float4*>(&red[(warp * MT + r) * TILE_N + lane * 4]) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  __syncthreads();
-}
-
-// the 8 warps' partial sums of output (r, c), added in warp order
-template <int MT>
-__device__ __forceinline__ float warp_sum(const float* red, int r, int c) {
-  float s = red[r * TILE_N + c];
-#pragma unroll
-  for (int wi = 1; wi < WARPS; ++wi) s = __fadd_rn(s, red[(wi * MT + r) * TILE_N + c]);
-  return s;
 }
 
 // inv[r] = rsqrt(sum_k v[r][k]^2 / d + eps) for the MT staged rows, in an
@@ -213,152 +146,6 @@ __device__ void row_rms(const float* v, int d, float eps, float* inv,
   __syncthreads();
 }
 
-// stage MT rows of a (m, k) matrix into a[r][k] as f32 rounded to the
-// compute dtype (zeros past m)
-template <int MT>
-__device__ void stage_rows(float* a, const void* src, int src_bf16, int m,
-                           int m0, int k, int cbf16) {
-  for (int idx = threadIdx.x; idx < MT * k; idx += THREADS) {
-    const int r = idx / k;
-    a[idx] = m0 + r < m ? to_compute(load_elem(src, static_cast<size_t>(m0) * k + idx,
-                                               src_bf16), cbf16)
-                        : 0.f;
-  }
-  __syncthreads();
-}
-
-// rows of h = rmsnorm(v; g, eps) in place, rounded to the compute dtype
-template <int MT>
-__device__ void norm_rows(float* v, int d, const float* __restrict__ g,
-                          float eps, float* inv, float* scratch, int cbf16) {
-  row_rms<MT>(v, d, eps, inv, scratch);
-  for (int idx = threadIdx.x; idx < MT * d; idx += THREADS) {
-    const int r = idx / d, k = idx - r * d;
-    v[idx] = to_compute(__fmul_rn(__fmul_rn(v[idx], inv[r]), g[k]), cbf16);
-  }
-  __syncthreads();
-}
-
-// shared memory of a block: MT rows of width k (reused for the warps'
-// partial sums), the hidden tile, and the norm's scratch
-template <int MT>
-size_t smem_bytes(int k) {
-  const int act = MT * k > WARPS * MT * TILE_N ? MT * k : WARPS * MT * TILE_N;
-  return sizeof(float) * (act + MT * HT + MT + WARPS * MT);
-}
-
-template <int MT>
-struct Smem {
-  float* act;      // MT x k staged rows, then the warps' partial sums
-  float* up;       // MT x HT hidden tile
-  float* inv;      // MT
-  float* scratch;  // WARPS x MT
-  __device__ Smem(float* base, int k) {
-    const int a = MT * k > WARPS * MT * TILE_N ? MT * k : WARPS * MT * TILE_N;
-    act = base;
-    up = base + a;
-    inv = up + MT * HT;
-    scratch = inv + MT;
-  }
-};
-
-// ---------------------------------------------------------------- B3
-template <int MT>
-__global__ void __launch_bounds__(THREADS)
-norm_qkv_kernel(const void* __restrict__ x, int x_bf16,
-                const float* __restrict__ g, const int8_t* __restrict__ w,
-                const float* __restrict__ scale, const float* __restrict__ bias,
-                void* __restrict__ out, int m, int d, int n, float eps,
-                int cbf16) {
-  extern __shared__ __align__(16) float smem[];
-  Smem<MT> s(smem, d);
-  const int m0 = blockIdx.y * MT, n0 = blockIdx.x * TILE_N;
-  stage_rows<MT>(s.act, x, x_bf16, m, m0, d, 0);  // the norm reads x in f32
-  norm_rows<MT>(s.act, d, g, eps, s.inv, s.scratch, cbf16);
-  block_dot<MT>(s.act, d, w, n, n0 + (threadIdx.x & 31) * 4, s.act);
-  for (int idx = threadIdx.x; idx < MT * TILE_N; idx += THREADS) {
-    const int r = idx / TILE_N, c = idx % TILE_N, col = n0 + c;
-    if (m0 + r >= m || col >= n) continue;
-    const float v = __fadd_rn(__fmul_rn(warp_sum<MT>(s.act, r, c), scale[col]),
-                              bias[col]);
-    store_elem(out, static_cast<size_t>(m0 + r) * n + col, v, x_bf16);
-  }
-}
-
-// ---------------------------------------------------------------- B7
-// shared memory of a B7 block: MT rows of width d, the warps' partial sums,
-// one span's MT x hd f32 y, the norm's inverse, the absmax scales and the
-// norm's scratch
-template <int MT>
-size_t quant_smem_bytes(int d, int hd) {
-  return sizeof(float) *
-         (static_cast<size_t>(MT) * d + WARPS * MT * TILE_N + MT * hd + 2 * MT + WARPS * MT);
-}
-
-template <int MT>
-__global__ void __launch_bounds__(THREADS)
-norm_qkv_quant_kernel(const void* __restrict__ x, int x_bf16,
-                      const float* __restrict__ g, const int8_t* __restrict__ w,
-                      const float* __restrict__ scale, const float* __restrict__ bias,
-                      void* __restrict__ q_out, int8_t* __restrict__ codes,
-                      float* __restrict__ scales, int m, int d, int n, int kvh, int hd,
-                      float eps, int cbf16) {
-  extern __shared__ __align__(16) float smem[];
-  float* act = smem;                      // MT x d staged rows
-  float* red = act + MT * d;              // WARPS x MT x TILE_N partial sums
-  float* ys = red + WARPS * MT * TILE_N;  // MT x hd: one span's f32 y
-  float* inv = ys + MT * hd;              // MT
-  float* qsc = inv + MT;                  // MT: the span's scales
-  float* scratch = qsc + MT;              // WARPS x MT
-  const int m0 = blockIdx.y * MT, q_tiles = d / TILE_N;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  stage_rows<MT>(act, x, x_bf16, m, m0, d, 0);  // the norm reads x in f32
-  norm_rows<MT>(act, d, g, eps, inv, scratch, cbf16);
-  if (static_cast<int>(blockIdx.x) < q_tiles) {  // B3's block over q columns
-    const int n0 = blockIdx.x * TILE_N;
-    block_dot<MT>(act, d, w, n, n0 + lane * 4, red);
-    for (int idx = threadIdx.x; idx < MT * TILE_N; idx += THREADS) {
-      const int r = idx / TILE_N, c = idx % TILE_N, col = n0 + c;
-      if (m0 + r >= m) continue;
-      const float v = __fadd_rn(__fmul_rn(warp_sum<MT>(red, r, c), scale[col]), bias[col]);
-      store_elem(q_out, static_cast<size_t>(m0 + r) * d + col, v, x_bf16);
-    }
-    return;
-  }
-  // slot 2 h + plane of the interleave: KV head h's k (plane 0) or v span
-  const int slot = blockIdx.x - q_tiles, kh = slot >> 1, plane = slot & 1;
-  const int span0 = d + plane * kvh * hd + kh * hd;
-  for (int t = 0; t < hd; t += TILE_N) {
-    // block_dot's first barrier orders these reads of red before its writes
-    block_dot<MT>(act, d, w, n, span0 + t + lane * 4, red);
-    for (int idx = threadIdx.x; idx < MT * TILE_N; idx += THREADS) {
-      const int r = idx / TILE_N, c = idx % TILE_N, col = span0 + t + c;
-      ys[r * hd + t + c] =
-          __fadd_rn(__fmul_rn(warp_sum<MT>(red, r, c), scale[col]), bias[col]);
-    }
-  }
-  __syncthreads();
-  for (int r = warp; r < MT; r += WARPS) {
-    float a = 0.f;
-    for (int c = lane; c < hd; c += 32) a = fmaxf(a, fabsf(ys[r * hd + c]));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
-    if (lane == 0) qsc[r] = __fdiv_rn(a, 127.f);
-  }
-  __syncthreads();
-  const int row_codes = 2 * kvh * hd;
-  for (int r = threadIdx.x; r < MT; r += THREADS)
-    if (m0 + r < m) scales[static_cast<size_t>(m0 + r) * 2 * kvh + slot] = qsc[r];
-  for (int idx = threadIdx.x; idx < MT * hd; idx += THREADS) {
-    const int r = idx / hd, c = idx - r * hd;
-    if (m0 + r >= m) continue;
-    const float safe = qsc[r] > 0.f ? qsc[r] : 1.f;
-    codes[static_cast<size_t>(m0 + r) * row_codes + slot * hd + c] =
-        static_cast<int8_t>(__float2int_rn(__fdiv_rn(ys[idx], safe)));
-  }
-}
-
 // ------------------------------------------------- B6 / B5: one launch
 // A call is one cooperative launch; its work is a list of items in phases
 // separated by grid syncs. The items of a row tile depend on the shapes
@@ -384,6 +171,8 @@ constexpr int RING = 4;           // pieces of a warp in flight
 constexpr int RING_BYTES = WARPS * RING * PIECE_BYTES;
 constexpr int DOWN_COLS = THREADS;  // columns of a down item: one a thread
 constexpr int SUM_COLS = 32;        // columns of a sum item: a warp a row, a lane a column
+constexpr int MAX_CLUSTER = 8;      // blocks of a K/V span's cluster (B7): the portable most
+constexpr int HEAD_COLS = 4 * ITEM_COLS;  // B7's head widths are multiples: 4 items or more
 constexpr int STAGE_BATCH = 8;      // row loads a thread has in flight while staging
 // tile partials a thread has in flight while summing: all 32 of H = 4096 at
 // one row, fewer at 8 rows, where the registers are short
@@ -445,9 +234,9 @@ __device__ __forceinline__ float4 load_quad(const void* p, size_t i, int bf16) {
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
-// stage_rows' values (MT rows of src from row m0 into a, rounded to the
-// compute dtype, zeros past m) with STAGE_BATCH 4-element loads of each
-// thread in flight before any is stored; src's rows are 16-byte aligned
+// MT rows of a (m, k) matrix from row m0 into a[r][k], in f32 rounded to
+// the compute dtype (zeros past m), with STAGE_BATCH 4-element loads of
+// each thread in flight before any is stored; src's rows are 16-byte aligned
 template <int MT>
 __device__ void stage_quads(float* a, const void* src, int src_bf16, int m, int m0,
                             int k, int cbf16) {
@@ -473,7 +262,7 @@ __device__ void stage_quads(float* a, const void* src, int src_bf16, int m, int 
   __syncthreads();
 }
 
-// block_dot's sums over one ITEM_COLS-column chunk of a (k, n) plane: warp
+// the product sums over one ITEM_COLS-column chunk of a (k, n) plane: warp
 // w takes packed rows [w Kp/8, (w+1) Kp/8), lane l column c0 + l, one fmaf
 // chain per staged row over the packed rows in order and the planes inside
 // each. The warp's rows arrive by 16-byte cp.async pieces of PIECE_ROWS
@@ -610,9 +399,9 @@ __device__ __forceinline__ void down_start(const MlpArgs& p, int t, int c0, uint
   smmb_mma::cp_async_commit();
 }
 
-// norm_rows' values (rmsnorm of the MT staged rows in place, rounded to the
-// compute dtype) with row_rms's sums, the scaling by 4-element steps;
-// g is 16-byte aligned
+// rows of h = rmsnorm(v; g, eps) in place over the MT staged rows, rounded
+// to the compute dtype, with row_rms's sums and the scaling by 4-element
+// steps; g is 16-byte aligned
 template <int MT>
 __device__ void norm_quads(float* v, int d, const float* __restrict__ g, float eps,
                            float* inv, float* scratch, int cbf16) {
@@ -784,6 +573,124 @@ __global__ void __launch_bounds__(THREADS, MT == 1 ? 1 : 2) mlp_items_kernel(con
   }
 }
 
+// ------------------------------------------------------ B3 / B7: items
+// One launch of one item a block (kernels/fused_mlp.py::qkv_blocks lists
+// them): blockIdx.y is the row tile, blockIdx.x the block of the row tile.
+// B3: block x sums columns [32 x, 32 x + 32) of Wqkv. B7: blocks x < d / 32
+// are B3's over the q columns; the rest are the K/V spans' clusters in slot
+// order (slot 2 h + plane: KV head h's k or v span), rank j of a span's c
+// blocks summing its columns [j hd / c, (j + 1) hd / c) a chunk at a time.
+struct QkvArgs {
+  const void* x;  // (m, d) rows, 16-byte aligned
+  int x_bf16;
+  const float* g;             // (d,) norm gain, 16-byte aligned
+  const int8_t* w;            // packed (d, n), 16-byte aligned
+  const float *scale, *bias;  // (n,)
+  void* out;                  // B3: (m, n); B7: q (m, d); in x's dtype
+  int8_t* codes;              // B7: (m, 2 kvh hd)
+  float* scales;              // B7: (m, 2 kvh)
+  int m, d, n, kvh, hd;
+  float eps;
+  int cbf16;
+};
+
+// blocks of a K/V span's cluster: MAX_CLUSTER where they split its hd / 32
+// items evenly, else half (hd is a multiple of HEAD_COLS)
+__host__ __device__ constexpr int span_cluster(int hd) {
+  return hd / ITEM_COLS % MAX_CLUSTER == 0 ? MAX_CLUSTER : MAX_CLUSTER / 2;
+}
+
+// shared memory of a block (hd 0 for B3): items_smem_bytes' rows, rings and
+// scratch, and B7's f32 y of the block's hd / c span columns, its rows'
+// scales and the c blocks' absmax of each row
+template <int MT>
+size_t qkv_smem_bytes(int d, int hd) {
+  const size_t quant =
+      hd ? static_cast<size_t>(MT) * (hd / span_cluster(hd) + 1 + span_cluster(hd)) : 0;
+  return items_smem_bytes<MT>(d) + sizeof(float) * quant;
+}
+
+// output (r, c) of the chunk at column c0: the eighths in warp order, then
+// (sum * scale) + bias
+template <int MT>
+__device__ __forceinline__ float qkv_out(const QkvArgs& p, const float* red, int r, int c,
+                                         int c0) {
+  return __fadd_rn(__fmul_rn(chunk_sum<MT>(red, r, c), p.scale[c0 + c]), p.bias[c0 + c]);
+}
+
+// A block issues its item's weight pieces first and stages and normalizes
+// its rows while they land. A K/V block pushes its rows' absmax into every
+// block of its cluster before the one cluster barrier, so that no block
+// reads another's shared memory after it (a block may then exit).
+template <int MT, bool QUANT>
+__global__ void __launch_bounds__(THREADS) qkv_items_kernel(const QkvArgs p) {
+  extern __shared__ __align__(16) float smem[];
+  float* act = smem;
+  uint8_t* ring = reinterpret_cast<uint8_t*>(smem + MT * p.d);
+  float* red = reinterpret_cast<float*>(ring);
+  float* inv = reinterpret_cast<float*>(ring + RING_BYTES);
+  float* scratch = inv + MT;
+  const int m0 = blockIdx.y * MT, q_items = (QUANT ? p.d : p.n) / ITEM_COLS;
+  // thread (r, c) < (MT, ITEM_COLS) takes output (m0 + r, c0 + c) of a chunk
+  const int r = threadIdx.x / ITEM_COLS, c = threadIdx.x % ITEM_COLS;
+  if (static_cast<int>(blockIdx.x) < q_items) {  // B3's item; B7's q columns
+    const int c0 = blockIdx.x * ITEM_COLS;
+    chunk_start(p.d, p.w, p.n, c0, ring);
+    stage_quads<MT>(act, p.x, p.x_bf16, p.m, m0, p.d, 0);  // the norm reads x in f32
+    norm_quads<MT>(act, p.d, p.g, p.eps, inv, scratch, p.cbf16);
+    chunk_dot<MT>(act, p.d, p.w, p.n, c0, ring, red);
+    if (r < MT && m0 + r < p.m)
+      store_elem(p.out, static_cast<size_t>(m0 + r) * q_items * ITEM_COLS + c0 + c,
+                 qkv_out<MT>(p, red, r, c, c0), p.x_bf16);
+    return;
+  }
+  if constexpr (QUANT) {  // a K/V span's block
+    cg::cluster_group cluster = cg::this_cluster();
+    const int cs = span_cluster(p.hd), own = p.hd / cs;
+    const int s = blockIdx.x - q_items, slot = s / cs, rank = s % cs;
+    const int first = p.d + (slot & 1) * p.kvh * p.hd + (slot >> 1) * p.hd + rank * own;
+    float* ys = scratch + WARPS * MT;  // MT x own: y of the block's columns, f32
+    float* qsc = ys + MT * own;        // MT: the span's scales
+    float* amax = qsc + MT;            // cs x MT: each block's absmax of each row
+    for (int j = 0; j < own; j += ITEM_COLS) {
+      if (j) __syncthreads();  // the last chunk's epilogue is done with red
+      chunk_start(p.d, p.w, p.n, first + j, ring);
+      if (!j) {
+        stage_quads<MT>(act, p.x, p.x_bf16, p.m, m0, p.d, 0);
+        norm_quads<MT>(act, p.d, p.g, p.eps, inv, scratch, p.cbf16);
+      }
+      chunk_dot<MT>(act, p.d, p.w, p.n, first + j, ring, red);
+      if (r < MT) ys[r * own + j + c] = qkv_out<MT>(p, red, r, c, first + j);
+    }
+    __syncthreads();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int rr = warp; rr < MT; rr += WARPS) {
+      float a = 0.f;
+      for (int cc = lane; cc < own; cc += 32) a = fmaxf(a, fabsf(ys[rr * own + cc]));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
+      if (lane < cs) cluster.map_shared_rank(amax, lane)[rank * MT + rr] = a;
+    }
+    cluster.sync();  // every block of the span holds every block's absmax
+    if (threadIdx.x < MT) {
+      float a = 0.f;
+      for (int k = 0; k < cs; ++k) a = fmaxf(a, amax[k * MT + threadIdx.x]);
+      qsc[threadIdx.x] = __fdiv_rn(a, 127.f);
+    }
+    __syncthreads();
+    if (rank == 0 && threadIdx.x < MT && m0 + static_cast<int>(threadIdx.x) < p.m)
+      p.scales[static_cast<size_t>(m0 + threadIdx.x) * 2 * p.kvh + slot] = qsc[threadIdx.x];
+    const int row_codes = 2 * p.kvh * p.hd;
+    for (int idx = threadIdx.x; idx < MT * own; idx += THREADS) {
+      const int rr = idx / own, cc = idx - rr * own;
+      if (m0 + rr >= p.m) continue;
+      const float safe = qsc[rr] > 0.f ? qsc[rr] : 1.f;
+      p.codes[static_cast<size_t>(m0 + rr) * row_codes + slot * p.hd + rank * own + cc] =
+          static_cast<int8_t>(__float2int_rn(__fdiv_rn(ys[idx], safe)));
+    }
+  }
+}
+
 // above 48 KB a block's dynamic shared memory must be allowed per kernel
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -793,40 +700,6 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 bool bad_rows(int m, int mt) { return m <= 0 || (m + mt - 1) / mt > 65535; }
-
-template <int MT>
-int norm_qkv(const void* x, int x_bf16, const void* g, const void* w,
-             const void* scale, const void* bias, void* out, int m, int d,
-             int n, float eps, int cbf16, cudaStream_t stream) {
-  const size_t smem = smem_bytes<MT>(d);
-  if (smem > MAX_SMEM || bad_rows(m, MT)) return cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(norm_qkv_kernel<MT>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((n + TILE_N - 1) / TILE_N, (m + MT - 1) / MT);
-  norm_qkv_kernel<MT><<<grid, THREADS, smem, stream>>>(
-      x, x_bf16, static_cast<const float*>(g), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias), out,
-      m, d, n, eps, cbf16);
-  return cudaGetLastError();
-}
-
-template <int MT>
-int norm_qkv_quant(const void* x, int x_bf16, const void* g, const void* w,
-                   const void* scale, const void* bias, void* q_out, void* codes,
-                   void* scales, int m, int d, int n, int kvh, int hd, float eps,
-                   int cbf16, cudaStream_t stream) {
-  const size_t smem = quant_smem_bytes<MT>(d, hd);
-  if (smem > MAX_SMEM || bad_rows(m, MT)) return cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(norm_qkv_quant_kernel<MT>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(d / TILE_N + 2 * kvh, (m + MT - 1) / MT);
-  norm_qkv_quant_kernel<MT><<<grid, THREADS, smem, stream>>>(
-      x, x_bf16, static_cast<const float*>(g), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<const float*>(bias), q_out,
-      static_cast<int8_t*>(codes), static_cast<float*>(scales), m, d, n, kvh, hd, eps,
-      cbf16);
-  return cudaGetLastError();
-}
 
 // the blocks of a kernel that fit the current device at once: the grid a
 // cooperative launch may have
@@ -873,6 +746,59 @@ int mlp_items_rows(const MlpArgs& a, int grid, cudaStream_t stream) {
   return a.m == 1 ? mlp_items<1, TAIL>(a, grid, stream) : mlp_items<8, TAIL>(a, grid, stream);
 }
 
+// one launch of the B3 (QUANT false) or B7 kernel: (blocks of a row tile,
+// row tiles), B7's in clusters of span_cluster(hd) blocks (a K/V span each;
+// the q items' clusters never sync). A refused launch's error is returned
+// and cleared, so the library's next launch does not report it.
+template <int MT, bool QUANT>
+int qkv_items(const QkvArgs& a, cudaStream_t stream) {
+  const size_t smem = qkv_smem_bytes<MT>(a.d, QUANT ? a.hd : 0);
+  if (smem > MAX_SMEM || bad_rows(a.m, MT)) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(qkv_items_kernel<MT, QUANT>, smem);
+  if (e == cudaSuccess) {
+    const int cs = QUANT ? span_cluster(a.hd) : 1;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = cs;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(QUANT ? a.d / ITEM_COLS + 2 * a.kvh * cs : a.n / ITEM_COLS,
+                       (a.m + MT - 1) / MT);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = cluster;
+    cfg.numAttrs = QUANT ? 1 : 0;
+    e = cudaLaunchKernelEx(&cfg, qkv_items_kernel<MT, QUANT>, a);
+  }
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? e : last;
+}
+
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
+
+QkvArgs qkv_args(const void* x, int x_bf16, const void* g, const void* w, const void* scale,
+                 const void* bias, void* out, int m, int d, int n, float eps, int cbf16) {
+  QkvArgs a{};
+  a.x = x;
+  a.x_bf16 = x_bf16;
+  a.g = static_cast<const float*>(g);
+  a.w = static_cast<const int8_t*>(w);
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.out = out;
+  a.m = m, a.d = d, a.n = n;
+  a.eps = eps;
+  a.cbf16 = cbf16;
+  return a;
+}
+
+bool bad_qkv(const void* x, const void* g, const void* w, int d, int n) {
+  return d <= 0 || d % GROUP_ROWS || n <= 0 || n % ITEM_COLS || misaligned(x) ||
+         misaligned(g) || misaligned(w);
+}
+
 }  // namespace
 
 // All matrices are row-major and contiguous; packed planes are
@@ -882,35 +808,35 @@ int mlp_items_rows(const MlpArgs& a, int grid, cudaStream_t stream) {
 // norm gains and qkv scale vectors are f32. The output has x's dtype. Each
 // entry returns the CUDA error of its launch (0 on success).
 
-// B3: out (m, n) = (rmsnorm(x) . w) * scale + bias; d % 512 == 0.
+// B3: out (m, n) = (rmsnorm(x) . w) * scale + bias; d % 512 == 0,
+// n % 32 == 0; x, g and w 16-byte aligned.
 extern "C" int smmb_fused_norm_qkv(const void* x, int x_bf16, const void* g,
                                    const void* w, const void* scale,
                                    const void* bias, void* out, int m, int d,
                                    int n, float eps, int cbf16, void* stream) {
-  if (d <= 0 || d % GROUP_ROWS || n <= 0) return cudaErrorInvalidValue;
+  if (bad_qkv(x, g, w, d, n)) return cudaErrorInvalidValue;
+  const QkvArgs a = qkv_args(x, x_bf16, g, w, scale, bias, out, m, d, n, eps, cbf16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return m == 1 ? norm_qkv<1>(x, x_bf16, g, w, scale, bias, out, m, d, n, eps,
-                              cbf16, s)
-                : norm_qkv<8>(x, x_bf16, g, w, scale, bias, out, m, d, n, eps,
-                              cbf16, s);
+  return m == 1 ? qkv_items<1, false>(a, s) : qkv_items<8, false>(a, s);
 }
 
 // B7: q_out (m, d) = B3's first d columns, in x's dtype; codes (m, 2 kvh hd)
 // int8 and scales (m, 2 kvh) f32 of the K and V columns, slot 2 h + plane;
-// n = d + 2 kvh hd, d % 512 == 0, hd % 128 == 0.
+// n = d + 2 kvh hd, d % 512 == 0, hd % 128 == 0; x, g and w 16-byte aligned.
 extern "C" int smmb_fused_norm_qkv_quant(const void* x, int x_bf16, const void* g,
                                          const void* w, const void* scale,
                                          const void* bias, void* q_out, void* codes,
                                          void* scales, int m, int d, int n, int kvh,
                                          int hd, float eps, int cbf16, void* stream) {
-  if (d <= 0 || d % GROUP_ROWS || kvh <= 0 || hd <= 0 || hd % TILE_N ||
+  if (bad_qkv(x, g, w, d, n) || kvh <= 0 || hd <= 0 || hd % HEAD_COLS ||
       n != d + 2 * kvh * hd)
     return cudaErrorInvalidValue;
+  QkvArgs a = qkv_args(x, x_bf16, g, w, scale, bias, q_out, m, d, n, eps, cbf16);
+  a.codes = static_cast<int8_t*>(codes);
+  a.scales = static_cast<float*>(scales);
+  a.kvh = kvh, a.hd = hd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return m == 1 ? norm_qkv_quant<1>(x, x_bf16, g, w, scale, bias, q_out, codes, scales,
-                                    m, d, n, kvh, hd, eps, cbf16, s)
-                : norm_qkv_quant<8>(x, x_bf16, g, w, scale, bias, q_out, codes, scales,
-                                    m, d, n, kvh, hd, eps, cbf16, s);
+  return m == 1 ? qkv_items<1, true>(a, s) : qkv_items<8, true>(a, s);
 }
 
 // B6: out (m, kout) = (PReLU(s_up (x . wu) + b_up) . wd) * s_down + b_down;

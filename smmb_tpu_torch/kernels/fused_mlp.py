@@ -14,13 +14,16 @@ Replaces the Pallas TPU kernels of ``smmb_tpu/kernels/fused_mlp.py``:
 
 The kernels are ``csrc/fused_mlp.cu``, built with ``nvcc`` for ``sm_90a`` at
 first use (``_build.py``) and called through ctypes. Their design (a fixed
-split of K over the 8 warps of a block, the hidden axis cut into tiles of 128
-units with one f32 partial each, summed in tile order, no atomics) is
-described in the source. B6 and B5 are one cooperative launch each over as
-many blocks as fit the card, walking lists of work items fixed by the shapes
-(``work_items``) in phases separated by grid syncs; their workspaces
-(``workspace_shapes``) come from here. At the decode shapes every product is
-bound by the packed weight bytes.
+split of K over the 8 warps of a block, 32-column product items, the hidden
+axis cut into tiles of 128 units with one f32 partial each, summed in tile
+order, no atomics) is described in the source. B3 and B7 are one launch of
+one item a block (``qkv_blocks``), B7's K/V spans each a thread block
+cluster of ``span_cluster(hd)`` blocks that share the span's absmax. B6 and
+B5 are one cooperative launch each over as many blocks as fit the card,
+walking lists of work items fixed by the shapes (``work_items``) in phases
+separated by grid syncs; their workspaces (``workspace_shapes``) come from
+here. At the decode shapes every product is bound by the packed weight
+bytes.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs the
 plain version. There is no fallback from one to the other. Each wrapper adds
@@ -48,13 +51,16 @@ DOWN_COLS = 256  # output columns of a B5/B6 down item (one a thread)
 SUM_COLS = 32  # output columns of a B5/B6 sum item (a warp a row, a lane a column)
 PIECE_ROWS = 16  # packed rows of a warp's 16-byte cp.async piece
 RING = 4  # pieces a warp keeps in flight
+MAX_CLUSTER = 8  # blocks of a B7 K/V span's cluster (the portable most)
+HEAD_COLS = 128  # B7's head widths are multiples of 4 items
 
 
 def shared_bytes(k: int) -> int:
-    """Shared memory of one block of the kernels for activation rows of
-    width ``k``: the (8, k) f32 rows (reused for the 8 warps' (8, 128)
-    partial sums), the (8, 128) hidden tile, and the norm's scratch
-    (``smem_bytes`` in csrc/fused_mlp.cu)."""
+    """The routes' shared-memory formula for activation rows of width ``k``:
+    the port's first fused block's (8, k) f32 rows (reused for the 8 warps'
+    (8, 128) partial sums), an (8, 128) hidden tile and the norm's scratch.
+    It stays the gates' limit; every width it admits fits the blocks of
+    today's kernels (``items_shared_bytes``, ``qkv_shared_bytes``)."""
     m = ROWS_PER_BLOCK
     return 4 * (max(m * k, 8 * m * 128) + m * HIDDEN_TILE + m + 8 * m)
 
@@ -131,11 +137,10 @@ def workspace_shapes(m: int, h: int, kout: int, tail: bool) -> dict[str, tuple]:
 
 
 def quant_shared_bytes(d: int, hd: int) -> int:
-    """Shared memory of one B7 block: the (8, d) f32 rows, the 8 warps'
-    (8, 128) partial sums (kept apart from the rows, which every 128-column
-    sub-tile of a head reads again), the (8, hd) f32 y of one head's span,
-    and the norm's and the absmax's scratch (``quant_smem_bytes`` in
-    csrc/fused_mlp.cu)."""
+    """B7's route formula: the port's first B7 block's (8, d) f32 rows, the
+    8 warps' (8, 128) partial sums, the (8, hd) f32 y of one head's span,
+    and the norm's and the absmax's scratch. It stays the gate's limit and
+    implies today's block (``qkv_shared_bytes``)."""
     m = ROWS_PER_BLOCK
     return 4 * (m * d + 8 * m * HIDDEN_TILE + m * hd + 2 * m + 8 * m)
 
@@ -144,6 +149,48 @@ def fits_shared_quant(d: int, hd: int) -> bool:
     """Hopper limit of B7 (d ≤ 6000 at hd 128), in place of JAX's 6 MiB VMEM
     cap on the whole packed plane."""
     return quant_shared_bytes(d, hd) <= MAX_SHARED_BYTES
+
+
+def span_cluster(head_dim: int) -> int:
+    """Blocks of B7's thread block cluster over one K/V span of ``head_dim``
+    columns: ``MAX_CLUSTER`` where they split its 32-column items evenly,
+    else half (``head_dim`` is a multiple of ``HEAD_COLS``: 4 items)."""
+    return MAX_CLUSTER if head_dim // ITEM_COLS % MAX_CLUSTER == 0 else MAX_CLUSTER // 2
+
+
+def qkv_blocks(d: int, n: int, kv_heads: int | None = None,
+               head_dim: int | None = None) -> list[tuple]:
+    """The blocks of one row tile of B3 (``kv_heads`` None) or B7, in the
+    order of ``blockIdx.x``: ``(slot, rank, chunks)``, where ``chunks`` are
+    the (c0, c1) columns of Wqkv the block sums in turn, each by the 8
+    ``eighths`` of K. B3's blocks and B7's q blocks: slot None, rank 0, one
+    chunk. B7's K/V blocks: slot 2·h + plane (KV head h's k or v span),
+    rank j of the span's ``span_cluster`` blocks, the span's j-th share of
+    its columns. A function of the shapes alone: M multiplies the list by
+    its row tiles."""
+    if kv_heads is None:
+        return [(None, 0, [(c, c + ITEM_COLS)]) for c in range(0, n, ITEM_COLS)]
+    cs = span_cluster(head_dim)
+    own = head_dim // cs
+    blocks = [(None, 0, [(c, c + ITEM_COLS)]) for c in range(0, d, ITEM_COLS)]
+    for slot in range(2 * kv_heads):
+        span0 = d + (slot & 1) * kv_heads * head_dim + (slot >> 1) * head_dim
+        for rank in range(cs):
+            first = span0 + rank * own
+            blocks.append((slot, rank, [(c, c + ITEM_COLS)
+                                        for c in range(first, first + own, ITEM_COLS)]))
+    return blocks
+
+
+def qkv_shared_bytes(d: int, m: int = ROWS_PER_BLOCK, head_dim: int = 0) -> int:
+    """Shared memory of one B3 (``head_dim`` 0) or B7 block for rows of
+    width ``d``: ``items_shared_bytes``' rows, rings and scratch, and B7's
+    f32 y of the block's ``head_dim / span_cluster`` span columns, its rows'
+    scales and the cluster's blocks' absmax of each row (``qkv_smem_bytes``
+    in csrc/fused_mlp.cu)."""
+    cs = span_cluster(head_dim) if head_dim else 0
+    quant = item_rows(m) * (head_dim // cs + 1 + cs) if head_dim else 0
+    return items_shared_bytes(d, m) + 4 * quant
 
 
 def _check_float(name, compute_dtype):
@@ -175,25 +222,21 @@ def _vec(v: torch.Tensor, dev) -> torch.Tensor:
     return v.to(device=dev, dtype=torch.float32).contiguous()
 
 
-def _words(w: TernaryPacked, dev, align: int = 4) -> torch.Tensor:
-    data = w.data
-    if data.device != dev or data.dtype != torch.int8:
-        raise ValueError("packed planes must be int8 tensors on x's device")
-    data = data.contiguous()
-    return data if data.data_ptr() % align == 0 else data.clone()
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte aligned address (B5's and B6's rows are
-    read 16 bytes at a time)."""
+    """``t`` contiguous at a 16-byte aligned address (the kernels read rows
+    and the norm gains 16 bytes at a time)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _items_words(w: TernaryPacked, dev) -> torch.Tensor:
-    """A plane for B5's and B6's 16-byte copies: 16-byte aligned, its rows
-    padded with zero columns to a multiple of 16 bytes."""
-    data = _words(w, dev, 16)
+    """A plane for the kernels' 16-byte copies: 16-byte aligned, its rows
+    padded with zero columns to a multiple of 16 bytes (B3's and B7's N is
+    a multiple of 128, so theirs are never padded)."""
+    data = w.data
+    if data.device != dev or data.dtype != torch.int8:
+        raise ValueError("packed planes must be int8 tensors on x's device")
+    data = _aligned(data)
     pad = -data.shape[1] % 16
     return torch.nn.functional.pad(data, (0, pad)) if pad else data
 
@@ -280,7 +323,7 @@ def fused_norm_qkv(
     not be a power of two (1536 under GQA). Returns (M, N) in x.dtype. A
     row's result does not depend on the other rows of the call.
     ``block_n`` is the TPU kernel's column tile, checked as JAX checks it;
-    the CUDA kernel's tile is fixed and gives the same result.
+    the CUDA kernel's items are fixed and give the same result.
     """
     _check_float("fused_norm_qkv", compute_dtype)
     m, d = x.shape
@@ -299,9 +342,9 @@ def fused_norm_qkv(
     if x.dtype not in FLOAT_DTYPES:
         raise TypeError(f"fused_norm_qkv takes f32 or bf16 x, got {x.dtype}")
     dev = x.device
-    xc, g = x.contiguous(), _vec(norm_g, dev)
+    xc, g = _aligned(x), _aligned(_vec(norm_g, dev))
     sc, b = _vec(qkv_scale, dev), _vec(bqkv, dev)
-    w = _words(wqkv, dev)
+    w = _items_words(wqkv, dev)
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return out
@@ -384,8 +427,8 @@ def fused_norm_qkv_quant(
         raise ValueError(f"x {tuple(x.shape)} / wqkv {wqkv.shape} / g {tuple(norm_g.shape)}")
     if n != d + 2 * kvd:
         raise ValueError(f"N={n} != d_model + 2·kv_dim = {d + 2 * kvd}")
-    if d % GROUP_ROWS or head_dim % 128:
-        raise ValueError(f"D={d} % {GROUP_ROWS} or head_dim={head_dim} % 128 != 0")
+    if d % GROUP_ROWS or head_dim % HEAD_COLS:
+        raise ValueError(f"D={d} % {GROUP_ROWS} or head_dim={head_dim} % {HEAD_COLS} != 0")
     if tuple(qkv_scale.shape) != (n,) or tuple(bqkv.shape) != (n,):
         raise ValueError(f"bad scale/bias shapes for N={n}")
     kw = dict(eps=eps, d_model=d_model, kv_heads=kv_heads, head_dim=head_dim,
@@ -395,9 +438,9 @@ def fused_norm_qkv_quant(
     if x.dtype not in FLOAT_DTYPES:
         raise TypeError(f"fused_norm_qkv_quant takes f32 or bf16 x, got {x.dtype}")
     dev = x.device
-    xc, g = x.contiguous(), _vec(norm_g, dev)
+    xc, g = _aligned(x), _aligned(_vec(norm_g, dev))
     sc, b = _vec(qkv_scale, dev), _vec(bqkv, dev)
-    w = _words(wqkv, dev)
+    w = _items_words(wqkv, dev)
     q = torch.empty((m, d), dtype=x.dtype, device=dev)
     codes = torch.empty((m, 2 * kvd), dtype=torch.int8, device=dev)
     scales = torch.empty((m, 2 * kv_heads), dtype=torch.float32, device=dev)

@@ -236,6 +236,36 @@ def test_fused_kernel_row_identity(cuda, cdt, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [3072, 1536])
+def test_fused_norm_qkv_rows_of_m5_equal_the_m1_calls(cuda, cdt, n):
+    """B3 at M=5 (the 8-row tile of a chunk or a verify): every row bitwise
+    the M=1 call on that row."""
+    args, kw = _fused_args("fused_norm_qkv", 13, 5, 1024, n, cuda)
+    chunk = fk.fused_norm_qkv(*args, compute_dtype=cdt, **kw)
+    for r in range(5):
+        one = fk.fused_norm_qkv(args[0][r:r + 1], *args[1:], compute_dtype=cdt, **kw)
+        assert torch.equal(chunk[r:r + 1], one), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["B3", "B7"])
+def test_qkv_items_one_launch_per_call(cuda, quant):
+    """B3 and B7 are one kernel a call (B7's a cluster launch), and the
+    counter rises once a call."""
+    if quant:
+        args, kw = _b7_args(4, 1, 1024, 8, 128, cuda)
+        fn = fk.fused_norm_qkv_quant
+    else:
+        args, kw = _fused_args("fused_norm_qkv", 4, 1, 1024, 3072, cuda)
+        fn = fk.fused_norm_qkv
+    rows, counted = _counted_breakdown(fn, lambda: fn(*args, compute_dtype=torch.bfloat16, **kw))
+    assert counted
+    assert [r["name"] for r in rows if "qkv_items_kernel" not in r["name"]] == []
+    assert sum(r["launches"] for r in rows) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 def test_fused_items_rows_equal_the_m1_call(cuda, cdt):
     """B6 at the prefill's M=32 and B5 at a verify's M=9: rows bitwise the
     M=1 calls (two row tiles and a one-row tile walk the same items)."""
@@ -587,8 +617,13 @@ def _b7_args(seed, m, d, kvh, hd, dev, x_dtype=torch.float32):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,d,kvh,hd", [(1, 1024, 8, 128), (1, 1024, 2, 128),
-                                        (5, 1024, 4, 256), (9, 512, 2, 128)])
+                                        (5, 1024, 4, 256), (9, 512, 2, 128),
+                                        (5, 1024, 8, 128), (1, 512, 1, 512),
+                                        (2, 512, 1, 384)])
 def test_fused_norm_qkv_quant_matches_plain(cuda, cdt, m, d, kvh, hd):
+    """B7 against its plain version; its q bitwise B3's output (at hd 256
+    and 512 too) and its codes bitwise the quantize of B3's f32 y; every row
+    of the call bitwise the M=1 call of that row."""
     args, kw = _b7_args(m + kvh, m, d, kvh, hd, cuda)
     before = fk.fused_norm_qkv_quant.launches
     q, codes, scales = fk.fused_norm_qkv_quant(*args, compute_dtype=cdt, **kw)
@@ -602,8 +637,9 @@ def test_fused_norm_qkv_quant_matches_plain(cuda, cdt, m, d, kvh, hd):
     assert_close(q, pq, FUSED_TOL[cdt] * max(1.0, float(pq.abs().max())), "B7 q")
     assert int((codes.int() - pcodes.int()).abs().max()) <= 1
     assert_close(scales, pscales, 1e-5 * float(pscales.abs().max()), "B7 scales")
-    one = fk.fused_norm_qkv_quant(args[0][:1], *args[1:], compute_dtype=cdt, **kw)
-    assert all(torch.equal(a[:1], b) for a, b in zip((q, codes, scales), one))
+    for r in range(m):
+        one = fk.fused_norm_qkv_quant(args[0][r:r + 1], *args[1:], compute_dtype=cdt, **kw)
+        assert all(torch.equal(a[r:r + 1], b) for a, b in zip((q, codes, scales), one)), r
 
 
 def _int8_cache(rs, b, s, kvh, n, dev):

@@ -130,7 +130,10 @@ def test_kernel_constants_match_the_wrapper():
 
     assert const("THREADS") == "256" and const("WARPS") == "THREADS / 32"
     assert 256 // 32 == tfk.WARPS
-    assert int(const("TILE_N")) == 128
+    # B3's and B7's 128-column tile went with their first kernels; a head
+    # width is a multiple of 4 items, a K/V span a cluster of at most 8
+    assert const("HEAD_COLS") == "4 * ITEM_COLS" and tfk.HEAD_COLS == 128
+    assert int(const("MAX_CLUSTER")) == tfk.MAX_CLUSTER == 8
     assert const("HT") == "4 * HT_PACKED" and 4 * int(const("HT_PACKED")) == tfk.HIDDEN_TILE
     assert int(const("ITEM_COLS")) == tfk.ITEM_COLS
     assert int(const("PIECE_ROWS")) == tfk.PIECE_ROWS
