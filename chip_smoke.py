@@ -8,8 +8,9 @@ which exits non-zero on failure:
 2. build every CUDA kernel of the path from the sources in the checkout,
    and count the HMMA and IMMA instructions in B1's SASS (``cuobjdump``):
    its bf16 and W2A8 modes run on ``mma.sync``, so both must be there; and
-   the HMMA in ``flash_attention.cu``'s SASS (B9's and B9p's bf16 body),
-   with the registers and spills ``ptxas -v`` gives its mma kernels,
+   the HMMA in ``flash_attention.cu``'s SASS (B9's and B9p's bf16 body)
+   and in ``bcsr_spmm.cu``'s (B2's mma body), with the registers and spills
+   ``ptxas -v`` gives their mma kernels, each ``bcsr_spmm_mma`` instance,
    ``flash_decode.cu``'s kernels (B4 and B8), B5's and B6's
    ``mlp_items_kernel`` and B3's and B7's ``qkv_items_kernel``;
 3. each kernel against its plain PyTorch version on the card, in every
@@ -23,7 +24,8 @@ which exits non-zero on failure:
    ``__graft_entry__.entry()`` ((1024, 2048, 2048, 1024), batch 64, f32),
    each against the plain path;
 5. times through ``bench/measure.py`` (CUDA events): per mode at the
-   headline shape the kernel, its bound, the plain version and one PyTorch
+   headline shape the kernel, its bound (f32 under ``"f32_ternary"``, f32 X
+   times a ternary W), the plain version and one PyTorch
    library call on the same inputs, beside the recorded times of B1's
    earlier CUDA-core kernel; B1 at
    M = 1 on the headline's W and at the LM head's 1×1024×8192, each beside
@@ -80,20 +82,29 @@ which exits non-zero on failure:
     ``scaled_dot_product_attention``, beside the recorded times of B9's
     earlier CUDA-core bf16 body and of B4's unsplit kernel at pos 8191; B4's
     blocks, and its and SDPA's device time alone (the profiler);
-14. B2 (BCSR block SpMM) against its plain version in f32 and bf16: the
+14. B2 (BCSR block SpMM) against its plain version in f32 and bf16, with
+    the route ``bcsr_route`` picks logged at each shape (the mma body for
+    r % 64 == 0, the CUDA-core body for the 4- and 8-row blocks): the
     tests' 8×128 blocks (both ``x_resident`` values bitwise equal), 128×128
-    blocks at M = 100, M = 140 with ``block_m`` = 64, the empty matrix (no
-    launch, the activated bias), the showcase's largest case and the
-    block-sparse shape, each call with blocks raising its launch count by
-    one;
+    blocks at M = 100, M = 140 with ``block_m`` = 64, 64×128 and 256×128
+    blocks, the empty matrix (no launch, the activated bias), the
+    showcase's largest case, the block-sparse shape and the showcase's M = 1,
+    each call with blocks raising its launch count by one; at the two M = 256
+    shapes rows of M = 2 ... 256 and every tile bitwise the M = 1 calls (f32
+    and bf16), and f32 within absolute ``TOL_DENSE`` of ``ops.dense.gemm``;
 15. the reference-benchmark path: ``run_showcase()`` over all five
     showcase cases (every row valid and timed, ``bcsr_kernel`` in each),
     one ``run_sweep`` slice (one case per density) and the capacity case
     64000×16384×4096 at 1/2 density through B1's stream, with the CSV rows
-    as JSON lines and the peak device memory;
-16. times of B2 at the showcase's largest case and the block-sparse shape,
-    f32 and bf16: kernel, plain version, bound, and ``torch.matmul`` on the
-    dense W;
+    as JSON lines (each ``bcsr_kernel`` row's ``max_err`` logged) and the
+    peak device memory;
+16. times of B2 at the showcase's largest case, the block-sparse shape and
+    the showcase's M = 64 and M = 1, f32 and bf16: kernel, plain version,
+    bound (f32 under ``"f32_ternary"``, the CUDA cores' f32 bound beside it),
+    and ``torch.matmul`` on the dense W, per call and on the device alone
+    (the profiler), beside the CUDA-core body's recorded ``BCSR_PARENT_MS``;
+    and B2's device time under every tile of its mma body, each tile's
+    output bitwise the wrapper's;
 17. the int8 cache's kernels against their plain versions in f32 and bf16:
     B7 (norm + QKV with the int8 K/V epilogue) at the LM shape, at GQA
     (N = 1536), at hd 256 and 512 (a span's cluster of 8 blocks, one and two
@@ -365,6 +376,17 @@ def main() -> int:
     fa_hmma = _sass(_build.library_path("flash_attention.cu")).count("HMMA")
     log(f"flash_attention.cu SASS: {fa_hmma} HMMA")
     check(fa_hmma > 0, "B9's bf16 body has no HMMA in its SASS")
+    # B2's mma body (128x128 blocks, f32 in three bf16 passes) runs on mma.sync
+    b2_hmma = _sass(_build.library_path("bcsr_spmm.cu")).count("HMMA")
+    log(f"bcsr_spmm.cu SASS: {b2_hmma} HMMA")
+    check(b2_hmma > 0, "B2's mma body has no HMMA in its SASS")
+    if "bcsr_spmm.cu" in build_logs:
+        for (bm, bn, f32), regs, stores, loads in _ptxas_kernels(
+                build_logs["bcsr_spmm.cu"], r"bcsr_spmm_mmaILi(\d+)ELi(\d+)ELb([01])E"):
+            log(f"B2 bcsr_spmm_mma<{bm}x{bn}, {'f32 split' if f32 == '1' else 'bf16'}>: "
+                f"{regs} registers, {stores} bytes spill stores, {loads} bytes spill loads")
+    else:
+        log("bcsr_spmm.cu was up to date: no ptxas report this run")
     if "flash_attention.cu" in build_logs:
         for (hd, pipe), regs, stores, loads in _ptxas_kernels(
                 build_logs["flash_attention.cu"], r"flash_prefill_mma_kernelILi(\d+)ELb([01])E"):
@@ -525,8 +547,10 @@ def main() -> int:
         t_plain = measure(lambda: packed_spmm_plain(hx, hp, hb, ALPHA, compute_dtype=cdt))
         lib_fn, lib_args = library[name]
         t_lib = measure(lib_fn, *lib_args)
-        bound_s, bound_by = roofline_bound(sparse_flops(m, n, nnz), n_bytes, spec, name)
-        dense_s, dense_by = roofline_bound(2.0 * m * n * k, n_bytes, spec, name)
+        # f32 X times the ternary W: the card's rate is bf16's over three passes
+        peak = "f32_ternary" if name == "f32" else name
+        bound_s, bound_by = roofline_bound(sparse_flops(m, n, nnz), n_bytes, spec, peak)
+        dense_s, dense_by = roofline_bound(2.0 * m * n * k, n_bytes, spec, peak)
         per_mode[name] = {
             "mode": name, "shape": [m, k, n], "nnz": nnz, "max_abs_err": max_err,
             "ms": t_kernel.min_s * 1e3, "cuda_core_ms": B1_CUDA_CORE_MS[name],
@@ -1621,20 +1645,45 @@ BCSR_SHAPES = [
     ("test 8x128 blocks", 16, 512, 512, 8, 128, 0.3, 2, 256),
     ("128x128 blocks, M=100", 100, 512, 1024, 128, 128, 0.4, 2, 256),
     ("M=140, block_m=64", 140, 256, 512, 8, 128, 0.3, 2, 64),
+    ("64x128 blocks", 8, 512, 512, 64, 128, 0.5, 2, 256),
+    ("256x128 blocks", 5, 1024, 512, 256, 128, 0.5, 2, 256),
     ("showcase 256x1024x4096", 256, 1024, 4096, 128, 128, 1.0, 2, 256),
     ("block-sparse 256x4096x4096", 256, 4096, 4096, 128, 128, 0.3, 10, 256),
+    ("showcase 64x1024x4096", 64, 1024, 4096, 128, 128, 1.0, 2, 256),
+    ("showcase 1x1024x4096", 1, 1024, 4096, 128, 128, 1.0, 2, 256),
 ]
+# the shapes phase 16 times; the first is the main path's (the showcase's
+# largest case, f32, as run_showcase runs it)
+BCSR_TIMED = ("showcase 256x1024x4096", "block-sparse 256x4096x4096", "showcase 64x1024x4096",
+              "showcase 1x1024x4096")
+# B2's times before its tensor-core redesign: the CUDA-core body, measured
+# by this script's phase 16 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's
+# B2 row); recorded, not measured by this run, so phase 16's rows carry them
+# as ``parent_ms_recorded`` and the kernels line leaves them out
+BCSR_PARENT_MS = {("showcase 256x1024x4096", "f32"): 0.1329,
+                  ("showcase 256x1024x4096", "bf16"): 0.1303,
+                  ("block-sparse 256x4096x4096", "f32"): 0.2068,
+                  ("block-sparse 256x4096x4096", "bf16"): 0.2089}
+BCSR_DESIGN = ("128x128 blocks: mma.sync, f32 X split into three exact bf16 passes, "
+               "per-block hi and mid+lo sums folded with __fadd_rn; bf16 one pass; "
+               "4- and 8-row blocks: CUDA cores")
 
 
 def check_bcsr_kernel(torch, dev) -> dict:
     """Phase 14. Returns {(label, dtype): max abs error with bias and PReLU}."""
     from smmb_tpu_torch.formats.bcsr import bcsr_from_dense
     from smmb_tpu_torch.kernels.bcsr_spmm import (
+        MMA_TILES,
+        _launch,
         bcsr_prepare,
+        bcsr_route,
         bcsr_spmm_kernel,
         bcsr_spmm_kernel_plain,
+        bcsr_tile,
     )
+    from smmb_tpu_torch.ops.dense import gemm
     from smmb_tpu_torch.utils import rng
+    from smmb_tpu_torch.utils.compare import TOL_DENSE
 
     # tolerances, relative to max(1, max|Y|): f32 1e-4 (exact products
     # summed in f32 in another order than the plain version's product);
@@ -1642,10 +1691,13 @@ def check_bcsr_kernel(torch, dev) -> dict:
     # one bf16 ulp)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
     gen = rng.make_generator(55, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     errs = {}
     for label, m, k, n, r, c, keep, nz, block_m in BCSR_SHAPES:
-        _, prep, b = _bcsr_case(torch, gen, k, n, r, c, keep, nz, dev)
+        w, prep, b = _bcsr_case(torch, gen, k, n, r, c, keep, nz, dev)
         check(prep.k > 0, f"B2 {label}: no stored block")
+        route = bcsr_route(r, c)
+        check(route == ("mma" if r % 64 == 0 else "cuda_core"), f"B2 route {label}")
         for dt in (torch.float32, torch.bfloat16):
             x = rng.rand_dense(gen, (m, k), dtype=dt)
             for bias, alpha in ((b, ALPHA), (None, None)):
@@ -1662,8 +1714,36 @@ def check_bcsr_kernel(torch, dev) -> dict:
                                              x_resident=resident)
                     torch.cuda.synchronize()
                     check(torch.equal(again, y), f"B2 x_resident={resident} != default {what}")
+            if route == "mma" and m == 256:
+                # no split of K: rows of M-row calls are the M=1 calls, bitwise,
+                # under the tile bcsr_tile picks and under every tile at M=256
+                ones = torch.cat([bcsr_spmm_kernel(x[i:i + 1], prep, b, ALPHA)
+                                  for i in range(m)])
+                for rows in (2, 5, 16, 17, 64, 256):
+                    y = bcsr_spmm_kernel(x[:rows], prep, b, ALPHA)
+                    torch.cuda.synchronize()
+                    check(torch.equal(y, ones[:rows]), f"B2 rows of M={rows} != M=1 "
+                          f"calls {label} {dt} (tile {bcsr_tile(rows, n, c, sms)})")
+                for tile in MMA_TILES:  # the C entry under a forced tile
+                    y = _launch(x, prep, b, ALPHA, tile)
+                    torch.cuda.synchronize()
+                    check(torch.equal(y, ones), f"B2 tile {tile} != M=1 calls {label} {dt}")
+            if route == "mma" and m == 256 and dt == torch.float32:
+                # the showcase's own check: absolute TOL_DENSE against the dense
+                # oracle (an f32 product with its own rounding; the f64 one beside)
+                y = bcsr_spmm_kernel(x, prep, b)
+                dense_err = float((y - gemm(x, w, b)).abs().max())
+                check(dense_err <= TOL_DENSE, f"B2 {label} f32 vs gemm: {dense_err:.3e} > "
+                      f"TOL_DENSE {TOL_DENSE}")
+                exact_err = float((y.double() - (x.double() @ w.double() + b.double()))
+                                  .abs().max())
+                log(f"B2 {label} f32: max abs err {dense_err:.3e} against gemm "
+                    f"(TOL_DENSE {TOL_DENSE}), {exact_err:.3e} against the f64 product; "
+                    "rows of M = 2..256 and every tile bitwise the M=1 calls in f32 and bf16")
         log(f"B2 == plain at {label} (M={m}, K={k}, N={n}, {r}x{c} blocks, "
-            f"{prep.k} stored) in f32 and bf16; x_resident bitwise")
+            f"{prep.k} stored; route {route}"
+            + (f", tile {bcsr_tile(m, n, c, sms)}" if route == "mma" else "")
+            + ") in f32 and bf16; x_resident bitwise")
     # the empty matrix: no launch, the activated bias
     prep = bcsr_prepare(bcsr_from_dense(torch.zeros(256, 256), 8, 128, device=dev), device=dev)
     b = torch.arange(256, dtype=torch.float32, device=dev) - 128.0
@@ -1702,6 +1782,8 @@ def run_reference_benchmark(torch, dev) -> dict:
     launches = {fn.__name__: fn.launches for fn in counted}
     log(f"showcase: {len(results)} rows in {time.time() - t:.1f}s, launches {launches}")
     held(results, "showcase")
+    log("showcase bcsr_kernel max_err: " + ", ".join(
+        f"{r.case} {r.max_err:.3e}" for r in results if r.kernel == "bcsr_kernel"))
     cases = [f"{m}x{k}x{n}@0.50" for m, k, n in sweep.SHOWCASE_CASES]
     for case in cases:
         names = {r.kernel for r in results if r.case == case}
@@ -1710,7 +1792,10 @@ def run_reference_benchmark(torch, dev) -> dict:
     showcase_b2 = {r.case: r for r in results if r.kernel == "bcsr_kernel"}
 
     t = time.time()
-    held(sweep.run_sweep(ms=[64], ks=[1024], ns=[2048], reps=3), "sweep")
+    swept = sweep.run_sweep(ms=[64], ks=[1024], ns=[2048], reps=3)
+    held(swept, "sweep")
+    log("sweep bcsr_kernel max_err: " + ", ".join(
+        f"{r.case} {r.max_err:.3e}" for r in swept if r.kernel == "bcsr_kernel"))
     log(f"sweep slice (64x1024x2048 at 1/2, 1/8, 1/16) in {time.time() - t:.1f}s")
 
     t = time.time()
@@ -1724,16 +1809,31 @@ def run_reference_benchmark(torch, dev) -> dict:
 
 
 def time_bcsr_kernel(torch, dev, spec, errs, reference) -> list:
-    """Phase 16: B2 at the showcase's largest case and the block-sparse shape."""
+    """Phase 16: B2 at the showcase's largest case, the block-sparse shape and
+    the showcase's M=64 and M=1, f32 and bf16: per call and on the device
+    alone (the profiler), beside ``torch.matmul`` on the dense W and the
+    CUDA-core body's recorded ``BCSR_PARENT_MS``; and on the device under
+    every tile of the mma body through its C entry, each tile's output
+    bitwise the wrapper's (one K walk for every tile)."""
     from smmb_tpu_torch.bench.measure import measure
     from smmb_tpu_torch.bench.roofline import roofline_bound
-    from smmb_tpu_torch.kernels.bcsr_spmm import bcsr_spmm_kernel, bcsr_spmm_kernel_plain
+    from smmb_tpu_torch.kernels.bcsr_spmm import (
+        MMA_TILES,
+        _launch,
+        bcsr_route,
+        bcsr_spmm_kernel,
+        bcsr_spmm_kernel_plain,
+        bcsr_tile,
+    )
     from smmb_tpu_torch.utils import rng
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = rng.make_generator(8, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = {s[0]: s for s in BCSR_SHAPES}
     rows = []
-    for label, m, k, n, r, c, keep, nz, _ in BCSR_SHAPES[3:]:
+    for label in BCSR_TIMED:
+        _, m, k, n, r, c, keep, nz, _ = shapes[label]
         w, prep, b = _bcsr_case(torch, gen, k, n, r, c, keep, nz, dev)
         nnz = int(torch.count_nonzero(w))
         for dt, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -1743,21 +1843,52 @@ def time_bcsr_kernel(torch, dev, spec, errs, reference) -> list:
             wd = w.to(dt)
             t_l = measure(torch.matmul, x, wd)
             out = bcsr_spmm_kernel(x, prep, b, ALPHA)
+            by_tile = {}
+            for tile in MMA_TILES:
+                y = _launch(x, prep, b, ALPHA, tile)
+                torch.cuda.synchronize()
+                check(torch.equal(y, out), f"B2 tile {tile} != the wrapper's at {label} {name}")
+                by_tile[f"{tile[0]}x{tile[1]}"] = _device_us(
+                    lambda t=tile: _launch(x, prep, b, ALPHA, t))
             n_bytes = sum(t.numel() * t.element_size()
                           for t in (x, prep.values, prep.blk_row, prep.col_start, b, out))
             ops = 2.0 * m * nnz  # the ±1 entries this data holds, per row
-            bound, by = roofline_bound(ops, n_bytes, spec, name)
+            # f32 X times the ternary W: three exact bf16 passes on the tensor
+            # cores; the CUDA cores' f32 rate beside it, as the parent was bound
+            bound, by = roofline_bound(ops, n_bytes, spec,
+                                       "f32_ternary" if name == "f32" else name)
             rows.append({"kernel": "B2 bcsr_spmm_kernel", "shape": label, "dtype": name,
+                         "route": bcsr_route(r, c), "tile": list(bcsr_tile(m, n, c, sms)),
                          "stored_blocks": prep.k, "nnz": nnz, "ms": t_k.min_s * 1e3,
                          "mean_ms": t_k.mean_s * 1e3, "plain_ms": t_p.min_s * 1e3,
+                         "device_us": _device_us(lambda: bcsr_spmm_kernel(x, prep, b, ALPHA)),
+                         "parent_ms_recorded": BCSR_PARENT_MS.get((label, name)),
+                         "device_us_by_tile": by_tile,
                          "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes,
                          "ops": ops, "executed_ops": 2.0 * m * prep.k * r * c,
                          "library_ms": t_l.min_s * 1e3,
+                         "library_device_us": _device_us(lambda: torch.matmul(x, wd)),
                          "library": f"torch.matmul {name} on the dense W"
                                     + (" (TF32 off)" if name == "f32" else "")})
+            if name == "f32":
+                cc, cc_by = roofline_bound(ops, n_bytes, spec, "f32")
+                rows[-1].update(cuda_core_bound_ms=cc * 1e3, cuda_core_bound_by=cc_by)
             print(json.dumps(rows[-1]), flush=True)
     main_row = rows[0]  # the showcase's largest case in f32, as the showcase runs it
-    log("phase 16 passed: B2 timed at the showcase and block-sparse shapes")
+    log("B2 ms now / the CUDA-core body's (device us; torch.matmul ms, device us): "
+        + "; ".join(f"{r['shape']} {r['dtype']} {r['ms']:.4f} / {r['parent_ms_recorded']} "
+                    f"({r['device_us']:.2f}; {r['library_ms']:.4f}, "
+                    f"{r['library_device_us']:.2f})" for r in rows))
+    picks = []
+    for r in rows:
+        pick = "x".join(map(str, r["tile"]))
+        best = min(r["device_us_by_tile"], key=r["device_us_by_tile"].get)
+        picks.append(f"{r['shape']} {r['dtype']} {pick} {r['device_us_by_tile'][pick]:.2f} "
+                     f"(fastest {best} {r['device_us_by_tile'][best]:.2f})")
+    log("B2 device us under bcsr_tile's pick, outputs bitwise across tiles: "
+        + "; ".join(picks))
+    log("phase 16 passed: B2 timed at the showcase, block-sparse, M=64 and M=1 shapes, "
+        "and under every tile")
     return [{
         "name": "bcsr_spmm_kernel", "route": "cuda",
         "source": "smmb_tpu_torch/kernels/csrc/bcsr_spmm.cu",
@@ -1766,7 +1897,8 @@ def time_bcsr_kernel(torch, dev, spec, errs, reference) -> list:
         "max_abs_err": errs[("showcase 256x1024x4096", torch.float32)],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
+        "library_ms": main_row["library_ms"], "design": BCSR_DESIGN,
+        "device_us": main_row["device_us"],
     }]
 
 

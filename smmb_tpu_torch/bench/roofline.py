@@ -6,8 +6,12 @@ full power limit; a card set below it runs slower under load, so every
 measurement states the card's power limit beside it. The spec is chosen by
 ``torch.cuda.get_device_name()``; an unknown card raises rather than guess.
 
-f32 parity mode has no tensor-core path (TF32 is excluded), so its ceiling
-is the f32 rate of the CUDA cores.
+f32 work whose operands are both f32 (attention) has no tensor-core path
+(TF32 is excluded), so its ceiling is the f32 rate of the CUDA cores. f32
+activations times a ternary operand do: W ∈ {-1, 0, +1} is exact in bf16
+and an f32 X splits exactly into three bf16 pieces, so three bf16 passes
+give the exact products (kernel B2's mma body), and its ceiling,
+``"f32_ternary"``, is the bf16 rate over three.
 """
 
 from __future__ import annotations
@@ -26,9 +30,13 @@ class ChipSpec:
     fp32_tflops: float  # f32 on CUDA cores (no tensor cores), TFLOP/s
 
     def peak_ops(self, dtype: str) -> float:
-        """Peak operations/s for ``dtype`` in {"bf16", "int8", "f32"}."""
+        """Peak operations/s for ``dtype`` in {"bf16", "int8", "f32",
+        "f32_ternary"}. ``"f32_ternary"`` is f32 X times a ternary W: exact
+        on the tensor cores as three bf16 passes (x = hi + mid + lo, each a
+        bf16, W ±1/0), so a third of the bf16 rate, where ``"f32"`` (both
+        operands f32, no TF32) is the CUDA cores' rate."""
         tera = {"bf16": self.bf16_tflops, "int8": self.int8_tops,
-                "f32": self.fp32_tflops}[dtype]
+                "f32": self.fp32_tflops, "f32_ternary": self.bf16_tflops / 3}[dtype]
         return tera * 1e12
 
 

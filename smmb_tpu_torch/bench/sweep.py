@@ -22,8 +22,13 @@ counterpart here); ``tcsc_padded`` stays its own row.
 
 Times come from ``bench.measure.measure`` (CUDA events, ``min_s``). The
 roofline fraction keeps JAX's formula: 2·M·N·K operations at the peak of
-the row's dtype ("bf16" in its name, else f32) against X, W, bias and Y
-bytes, through ``bench.roofline.roofline_bound``.
+the row's dtype against X, W, bias and Y bytes, through
+``bench.roofline.roofline_bound``, at the rate ``row_ceiling`` names: a
+row with "bf16" in its name takes the bf16 rate and a ``w2a8`` row (int8 X
+on the int8 tensor cores) the int8 rate; every other row multiplies f32 X
+by the ternary W, which the card does exactly as three bf16 passes, so it
+takes ``"f32_ternary"`` (the bf16 rate over three; JAX's f32 CUDA-core
+ceiling would let B2's mma body read above 1).
 
 CLI: ``python -m smmb_tpu_torch {showcase,sweep} [--csv out.csv] ...``
 (runs on the card).
@@ -186,6 +191,16 @@ def row_tolerance(name: str, oracle) -> float:
     return TOL_DENSE
 
 
+def row_ceiling(name: str) -> str:
+    """The ``ChipSpec.peak_ops`` key of a row's work: "bf16" for bf16 rows,
+    "int8" for W2A8 rows, else "f32_ternary" (f32 X times the ternary W)."""
+    if "bf16" in name:
+        return "bf16"
+    if "w2a8" in name:
+        return "int8"
+    return "f32_ternary"
+
+
 def _error(case, name, what, e) -> None:
     print(f"[{case}] {name}: {what} {type(e).__name__}: {str(e)[:120]}",
           file=sys.stderr, flush=True)
@@ -255,8 +270,7 @@ def run_case(
             continue
         t_best = meas.min_s
         byt = spmm_bytes(m, n, k, weight_bytes=wbytes)
-        sol, _ = roofline_bound(2.0 * m * n * k, byt, spec,
-                                "bf16" if "bf16" in name else "f32")
+        sol, _ = roofline_bound(2.0 * m * n * k, byt, spec, row_ceiling(name))
         out.append(CaseResult(
             case, name, True, cmp.max_abs_err, t_best, work, work / t_best,
             nnz * m / t_best, sol / t_best, dispatch_bound=t_best < DISPATCH_FLOOR_S,

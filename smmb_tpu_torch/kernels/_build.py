@@ -117,7 +117,7 @@ def bcsr_spmm_lib() -> ctypes.CDLL:
     """``bcsr_spmm.cu`` (B2)."""
     return _load("bcsr_spmm.cu", {"smmb_bcsr_spmm": [
         _P, _I, _P, _P, _P, _P, _P,  # x, x_bf16, values, blk_row, col_start, bias, out
-        _I, _I, _I, _I, _I,  # m, k, n, r, c
+        _I, _I, _I, _I, _I, _I, _I,  # m, k, n, r, c, bm, bn
         _I, _F,  # has_alpha, alpha
         _P,  # stream
     ]})

@@ -1,5 +1,6 @@
 // The 2-bit packed ternary layout, decoded one way for every kernel of the
-// port (packed_spmm.cu, fused_mlp.cu).
+// port (packed_spmm.cu, fused_mlp.cu; bcsr_spmm.cu decodes its blocks' bytes,
+// whose planes lie r/4 rows apart, with the same byte-level functions).
 //
 // Layout (formats/packed.py, byte-identical to smmb_tpu/formats/packed.py):
 // W is int8[K_pad / 4, N]; packed row p of group g holds logical rows
@@ -45,6 +46,18 @@ __device__ __forceinline__ int decode_word(unsigned b) {
   unsigned t = (b & 0x3u) | ((b & 0xCu) << 6) | ((b & 0x30u) << 12) |
                ((b & 0xC0u) << 18);
   return static_cast<int>(t | ((t & 0x02020202u) * 0x7Eu));
+}
+
+// Field i of the two packed bytes in bits 0-7 and 8-15 of x, as a bf16 pair
+// (an MMA B register: the two bytes are two consecutive rows of one column)
+// (the values decode_field gives): 0b00 -> 0, 0b01 -> +1 (0x3F80), 0b11 ->
+// -1 (0xBF80), 0b10 -> -2 (0xC000). The two codes land in nibbles 0 and 2;
+// v * 0x11 + 0x4040 copies them to nibbles 1 and 3 plus 4, and one byte
+// permute reads each value's low byte from {00, 80, 00, 80} and its high
+// byte from {00, 3F, C0, BF}.
+__device__ __forceinline__ unsigned bf16_pair(unsigned x, int i) {
+  const unsigned v = (x >> (2 * i)) & 0x0303u;
+  return __byte_perm(0x80008000u, 0xBFC03F00u, v * 0x11u + 0x4040u);
 }
 
 // logical row of W (column of X) held in field i of packed row pr

@@ -46,8 +46,9 @@
 //     not synchronise; the C entry returns cudaGetLastError().
 //
 // Bound on an H100 SXM at the M=256, K=N=4096, ~10% nnz headline: bytes
-// (X, W, bias and Y read or written once, ~3.6 us at 3.35 TB/s) for bf16 and
-// int8; operations for f32, which has no tensor-core path without TF32. At
+// (X, W, bias and Y read or written once, ~3.6 us at 3.35 TB/s) for every
+// mode, f32 counted as three exact bf16 passes (bench/roofline.py's
+// "f32_ternary", which bcsr_spmm.cu runs and the f32 mode here does not). At
 // M = 1 every mode is bound by W's bytes.
 
 #include <type_traits>
@@ -198,17 +199,6 @@ template <class T>
 __device__ __forceinline__ int w_off(int r, int c) {
   const int piece = (c >> 4) ^ ((r >> T::SWZ_SHIFT) & T::SWZ_MASK);
   return r * T::TBN + piece * 16 + (c & 15);
-}
-
-// Field i of the two packed bytes in bits 0-7 and 8-15 of x, as a bf16 pair
-// (the values decode_field gives): 0b00 -> 0, 0b01 -> +1 (0x3F80), 0b11 ->
-// -1 (0xBF80), 0b10 -> -2 (0xC000). The two codes land in nibbles 0 and 2;
-// v * 0x11 + 0x4040 copies them to nibbles 1 and 3 plus 4, and one byte
-// permute reads each value's low byte from {00, 80, 00, 80} and its high
-// byte from {00, 3F, C0, BF}.
-__device__ __forceinline__ unsigned bf16_pair(unsigned x, int i) {
-  const unsigned v = (x >> (2 * i)) & 0x0303u;
-  return __byte_perm(0x80008000u, 0xBFC03F00u, v * 0x11u + 0x4040u);
 }
 
 // Field i of the four packed bytes of x, as four signed int8 lanes (the

@@ -21,9 +21,10 @@ arithmetic, neither with split-K or atomics:
   equals the M=1 call bitwise.
 
 Bound on this card: at the M=256, K=N=4096, ~10% nnz headline the bytes
-(X, packed W, bias and Y moved once) bound the bf16 and int8 modes and the
-f32 mode's operations bound it (no tensor cores without TF32). Its times
-are in PERF.md (measured by chip_smoke.py).
+(X, packed W, bias and Y moved once) bound every mode; f32 X times the
+ternary W is counted at ``bench/roofline.py``'s ``"f32_ternary"`` rate (three
+exact bf16 passes, as B2 runs them), which this f32 mode, on CUDA cores,
+does not take. Its times are in PERF.md (measured by chip_smoke.py).
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``packed_spmm_plain``. There is no fallback from one to the other.

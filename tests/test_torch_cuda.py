@@ -13,7 +13,8 @@ f32 in another order); int8 1e-6 (same codes, exact int32 sums, the same
 separately rounded epilogue). The fused kernels (B3, B5, B6) and the flash
 kernels (B4, B9 on both of its bodies) and the BCSR kernel (B2): f32 1e-4
 and bf16 2**-7 (a staged value, or B2's f32 sum rounded once to bf16, can
-round to the neighbouring bf16). The int8 cache's kernels: B7's q as B3's; its codes bitwise the
+round to the neighbouring bf16); B2's f32 showcase cases also at absolute
+TOL_DENSE against the dense oracle, as the showcase holds them. The int8 cache's kernels: B7's q as B3's; its codes bitwise the
 quantize of B3's f32 output (codes within 1 and scales within 1e-5 of the
 plain version, whose f32 sums run in another order); B8 against its plain
 version as B4, and within 2e-2 relative of B4 on the dequantized cache (p
@@ -558,16 +559,33 @@ def _bcsr_case(seed, m, k, n, r, c, keep, dt, dev):
     return rng.rand_dense(gen, (m, k), dtype=dt), w, prep, rng.rand_dense(gen, (n,))
 
 
+def _bcsr_kernel_names(x, prep, b):
+    """The device kernels one B2 call runs (by the profiler)."""
+    from smmb_tpu_torch.bench.trace import kernel_breakdown
+
+    return {r["name"] for r in kernel_breakdown(
+        lambda: bk.bcsr_spmm_kernel(x, prep, b, ALPHA), n_calls=2)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n,r,c,keep,block_m", [
-    (16, 512, 512, 8, 128, 0.3, 256), (100, 512, 1024, 128, 128, 0.4, 256),
-    (140, 256, 512, 8, 128, 0.3, 64), (3, 512, 512, 4, 256, 0.5, 256),
-    (256, 1024, 4096, 128, 128, 1.0, 256),
+@pytest.mark.parametrize("m,k,n,r,c,keep,block_m,route", [
+    (16, 512, 512, 8, 128, 0.3, 256, "cuda_core"), (100, 512, 1024, 128, 128, 0.4, 256, "mma"),
+    (140, 256, 512, 8, 128, 0.3, 64, "cuda_core"), (3, 512, 512, 4, 256, 0.5, 256, "cuda_core"),
+    (256, 1024, 4096, 128, 128, 1.0, 256, "mma"),
+    (256, 4096, 4096, 128, 128, 0.3, 256, "mma"),  # the block-sparse workload
+    (1, 1024, 4096, 128, 128, 1.0, 256, "mma"),  # the showcase's M = 1
+    (8, 512, 512, 64, 128, 0.5, 256, "mma"),  # 16-row chunks
+    (5, 1024, 512, 256, 128, 0.5, 256, "mma"),  # two chunks a block
+    (4, 768, 512, 192, 256, 0.5, 256, "mma"),  # three 16-row chunks a block
 ])
-def test_bcsr_kernel_matches_plain(cuda, dt, m, k, n, r, c, keep, block_m):
+def test_bcsr_kernel_matches_plain(cuda, dt, m, k, n, r, c, keep, block_m, route):
     x, _, prep, b = _bcsr_case(m + k, m, k, n, r, c, keep, dt, cuda)
     assert prep.k > 0
+    assert bk.bcsr_route(r, c) == route
+    names = _bcsr_kernel_names(x, prep, b)
+    body = "bcsr_spmm_mma" if route == "mma" else "bcsr_spmm_kernel"
+    assert len(names) == 1 and body in names.pop()
     for bias, alpha in ((b, ALPHA), (None, None)):
         before = bk.bcsr_spmm_kernel.launches
         y = bk.bcsr_spmm_kernel(x, prep, bias, alpha, block_m=block_m)
@@ -580,6 +598,67 @@ def test_bcsr_kernel_matches_plain(cuda, dt, m, k, n, r, c, keep, block_m):
         for resident in (True, False):
             assert torch.equal(y, bk.bcsr_spmm_kernel(x, prep, bias, alpha, block_m=16,
                                                       x_resident=resident))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_bcsr_rows_equal_the_m1_call(cuda, dt):
+    """No split of K: rows of M = 2 ... 256 calls are bitwise the M = 1
+    calls at 1024×4096, under every tile of the mma body (the C entry under
+    a forced tile)."""
+    x, _, prep, b = _bcsr_case(77, 256, 1024, 4096, 128, 128, 1.0, dt, cuda)
+    ones = torch.cat([bk.bcsr_spmm_kernel(x[i:i + 1], prep, b, ALPHA) for i in range(256)])
+    for m in (1, 2, 5, 16, 17, 64, 256):
+        for tile in bk.MMA_TILES:
+            y = bk._launch(x[:m], prep, b, ALPHA, tile)
+            torch.cuda.synchronize()
+            assert torch.equal(y, ones[:m]), (m, tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", tsweep.SHOWCASE_CASES)
+def test_bcsr_showcase_cases_within_tol_dense(cuda, m, k, n):
+    """The showcase's f32 ``bcsr_kernel`` row, held as the showcase holds it:
+    every element within TOL_DENSE (1e-4 absolute) of the dense oracle."""
+    from smmb_tpu_torch.ops.dense import gemm
+    from smmb_tpu_torch.utils.compare import TOL_DENSE
+
+    gen = rng.make_generator(0, cuda)
+    x = rng.rand_dense(gen, (m, k))
+    w = rng.rand_ternary(gen, (k, n), non_zero=2)
+    b = rng.rand_dense(gen, (n,))
+    prep = bk.bcsr_prepare(bcsr_from_dense(w.cpu().numpy(), 128, 128, device=cuda),
+                           device=cuda)
+    assert prep.k == (k // 128) * (n // 128)
+    assert_close(bk.bcsr_spmm_kernel(x, prep, b), gemm(x, w, b), TOL_DENSE, "B2 showcase")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_bcsr_kernel_one_launch_per_call(cuda, dt):
+    """One kernel event a call (the f32 split is in the kernel: no pre-pass),
+    and the counter rises once a call."""
+    x, _, prep, b = _bcsr_case(5, 256, 1024, 4096, 128, 128, 1.0, dt, cuda)
+    rows, counted = _counted_breakdown(
+        bk.bcsr_spmm_kernel, lambda: bk.bcsr_spmm_kernel(x, prep, b, ALPHA))
+    assert counted
+    assert [r["name"] for r in rows if "bcsr_spmm_mma" not in r["name"]] == []
+    assert sum(r["launches"] for r in rows) == 1
+
+
+@pytest.mark.cuda
+def test_bcsr_kernel_misaligned_x_pointer(cuda):
+    """A view of X off 16 bytes takes an aligned copy, not a refusal; a
+    forced tile the mma body has not is refused before the launch."""
+    x, _, prep, b = _bcsr_case(6, 12, 512, 1024, 128, 128, 0.5, torch.float32, cuda)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    xv = flat[1:].view(12, 512)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16
+    y = bk.bcsr_spmm_kernel(xv, prep, b, ALPHA)
+    assert torch.equal(y, bk.bcsr_spmm_kernel(x, prep, b, ALPHA))
+    with pytest.raises(ValueError):  # not a tile of the mma body
+        bk._launch(x, prep, b, ALPHA, (32, 128))
 
 
 @pytest.mark.cuda
