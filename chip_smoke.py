@@ -147,7 +147,35 @@ which exits non-zero on failure:
 22. times of B9p against the serial kernel, its plain version, its bound and
     ``scaled_dot_product_attention`` at the LM prefill and at T = 4096 bf16
     (beside the earlier CUDA-core body's recorded times), and the three
-    rows of ``python -m smmb_tpu_torch spec``.
+    rows of ``python -m smmb_tpu_torch spec``;
+23. the training surface at BASELINE config 5's widths (depth 4, dim 4096,
+    batch 256, ~10% nnz): ``make_packed_linear`` (B1 forward on W, backward
+    on the packed Wᵀ) in f32 and bf16, its y, dx and db of one backward
+    held against autograd through the plain version, then Adam steps on
+    the biases of the frozen 4-layer backbone, B1's launches counted per
+    step, the loss falling; five ``make_train_step`` steps of the MLP's f32
+    masters (one QAT product within 1e-5 of its f64 value, which TF32 would
+    miss), the loss falling, and the trained masters
+    served (``pack_mlp(quantize=True)``, B1 in f32) within
+    max(1e-4, 2e-6·max|y|) of ``qat_forward``;
+24. LM QAT at the ``lm`` CLI's widths (4 layers, d_model 1024, 8 heads,
+    d_ff 4096, vocab 8192) on a batch of 8×256 tokens with
+    ``accum_steps=2`` and ``attn_chunk=64``: three steps, the loss falling,
+    the first step's loss within rtol 1e-5 of the ``accum_steps=1`` step's,
+    one QAT product held against f64 as in 23;
+    the trained masters packed and served by ``lm_forward`` on the kernels:
+    every B1 call within 1e-4 of its plain version on its own input, each
+    block and the head on the kernels within 2e-4 + 1.1e-4·max|·| of the
+    same stage on the plain products at every position (both fed the plain
+    path's input), and end to end the median position within that rule of
+    ``qat_lm_forward`` (the kernel and the plain serving paths) and of each
+    other (the worst positions logged: the random model is chaotic at
+    near-tied positions, ROADMAP §C); a 16-step
+    ``generate`` on them with phase 8's launch counts; then five
+    ``make_draft_distill_step`` steps at the ``spec`` CLI's target and
+    draft (the target's logits through B1, counted), the loss falling, the
+    argmax agreement logged before and after. Each training step's time and
+    peak device memory are logged beside the card's name and power limit.
 
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
@@ -161,6 +189,7 @@ output bitwise, and both sides' device µs a call (``fused_ab``).
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -630,6 +659,8 @@ def main() -> int:
     pipe = check_pipe_kernel(torch, dev, lm)
     run_serving_controls(torch, dev, lm)
     pipe_rows = time_serving_controls(torch, dev, spec, pipe)
+    run_finetune_and_mlp_qat(torch, dev, card)
+    run_lm_training(torch, dev, card)
 
     main_mode = per_mode["bf16"]  # the main path's mode and per-layer shape
     summary = {"kernels": [{
@@ -2632,6 +2663,399 @@ def time_serving_controls(torch, dev, spec, pipe) -> list:
         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
     }]
+
+
+# ------------------------------------------------------------ training slice
+
+FINETUNE = dict(depth=4, dim=4096, batch=256, non_zero=10)  # BASELINE config 5
+LM_TRAIN = dict(vocab=8192, d_model=1024, n_heads=8, d_ff=4096, n_layers=4)  # `lm` CLI
+LM_TRAIN_BATCH = (8, 256)  # tokens a step: accum_steps=2 microbatches of 4x256
+
+def _timed_step(torch, step):
+    """(step(), host ms, peak MiB allocated) of one training step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = step()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def _log_steps(what, card, losses, ms, peak) -> dict:
+    row = {"train": what, "losses": losses, "step_ms": ms, "peak_mib": peak, "card": card}
+    log(f"{what}: losses {', '.join(f'{x:.6g}' for x in losses)}; step ms "
+        f"{', '.join(f'{x:.1f}' for x in ms)}; peak {max(peak):.0f} MiB ({card})")
+    return row
+
+
+def _map_tree(fn, tree):
+    """``fn`` applied to every tensor of a parameter tree (dicts, lists)."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _masters(tree):
+    """A master tree made f32 and off the ternary grid (``a + 0.01``, as the
+    JAX tests perturb theirs), detached leaves."""
+    return _map_tree(lambda t: (t + 0.01).detach(), tree)
+
+
+def _check_full_f32(torch, x, w, what) -> float:
+    """One QAT product (``qat_linear``) against its f64 value, relative to
+    max|y|. ``full_f32_matmul`` turns TF32 off itself, so reading the flag
+    proves nothing; the product's error does. TF32 rounds every input to 10
+    mantissa bits (~2.8e-4 relative rms), which puts the largest error of a
+    product with 10^5 or more outputs near 1e-4 of max|y|; a full f32 sum
+    of 4096 terms sits near 1e-7."""
+    from smmb_tpu_torch.models.train import absmean_scale, qat_linear, ternarize_ste
+
+    with torch.no_grad():
+        y = qat_linear(x, w).double()
+        ref = x.double() @ (ternarize_ste(w) * absmean_scale(w)).double()
+    err = float((y - ref).abs().max() / ref.abs().max())
+    check(err <= 1e-5, f"{what}: a QAT product is {err:.2e} of max|y| off its f64 value "
+          "(TF32 on?)")
+    log(f"{what}: one QAT product {err:.3e} of max|y| off its f64 value (limit 1e-5)")
+    return err
+
+
+def _served_stages(torch, packed, tokens, cfg) -> list:
+    """(stage, kernel output, plain output) for each block and the head of
+    ``lm_forward``, each stage fed the plain path's input, so no stage
+    carries another's rounding."""
+    from smmb_tpu_torch.models import lm
+    from smmb_tpu_torch.models import transformer as tb
+
+    x = packed["embed"][tokens] + packed["pos"][None, :tokens.shape[1]]
+    out = []
+    for i, blk in enumerate(packed["blocks"]):
+        kern = tb.block_forward(blk, x, cfg.block)
+        x = tb.block_forward(blk, x, cfg.block, use_kernel=False)
+        out.append((f"block {i}", kern, x))
+    h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
+    out.append(("head", lm._head_logits(packed, h, cfg, torch.float32, True),
+                lm._head_logits(packed, h, cfg, torch.float32, False)))
+    return out
+
+
+@contextlib.contextmanager
+def _held_b1_calls(torch, errs):
+    """B1 on the LM path with each call held against ``packed_spmm_plain``
+    on the same input: appends max|y - plain| / max(1, max|plain|) to
+    ``errs``."""
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
+    from smmb_tpu_torch.models import attention, lm, transformer
+
+    def held(x, w, b=None, alpha=None, *, compute_dtype=torch.float32):
+        y = packed_spmm(x, w, b, alpha, compute_dtype=compute_dtype)
+        ref = packed_spmm_plain(x.reshape(-1, x.shape[-1]), w, b, alpha,
+                                compute_dtype=compute_dtype).reshape(y.shape)
+        errs.append(float((y - ref).abs().max()) / max(1.0, float(ref.abs().max())))
+        return y
+
+    mods = (attention, transformer, lm)
+    try:
+        for mod in mods:
+            mod.packed_spmm = held
+        yield
+    finally:
+        for mod in mods:
+            mod.packed_spmm = packed_spmm
+
+
+def run_finetune_and_mlp_qat(torch, dev, card) -> None:
+    """Phase 23: frozen-backbone fine-tuning through B1 (``make_packed_linear``:
+    forward on W, backward on Wᵀ) and QAT of the MLP, at BASELINE config 5's
+    widths (depth 4, dim 4096, batch 256, ~10% nnz, alpha 0.2)."""
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
+    from smmb_tpu_torch.kernels.packed_vjp import make_packed_linear, pack_with_transpose
+    from smmb_tpu_torch.models.mlp import TernaryMLPConfig, mlp_forward, pack_mlp
+    from smmb_tpu_torch.models.train import make_adam, make_train_step, qat_forward
+    from smmb_tpu_torch.utils import rng
+
+    depth, dim, batch, steps = FINETUNE["depth"], FINETUNE["dim"], FINETUNE["batch"], 5
+    gen = rng.make_generator(23, dev)
+    ws = [rng.rand_ternary(gen, (dim, dim), non_zero=FINETUNE["non_zero"])
+          for _ in range(depth)]
+    planes = [pack_with_transpose(w) for w in ws]
+    x0 = rng.rand_dense(gen, (batch, dim))
+    target = rng.rand_dense(gen, (batch, dim))
+    gy = rng.rand_dense(gen, (batch, dim))
+    b0 = rng.rand_dense(gen, (dim,))
+    # keeps each layer's activations O(1): 1/sqrt(nonzeros a column)
+    in_scale = float(sum(int(torch.count_nonzero(w)) for w in ws) / (depth * dim)) ** -0.5
+    out = {"finetune": {}}
+    for name, cdt, tol in (("f32", torch.float32, 1e-4), ("bf16", torch.bfloat16, 2.0 ** -7)):
+        w, wt = planes[0]
+
+        def one(kernel):
+            x = x0.to(cdt, copy=True).requires_grad_(True)
+            b = b0.clone().requires_grad_(True)
+            if kernel:
+                y = make_packed_linear(w, wt, ALPHA, cdt)(x, b)
+            else:
+                y = packed_spmm_plain(x, w, b, ALPHA, compute_dtype=cdt)
+            (y.float() * gy).sum().backward()
+            return y.detach(), x.grad, b.grad
+
+        before = packed_spmm.launches
+        got = one(True)
+        check(packed_spmm.launches == before + 2, "make_packed_linear launches B1 once "
+              "forward (on W) and once backward (on the Wᵀ planes)")
+        want = one(False)
+        errs = {}
+        for g, r, what in zip(got, want, ("y", "dx", "db")):
+            check(g.shape == r.shape and bool(torch.isfinite(g).all()), f"{what} {name}")
+            err = float((g.float() - r.float()).abs().max())
+            lim = tol * max(1.0, float(r.float().abs().max()))
+            check(err <= lim, f"packed VJP {name} {what}: {err:.3e} > {lim:.3e} against "
+                  "autograd through the plain version")
+            errs[what] = err
+        log(f"packed VJP {name} at {batch}x{dim}x{dim}: y/dx/db vs plain autograd "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+        layers = [make_packed_linear(w_, wt_, ALPHA, cdt) for w_, wt_ in planes]
+        biases = {"b": [torch.zeros((dim,), device=dev) for _ in range(depth)]}
+        opt = make_adam(biases, 1e-2)
+        xin = x0.to(cdt)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            h = xin
+            for layer, b in zip(layers, biases["b"]):
+                h = layer(h * in_scale, b)
+            loss = torch.mean((h.float() - target) ** 2)
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+
+        torch.cuda.synchronize()
+        packed_spmm.launches = 0
+        losses, ms, peak = zip(*(_timed_step(torch, step) for _ in range(steps)))
+        launches = packed_spmm.launches
+        # forward on every layer; backward on every layer but the first,
+        # whose input needs no gradient
+        per_step = 2 * depth - 1
+        check(launches == steps * per_step, f"fine-tuning {name}: B1 launches {launches} "
+              f"!= {steps} steps x {per_step}")
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"fine-tuning {name}: the loss did not fall: {losses}")
+        row = _log_steps(f"finetune biases through B1 {name}", card, list(losses), list(ms),
+                         list(peak))
+        out["finetune"][name] = {**row, "max_abs_err": errs, "b1_launches_per_step": per_step}
+
+    # QAT of the MLP: f32 masters off the ternary grid (the ternary codes
+    # keep the ~10% pattern: |noise| < 0.02 lies under half the absmean)
+    cfg = TernaryMLPConfig(layer_dims=(dim,) * (depth + 1))
+    params = {"w": [(0.5 * w + 0.02 * rng.rand_dense(gen, w.shape)) for w in ws],
+              "b": [rng.rand_dense(gen, (dim,)) for _ in range(depth)]}
+    init_opt, train_step = make_train_step(alpha=ALPHA, learning_rate=1e-3)
+    opt = init_opt(params)
+
+    def qat_step():
+        nonlocal params, opt
+        params, opt, loss = train_step(params, opt, x0, target)
+        return float(loss)
+
+    losses, ms, peak = zip(*(_timed_step(torch, qat_step) for _ in range(steps)))
+    f32_err = _check_full_f32(torch, x0, params["w"][0], "MLP QAT")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"MLP QAT: the loss did not fall: {losses}")
+    out["mlp_qat"] = _log_steps("MLP QAT make_train_step f32", card, list(losses), list(ms),
+                                list(peak))
+    with torch.no_grad():
+        packed = pack_mlp(params, quantize=True)
+        trained = qat_forward(params, x0, ALPHA)
+        packed_spmm.launches = 0
+        served = mlp_forward(packed, x0, cfg)
+        torch.cuda.synchronize()
+    check(packed_spmm.launches == depth, f"served MLP launched B1 {packed_spmm.launches} times")
+    err = float((served - trained).abs().max())
+    lim = max(1e-4, 2e-6 * float(trained.abs().max()))
+    check(err <= lim, f"MLP served (B1 f32) vs QAT forward: {err:.3e} > {lim:.3e}")
+    out["mlp_qat"].update(served_err=err, qat_product_vs_f64=f32_err)
+    print(json.dumps({"phase": 23, **out}), flush=True)
+    log(f"phase 23 passed: trained MLP served on B1 f32 within {err:.3e} of the QAT forward "
+        f"(limit {lim:.3e}, max|y| {float(trained.abs().max()):.3e})")
+
+
+def run_lm_training(torch, dev, card) -> None:
+    """Phase 24: QAT of the LM at the ``lm`` CLI's widths (gradient
+    accumulation, chunked attention), its packed serving against the QAT
+    forward and a short ``generate``; draft distillation at the ``spec``
+    CLI's configurations."""
+    from smmb_tpu_torch.bench import spec_bench
+    from smmb_tpu_torch.kernels import fused_mlp as fk
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.lm import (
+        TernaryLMConfig,
+        generate,
+        init_lm,
+        lm_forward,
+        make_lm_train_step,
+        pack_lm,
+        qat_lm_forward,
+    )
+    from smmb_tpu_torch.models.spec_decode import make_draft_distill_step
+    from smmb_tpu_torch.models.train import param_leaves
+    from smmb_tpu_torch.utils import rng
+
+    (batch, seq), steps = LM_TRAIN_BATCH, 3
+    layers = LM_TRAIN["n_layers"]
+    cfg = TernaryLMConfig(**LM_TRAIN, max_len=seq)
+    gen = rng.make_generator(24, dev)
+    params = _masters(init_lm(gen, cfg))
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=dev)
+    # the accum_steps=1 step's loss from a copy of the same masters
+    ref = _map_tree(lambda t: t.detach().clone(), params)
+    out = {}
+    init1, step1 = make_lm_train_step(cfg, learning_rate=1e-3, attn_chunk=64)
+    _, _, loss1 = step1(ref, init1(ref), tokens)
+    loss1 = float(loss1)
+    del ref
+    init_opt, train_step = make_lm_train_step(cfg, learning_rate=1e-3, accum_steps=2,
+                                              attn_chunk=64)
+    opt = init_opt(params)
+
+    def step():
+        nonlocal params, opt
+        params, opt, loss = train_step(params, opt, tokens)
+        return float(loss)
+
+    losses, ms, peak = zip(*(_timed_step(torch, step) for _ in range(steps)))
+    f32_err = _check_full_f32(torch, params["embed"][tokens[:2]],
+                              params["blocks"][0]["attn"]["wq"], "LM QAT")
+    check(abs(losses[0] - loss1) <= 1e-5 * abs(loss1), f"accum_steps=2 first loss "
+          f"{losses[0]!r} != the accum_steps=1 step's {loss1!r} within rtol 1e-5")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"LM QAT: the loss did not fall: {losses}")
+    out["lm_qat"] = _log_steps(f"LM QAT {LM_TRAIN}, batch {batch}x{seq}, accum 2, "
+                               "attn_chunk 64", card, list(losses), list(ms), list(peak))
+    out["lm_qat"].update(accum1_loss=loss1, qat_product_vs_f64=f32_err)
+
+    # The served logits against the QAT forward. This random model (ternary
+    # masters at unit scale) puts attention scores in the hundreds, so a
+    # rounding seeded in one layer grows through the next ones and, at a
+    # position near an attention tie, moves the logits past the LM rule
+    # (2e-4 + 1.1e-4·max|·|): cuBLAS against itself at batch 1 and 2 does.
+    # So the rule holds every position of each stage (a block, the head) on
+    # the kernels against the same stage on the plain products, both fed the
+    # plain path's input, and every B1 call of the served forward is held
+    # against its plain version on its own input (phase 3's f32 tolerance).
+    # End to end the median position is held at the rule; the worst
+    # positions are logged beside two plain orders' (ROADMAP §C).
+    ev = tokens[:2]
+    with torch.no_grad():
+        packed = pack_lm(params, quantize=True)
+        qat = qat_lm_forward(params, ev, cfg)
+        packed_spmm.launches = 0
+        served = lm_forward(packed, ev, cfg)
+        torch.cuda.synchronize()
+        launches = packed_spmm.launches
+        plain = lm_forward(packed, ev, cfg, use_kernel=False)
+        qat1 = qat_lm_forward(params, ev[:1], cfg)
+        stages = _served_stages(torch, packed, ev, cfg)
+        call_errs = []
+        with _held_b1_calls(torch, call_errs):
+            lm_forward(packed, ev, cfg)
+    check(launches == 6 * layers + 1, f"served LM forward launched B1 {launches} times")
+    check(bool(torch.isfinite(served).all()), "served LM logits finite")
+    check(len(call_errs) == launches and max(call_errs) <= 1e-4,
+          f"served LM: B1 calls vs plain on their own inputs {max(call_errs):.3e} > 1e-4 "
+          "of max(1, max|y|)")
+
+    def rule(a):
+        return 2e-4 + 1.1e-4 * float(a.abs().max())
+
+    def per_position(a, b):
+        return (a - b).abs().amax(-1).flatten()
+
+    lim = rule(qat)
+    pairs = {"kernels vs QAT": per_position(served, qat),
+             "plain serving vs QAT": per_position(plain, qat),
+             "kernels vs plain serving": per_position(served, plain),
+             "QAT at batch 1 vs 2": per_position(qat1, qat[:1])}
+    stats = {name: {"median": float(e.median()), "worst": float(e.max()),
+                    "beyond_rule": int((e > lim).sum()), "positions": e.numel()}
+             for name, e in pairs.items()}
+    staged = {name: {"worst": float(per_position(kern, ref).max()), "rule": rule(ref)}
+              for name, kern, ref in stages}
+    out["lm_qat"].update(served_rule=lim, served_vs_qat=stats, stages=staged,
+                         b1_call_worst=max(call_errs))
+    log(f"trained LM served (lm_forward, f32 kernels), rule {lim:.3e}: "
+        + "; ".join(f"{k}: median {v['median']:.3e}, worst {v['worst']:.3e}, "
+                    f"{v['beyond_rule']} of {v['positions']} beyond" for k, v in stats.items()))
+    log("stages on the kernels vs the plain products, the plain path's input: "
+        + "; ".join(f"{k} worst {v['worst']:.3e} (rule {v['rule']:.3e})"
+                    for k, v in staged.items())
+        + f"; B1 calls vs plain {max(call_errs):.3e} of max(1, max|y|)")
+    for name in ("kernels vs QAT", "plain serving vs QAT", "kernels vs plain serving"):
+        check(stats[name]["median"] <= lim,
+              f"LM served, {name}: median position {stats[name]['median']:.3e} > {lim:.3e}")
+    for name, v in staged.items():
+        check(v["worst"] <= v["rule"], f"LM served, {name} on the kernels vs the plain "
+              f"products: worst position {v['worst']:.3e} > {v['rule']:.3e}")
+
+    gsteps, prompt = 16, tokens[:1, :32]
+    counted = (packed_spmm, fk.fused_norm_qkv, fk.fused_block_tail, fk.fused_mlp)
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    toks = generate(packed, prompt, cfg, gsteps, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    check(toks.shape == (1, gsteps) and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          "generate on the trained model: tokens shape / range")
+    check(launches == {"packed_spmm": 6 * layers + 1 + gsteps,
+                       "fused_norm_qkv": layers * gsteps,
+                       "fused_block_tail": layers * gsteps, "fused_mlp": layers},
+          f"generate on the trained model: launches {launches}")
+    out["lm_qat"]["generate_launches"] = launches
+    log(f"generate on the trained, packed LM ({gsteps} steps, bf16): launches {launches}")
+    del params, opt, packed
+
+    tcfg, dcfg = spec_bench.configs()
+    target, _, _ = spec_bench.build(tcfg, dcfg, 32, device=dev)
+    dgen = rng.make_generator(25, dev)
+    draft = _masters(init_lm(dgen, dcfg))
+    dtoks = torch.randint(0, tcfg.vocab, (8, 128), generator=dgen, device=dev)
+    init_d, distill_step = make_draft_distill_step(target, tcfg, dcfg, learning_rate=5e-3)
+    dopt = init_d(draft)
+
+    def agreement():
+        with torch.no_grad():
+            t = lm_forward(target, dtoks, tcfg).argmax(-1)
+            d = lm_forward(pack_lm(draft, quantize=True), dtoks, dcfg).argmax(-1)
+        return float((t == d).float().mean())
+
+    a0 = agreement()
+
+    def dstep():
+        nonlocal draft, dopt
+        draft, dopt, loss = distill_step(draft, dopt, dtoks)
+        return float(loss)
+
+    torch.cuda.synchronize()
+    packed_spmm.launches = 0
+    dsteps = 5
+    losses, ms, peak = zip(*(_timed_step(torch, dstep) for _ in range(dsteps)))
+    per_step = 6 * tcfg.n_layers + 1  # the target's forward: B1 only at 1024 rows
+    check(packed_spmm.launches == dsteps * per_step,
+          f"distillation: B1 launches {packed_spmm.launches} != {dsteps} x {per_step}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"distillation: the loss did not fall: {losses}")
+    a1 = agreement()
+    out["distill"] = _log_steps("draft distillation (spec CLI target and draft, 8x128)",
+                                card, list(losses), list(ms), list(peak))
+    out["distill"].update(agreement_before=a0, agreement_after=a1,
+                          b1_launches_per_step=per_step,
+                          draft_params=sum(t.numel() for t in param_leaves(draft)))
+    print(json.dumps({"phase": 24, **out}), flush=True)
+    log(f"phase 24 passed: distillation argmax agreement {a0:.4f} -> {a1:.4f} "
+        "(logged, not gated)")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,9 @@ each kernel wrapper runs its plain PyTorch version.
 It carries the packed ternary MLP serving path, the ternary LM's serving
 path (dense blocks, float and int8 KV caches, flash attention, chunked
 extend, ragged batches, prefix forking, beam search and speculative
-decoding) and the reference benchmark (showcase, sweep and capacity):
+decoding), their training (STE training of the MLP and the LM, draft
+distillation, fine-tuning through the packed kernel) and the reference
+benchmark (showcase, sweep and capacity):
 
 - ``formats``: the 2-bit ``TernaryPacked`` format, TCSC, TCSCPadded, BCSR
   and the legacy threshold constructors, their arrays identical to JAX's;
@@ -20,12 +22,17 @@ decoding) and the reference benchmark (showcase, sweep and capacity):
   ``fused_mlp``, ``fused_block_tail`` (``csrc/fused_mlp.cu``),
   ``flash_attention_decode`` / ``flash_attention_chunk``
   (``csrc/flash_decode.cu``) and ``flash_attention`` (``csrc/flash_attention.cu``,
-  with its pipelined variant under ``pipeline_p``);
+  with its pipelined variant under ``pipeline_p``), and
+  ``make_packed_linear``, an autograd function over ``packed_spmm``
+  (forward on W, backward on the packed Wᵀ);
 - ``models``: the packed ternary MLP (``mlp_forward``, ``PackedTernaryMLP``)
   and the LM (``attention``, ``transformer``, ``lm``: ``generate``,
   ``fork_cache``, ``generate_beam``; ``spec_decode``:
-  ``generate_speculative``);
-- ``nn``: the ``PackedTernaryDense`` serving layer;
+  ``generate_speculative``) and their training (``train``:
+  ``make_train_step``; ``make_lm_train_step``,
+  ``make_draft_distill_step``);
+- ``nn``: the ``TernaryDense`` QAT layer, ``convert_to_packed`` and the
+  ``PackedTernaryDense`` serving layer;
 - ``convert``: parameters and formats carried across from the JAX package;
 - ``io``: ``.npz`` save/load in the JAX package's file layout;
 - ``bench``: CUDA-event timing, the H100 roofline, the showcase/sweep and

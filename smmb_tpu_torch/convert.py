@@ -36,6 +36,15 @@ def mlp_params_from_jax(params_np: dict, device=None) -> dict:
     }
 
 
+def ternary_dense_from_jax(params_np: dict, device=None) -> dict:
+    """A flax ``TernaryDense`` parameter tree (``{"params": {"kernel",
+    "bias"}}`` or its inner dict) → ``nn.TernaryDense``'s state dict, f32
+    tensors on ``device`` (None = the CUDA card)."""
+    dev = resolve_device(device)
+    inner = params_np.get("params", params_np)
+    return {name: _tensor(np.asarray(v), dev, torch.float32) for name, v in inner.items()}
+
+
 def packed_from_numpy(data, rows: int, cols: int, nnz: int, device=None) -> TernaryPacked:
     """Packed int8 words (e.g. ``np.asarray(p.data)`` of a JAX
     ``TernaryPacked``) → the port's ``TernaryPacked`` on ``device``."""

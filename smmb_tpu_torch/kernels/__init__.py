@@ -5,3 +5,4 @@ from smmb_tpu_torch.kernels.bcsr_spmm import (
     bcsr_spmm_kernel_plain,
 )
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
+from smmb_tpu_torch.kernels.packed_vjp import make_packed_linear, pack_with_transpose

@@ -5,4 +5,13 @@ from smmb_tpu_torch.models.mlp import (
     mlp_forward,
     pack_mlp,
 )
-from smmb_tpu_torch.models.train import absmean_scale, ternarize_ste
+from smmb_tpu_torch.models.train import (
+    absmean_scale,
+    make_train_step,
+    qat_forward,
+    ternarize_ste,
+)
+from smmb_tpu_torch.models.attention import attention_math_chunked, qat_attention_forward
+from smmb_tpu_torch.models.transformer import qat_block_forward
+from smmb_tpu_torch.models.lm import make_lm_train_step, qat_lm_forward
+from smmb_tpu_torch.models.spec_decode import make_draft_distill_step

@@ -24,6 +24,13 @@ The f32 einsums run in full f32 (TF32 off), which is JAX's
 ``Precision.HIGHEST``, so the port has no ``precision`` argument. As in JAX,
 the flash gates refuse a ragged cache, which is read by the plain math.
 
+The training side (counterpart of smmb_tpu/models/attention.py:941-1039):
+``qat_attention_forward`` runs the four projections as STE-ternarized dense
+products on the masters around the plain attention math, or, with
+``attn_chunk``, around ``attention_math_chunked``, a loop over KV chunks
+whose bodies ``torch.utils.checkpoint`` recomputes in the backward. Neither
+routes to the flash kernel B9, which has no backward.
+
 Left out of this slice, with a ``NotImplementedError``: LoRA adapters.
 """
 
@@ -33,17 +40,18 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from smmb_tpu_torch.formats.packed import concat_packed_cols, pack_ternary_device
 from smmb_tpu_torch.kernels import flash_attention as fa
 from smmb_tpu_torch.kernels import flash_decode as fd
 from smmb_tpu_torch.kernels import fused_mlp as fk
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
-from smmb_tpu_torch.models.train import absmean_scale, ternarize_ste
+from smmb_tpu_torch.models.train import absmean_scale, qat_linear, ternarize_ste
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
 
-LORA_SLICE = "LoRA adapters belong to the training-surface slice of the port"
+LORA_SLICE = "LoRA adapters belong to a later slice of the port"
 
 # The flash-decode gate for batch > 1, copied from JAX
 # (smmb_tpu/models/attention.py:44-45) so that the port takes JAX's route:
@@ -613,3 +621,76 @@ def attention_extend(packed: dict, x: torch.Tensor, cache: dict,
         packed, x, cache, cfg, compute_dtype=compute_dtype,
         use_kernel=use_kernel, use_flash=use_flash)
     return _proj(packed, "wo", out, cfg, compute_dtype, use_kernel), cache
+
+
+def _chunked_step(qg, kb, vb, m, l, acc, start: int, causal: bool, window, scale: float):
+    """One KV chunk of the online softmax: the carry (m, l, acc) in f32 after
+    the keys ``start .. start + chunk``. Out of place throughout, so that the
+    checkpoint's recompute finds every saved tensor as it was."""
+    t, chunk = qg.shape[3], kb.shape[2]
+    scores = torch.einsum("bkgqd,bktd->bkgqt", qg.to(torch.float32),
+                          kb.to(torch.float32)) * scale  # (B, KVH, G, T, chunk)
+    if causal:
+        q_pos = torch.arange(t, device=qg.device)[:, None]
+        k_pos = torch.arange(start, start + chunk, device=qg.device)[None, :]
+        live = q_pos >= k_pos
+        if window is not None:
+            # under causal only, as the serving math (QAT trains what serves)
+            live = live & (q_pos - k_pos < window)
+        scores = scores.masked_fill(~live, -1e30)
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new[..., None])
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("bkgqt,bktd->bkgqd", p, vb.to(torch.float32))
+    return m_new, l, acc
+
+
+def attention_math_chunked(q, k, v, cfg: TernaryAttentionConfig, chunk: int = 512):
+    """Memory-efficient attention for long-context training (Rabe and
+    Staats' recipe; the differentiable analog of the flash kernel).
+
+    The same (B, T, D) → (B, T, D) contract as ``_attention_math``, but the
+    (T, T) score tensor never exists: a loop over KV chunks carries the
+    online softmax (m, l, acc) in f32, and each chunk's body runs under
+    ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``), so the backward
+    recomputes a chunk's scores instead of storing them: O(T·chunk) memory
+    forward and backward. Masked scores are −1e30, as in JAX.
+    """
+    b, t, d = q.shape
+    h, hd, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    g = h // kvh
+    if t % chunk:
+        raise ValueError(f"T={t} % chunk={chunk} != 0")
+    q, k = _rope_qk(q, k, cfg, _positions(0, t, q.device))
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, t, kvh, g, hd).permute(0, 2, 3, 1, 4)
+    kh = k.reshape(b, t, kvh, hd).permute(0, 2, 1, 3)
+    vh = v.reshape(b, t, kvh, hd).permute(0, 2, 1, 3)
+    m = torch.full((b, kvh, g, t), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kvh, g, t), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kvh, g, t, hd), dtype=torch.float32, device=q.device)
+    for start in range(0, t, chunk):
+        m, l, acc = checkpoint(
+            _chunked_step, qg, kh[:, :, start:start + chunk], vh[:, :, start:start + chunk],
+            m, l, acc, start, cfg.causal, cfg.window, scale, use_reentrant=False)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, d).to(q.dtype)
+
+
+def qat_attention_forward(params: dict, x: torch.Tensor, cfg: TernaryAttentionConfig,
+                          attn_chunk: int | None = None) -> torch.Tensor:
+    """Training forward on the masters: STE-ternarized dense projections
+    (differentiable) around the plain attention math, mirroring the serving
+    math as ``train.qat_forward`` does; ``attn_chunk`` switches to
+    ``attention_math_chunked`` for long contexts. Never the flash kernel."""
+
+    def proj(name, inp):
+        return qat_linear(inp, params[name], params[name.replace("w", "b")])
+
+    q, k, v = proj("wq", x), proj("wk", x), proj("wv", x)
+    if attn_chunk is None:
+        att = _attention_math(q, k, v, cfg, use_flash=False)
+    else:
+        att = attention_math_chunked(q, k, v, cfg, chunk=attn_chunk)
+    return proj("wo", att)

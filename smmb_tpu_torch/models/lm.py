@@ -1,5 +1,5 @@
-"""Ternary causal language model — the serving part, dense blocks
-(counterpart of smmb_tpu/models/lm.py).
+"""Ternary causal language model with dense blocks (counterpart of
+smmb_tpu/models/lm.py).
 
 Token + learned-position embeddings, N pre-norm ternary transformer blocks
 (models/transformer.py), a final RMSNorm and a packed ternary LM head, with
@@ -19,8 +19,15 @@ through B8. Ragged (left-padded) batches pass ``prompt_mask`` to
 plain attention math; ``pos_ids`` gives each row its own learned position in
 ``lm_decode_step`` and ``lm_extend``.
 
-Left out of this slice, each with a ``NotImplementedError``: MoE blocks
-(``n_experts``) and training (``qat_lm_forward``, ``make_lm_train_step``).
+Training: ``qat_lm_forward`` runs the STE forward on the masters
+(``transformer.qat_block_forward`` per block, dense f32 products), and
+``make_lm_train_step`` takes Adam steps on next-token cross-entropy, with
+gradient accumulation over microbatches and the checkpointed chunked
+attention (``attn_chunk``). The trained masters serve through
+``pack_lm(quantize=True)``.
+
+Left out of this slice, with a ``NotImplementedError``: MoE blocks
+(``n_experts``).
 """
 
 from __future__ import annotations
@@ -33,12 +40,17 @@ import torch
 from smmb_tpu_torch.formats.packed import pack_ternary_device
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
 from smmb_tpu_torch.models import transformer as tb
-from smmb_tpu_torch.models.train import absmean_scale, ternarize_ste
+from smmb_tpu_torch.models.train import (
+    absmean_scale,
+    make_adam,
+    param_leaves,
+    qat_linear,
+    ternarize_ste,
+)
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
 
-MOE_SLICE = "MoE blocks (n_experts) belong to the training-surface slice of the port"
-TRAINING_SLICE = "{} belongs to the training-surface slice of the port"
+MOE_SLICE = "MoE blocks (n_experts) belong to a later slice of the port"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -394,9 +406,78 @@ def generate_beam(packed: dict, prompt: torch.Tensor, cfg: TernaryLMConfig,
     return toks, scores
 
 
-def qat_lm_forward(*args, **kwargs):
-    raise NotImplementedError(TRAINING_SLICE.format("qat_lm_forward"))
+def _qat_lm_forward_aux(params: dict, tokens: torch.Tensor, cfg: TernaryLMConfig,
+                       attn_chunk: int | None = None):
+    """(logits, aux): the QAT forward and the summed MoE load-balance loss.
+    aux is always zero until MoE is ported (a later slice): dense blocks
+    have none, and MoE configurations raise through ``cfg.block``."""
+    bcfg = cfg.block
+    t = tokens.shape[1]
+    x = params["embed"][tokens] + params["pos"][None, :t]
+    for blk in params["blocks"]:
+        x = tb.qat_block_forward(blk, x, bcfg, attn_chunk=attn_chunk)
+    h = tb.rmsnorm(x, params["norm_f"], cfg.eps)
+    return qat_linear(h, params["head"]), torch.zeros((), device=x.device)
 
 
-def make_lm_train_step(*args, **kwargs):
-    raise NotImplementedError(TRAINING_SLICE.format("make_lm_train_step"))
+def qat_lm_forward(params: dict, tokens: torch.Tensor, cfg: TernaryLMConfig,
+                   attn_chunk: int | None = None) -> torch.Tensor:
+    """Training forward on the masters: (B, T) tokens → (B, T, vocab) f32
+    logits. Blocks and head are STE-ternarized (differentiable); embeddings,
+    positions and norm gains train dense. Mirrors ``lm_forward``'s serving
+    math, so ``pack_lm(quantize=True)`` serves what was trained.
+    ``attn_chunk``: memory-efficient attention (O(T·chunk) residuals)."""
+    return _qat_lm_forward_aux(params, tokens, cfg, attn_chunk)[0]
+
+
+def make_lm_train_step(cfg: TernaryLMConfig, learning_rate: float = 1e-3,
+                       accum_steps: int = 1, attn_chunk: int | None = None,
+                       aux_weight: float = 1e-2):
+    """(init_opt, train_step) for next-token cross-entropy on the ternary LM.
+
+    ``init_opt(params)`` returns the ``opt_state``, a ``torch.optim.Adam``
+    (optax's defaults) over every master tensor of ``params``, which it
+    marks as requiring grad. ``train_step(params, opt_state, tokens) ->
+    (params, opt_state, loss)`` updates the masters in place and returns
+    them with the batch's loss before the update.
+
+    The loss is the mean cross-entropy of ``logits[:, :-1]`` against
+    ``tokens[:, 1:]`` plus ``aux_weight·aux``; aux, MoE's load-balance
+    loss, is zero until MoE is ported, so ``aux_weight`` changes nothing
+    yet and is kept for JAX's signature. ``accum_steps > 1`` splits
+    the batch into that many equal microbatches, one forward and backward
+    each (one microbatch's activations live at a time); their gradients are
+    summed, then scaled by 1/``accum_steps`` before the single Adam step:
+    the full-batch step's math, the mean of equal-size means being the
+    batch mean.
+    """
+    if cfg.n_experts is not None:
+        raise NotImplementedError(MOE_SLICE)
+
+    def loss_fn(params, tokens):
+        logits, aux = _qat_lm_forward_aux(params, tokens, cfg, attn_chunk)
+        ce = torch.nn.functional.cross_entropy(
+            logits[:, :-1].reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
+        return ce + aux_weight * aux
+
+    def init_opt(params):
+        return make_adam(params, learning_rate)
+
+    def train_step(params, opt_state, tokens):
+        b = tokens.shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
+        opt_state.zero_grad(set_to_none=True)
+        total = 0.0
+        for mb in tokens.long().reshape(accum_steps, b // accum_steps, -1):
+            loss = loss_fn(params, mb)
+            loss.backward()  # sums into .grad across microbatches
+            total = total + loss.detach()
+        if accum_steps > 1:
+            for p in param_leaves(params):
+                if p.grad is not None:
+                    p.grad.mul_(1.0 / accum_steps)
+        opt_state.step()
+        return params, opt_state, total / accum_steps
+
+    return init_opt, train_step

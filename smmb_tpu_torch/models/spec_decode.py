@@ -25,6 +25,9 @@ the full (k+1)-token chunk at the shared position, and a ragged cache's
 position, for the learned embedding, trails its buffer position and goes in
 as ``pos_ids``. Ragged caches are read by the plain attention math. Rope is
 refused there (dead slots would distort buffer-position rope offsets).
+
+``make_draft_distill_step`` trains a draft's masters to imitate the packed
+target, the step that makes speculative decoding pay.
 """
 
 from __future__ import annotations
@@ -32,13 +35,16 @@ from __future__ import annotations
 import torch
 
 from smmb_tpu_torch.models.lm import (
-    TRAINING_SLICE,
+    MOE_SLICE,
     TernaryLMConfig,
     lm_decode_step,
     lm_extend,
+    lm_forward,
     lm_init_cache,
     lm_prefill,
+    qat_lm_forward,
 )
+from smmb_tpu_torch.models.train import make_adam
 
 
 def _set_pos(cache: list, pos: int) -> list:
@@ -46,8 +52,46 @@ def _set_pos(cache: list, pos: int) -> list:
     return [{**c, "pos": pos} for c in cache]
 
 
-def make_draft_distill_step(*args, **kwargs):
-    raise NotImplementedError(TRAINING_SLICE.format("make_draft_distill_step"))
+def make_draft_distill_step(target: dict, target_cfg: TernaryLMConfig,
+                            draft_cfg: TernaryLMConfig, learning_rate: float = 1e-3,
+                            temperature: float = 2.0):
+    """(init_opt, distill_step) training a draft's MASTERS to imitate the
+    packed target: a random draft is accepted ~1/vocab of the time, a
+    distilled one tracks the target's argmax where it matters.
+
+    ``distill_step(draft_params, opt_state, tokens) -> (params, opt_state,
+    loss)``: soft cross-entropy at ``temperature`` between the frozen
+    target's logits and the draft's ``qat_lm_forward``, one Adam step
+    (``opt_state`` is the ``torch.optim.Adam`` of ``init_opt``, as in
+    ``make_lm_train_step``); the trained masters pack into the 2-bit draft
+    through ``pack_lm(quantize=True)``. The target's logits come from
+    ``lm_forward`` (f32) under ``torch.no_grad()``: on the card through its
+    kernels, on CPU tensors through their plain versions, the same function
+    (JAX takes the jnp path under ``stop_gradient``). Vocabularies must
+    match.
+    """
+    if target_cfg.vocab != draft_cfg.vocab:
+        raise ValueError(f"vocab mismatch: target {target_cfg.vocab} vs draft {draft_cfg.vocab}")
+    if draft_cfg.n_experts is not None:
+        raise NotImplementedError(MOE_SLICE)
+    inv_t = 1.0 / temperature
+
+    def init_opt(params):
+        return make_adam(params, learning_rate)
+
+    def distill_step(params, opt_state, tokens):
+        with torch.no_grad():
+            t_logits = lm_forward(target, tokens, target_cfg)
+        opt_state.zero_grad(set_to_none=True)
+        d_logits = qat_lm_forward(params, tokens, draft_cfg)
+        p = torch.softmax(t_logits * inv_t, dim=-1)
+        logq = torch.log_softmax(d_logits * inv_t, dim=-1)
+        loss = -torch.mean(torch.sum(p * logq, dim=-1))
+        loss.backward()
+        opt_state.step()
+        return params, opt_state, loss.detach()
+
+    return init_opt, distill_step
 
 
 def _prefill_both(target, draft, prompt, target_cfg, draft_cfg, kw, ragged=False):

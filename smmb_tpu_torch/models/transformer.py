@@ -1,4 +1,4 @@
-"""Ternary transformer block — the serving part (counterpart of
+"""Ternary transformer block (counterpart of
 smmb_tpu/models/transformer.py): pre-norm attention + MLP with residuals
 and RMSNorm, every matmul weight in the 2-bit packed format.
 
@@ -12,7 +12,8 @@ their size limits are re-derived from the CUDA kernels' shared memory.
 M = B·C rows, so a token's row is the same in a chunk as in its decode step;
 ``use_flash`` sends the attention to B9 (prefill) and B4 (decode, extend).
 Over an int8 cache (``init_block_cache(quantized=True)``) the attention
-layer takes B7 in B3's place and B8 in B4's.
+layer takes B7 in B3's place and B8 in B4's. ``qat_block_forward`` is the
+training forward on the masters (STE-ternarized dense products).
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ from smmb_tpu_torch.models.attention import (
     init_attention,
     init_kv_cache,
     pack_attention,
+    qat_attention_forward,
 )
-from smmb_tpu_torch.models.train import absmean_scale, ternarize_ste
+from smmb_tpu_torch.models.train import absmean_scale, qat_linear, ternarize_ste
 from smmb_tpu_torch.ops.dense import prelu
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
@@ -295,3 +297,16 @@ def block_extend(packed: dict, x: torch.Tensor, cache: dict,
     x = x + att
     return _mlp_half(packed, x, cfg, _make_spmm(compute_dtype, use_kernel),
                      compute_dtype, use_kernel), cache
+
+
+def qat_block_forward(params: dict, x: torch.Tensor, cfg: TernaryBlockConfig,
+                      attn_chunk: int | None = None) -> torch.Tensor:
+    """Training forward on the master weights: STE-ternarized projections
+    (differentiable) mirroring ``block_forward``'s math, so the trained
+    masters serve through ``pack_block(quantize=True)``. ``attn_chunk``:
+    the memory-efficient attention for long contexts."""
+    h = rmsnorm(x, params["norm1"], cfg.eps)
+    x = x + qat_attention_forward(params["attn"], h, cfg.attn, attn_chunk=attn_chunk)
+    h = rmsnorm(x, params["norm2"], cfg.eps)
+    up = prelu(qat_linear(h, params["w_up"], params["b_up"]), cfg.alpha)
+    return x + qat_linear(up, params["w_down"], params["b_down"])

@@ -19,6 +19,10 @@ quantize of B3's f32 output (codes within 1 and scales within 1e-5 of the
 plain version, whose f32 sums run in another order); B8 against its plain
 version as B4, and within 2e-2 relative of B4 on the dequantized cache (p
 rounds to the compute dtype after the v scale in B8, before it in B4).
+The packed VJP (B1 forward on W, backward on the packed Wᵀ): y, dx and db
+against autograd through the plain version at the fused kernels' f32 1e-4
+and bf16 2**-7 (bf16 x, y and dx; the backward rounds the masked gradient to
+bf16 before its product, as JAX's VJP casts it).
 """
 
 import numpy as np
@@ -33,6 +37,7 @@ from smmb_tpu_torch.kernels import flash_attention as fa
 from smmb_tpu_torch.kernels import flash_decode as fd
 from smmb_tpu_torch.kernels import fused_mlp as fk
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain, tile_for
+from smmb_tpu_torch.kernels.packed_vjp import make_packed_linear, pack_with_transpose
 from smmb_tpu_torch.models import attention as tattn
 from smmb_tpu_torch.models import lm as tlm
 from smmb_tpu_torch.models import mlp as tmlp
@@ -171,6 +176,47 @@ def test_packed_ternary_dense_on_the_card(cuda):
     layer.use_kernel = False
     ref = layer(x)
     assert_close(y, ref, 1e-4 * max(1.0, float(ref.abs().max())), "dense layer")
+
+
+def _vjp_pair(x, b, gy, w, wt, cdt, kernel):
+    """(y, dx, db) of one backward: through ``make_packed_linear`` (B1 on W
+    forward, on Wᵀ backward) or, ``kernel=False``, autograd through the
+    plain version."""
+    x = x.detach().clone().requires_grad_(True)
+    b = b.detach().clone().requires_grad_(True)
+    if kernel:
+        y = make_packed_linear(w, wt, alpha=ALPHA, compute_dtype=cdt)(x, b)
+    else:
+        y = packed_spmm_plain(x, w, b, ALPHA, compute_dtype=cdt)
+    (y.float() * gy).sum().backward()
+    return y.detach(), x.grad, b.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(8, 512, 256), (4, 1000, 600), (256, 4096, 4096)])
+def test_packed_linear_vjp_matches_plain_autograd(cuda, cdt, m, k, n):
+    """B1 forward on W and backward on the packed Wᵀ against autograd
+    through the plain version: f32 1e-4, bf16 (x, y and dx in bf16) 2**-7,
+    relative to max(1, max|·|); two launches, one without dx."""
+    rs = np.random.default_rng(m + k)
+    wd = rs.choice(np.array([-1.0, 0.0, 1.0], np.float32), size=(k, n), p=[0.05, 0.9, 0.05])
+    w, wt = pack_with_transpose(torch.from_numpy(wd).to(cuda))
+    x = torch.from_numpy(rs.uniform(-1, 1, (m, k)).astype(np.float32)).to(cuda, cdt)
+    b = torch.from_numpy(rs.uniform(-1, 1, (n,)).astype(np.float32)).to(cuda)
+    gy = torch.from_numpy(rs.uniform(-1, 1, (m, n)).astype(np.float32)).to(cuda)
+    before = packed_spmm.launches
+    got = _vjp_pair(x, b, gy, w, wt, cdt, True)
+    assert packed_spmm.launches == before + 2
+    want = _vjp_pair(x, b, gy, w, wt, cdt, False)
+    assert packed_spmm.launches == before + 2
+    for g, r, what in zip(got, want, ("y", "dx", "db")):
+        assert g.shape == r.shape
+        tol = FUSED_TOL[cdt] * max(1.0, float(r.float().abs().max()))
+        assert_close(g.float(), r.float(), tol, what)
+    layer = make_packed_linear(w, wt, alpha=ALPHA, compute_dtype=cdt)
+    (layer(x, b.detach().clone().requires_grad_(True)).float() * gy).sum().backward()
+    assert packed_spmm.launches == before + 3  # x needs no grad: no backward launch
 
 
 FUSED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}

@@ -40,6 +40,7 @@ from smmb_tpu_torch.utils import rng
 torch.set_num_threads(2)
 CFG = dict(vocab=512, d_model=512, n_heads=4, d_ff=1024, n_layers=2, max_len=32)
 JCFG, TCFG = jlm.TernaryLMConfig(**CFG), tlm.TernaryLMConfig(**CFG)
+MOE_CFG = tlm.TernaryLMConfig(**CFG, n_experts=4)
 
 
 @pytest.fixture(scope="module")
@@ -216,11 +217,11 @@ def test_generate_sampling_needs_a_generator_and_fits_max_len(lm_pair):
 
 @pytest.mark.parametrize("call,match", [
     (lambda p, t: tlm.TernaryLMConfig(**{**CFG, "n_experts": 4}).block, "MoE"),
-    (lambda p, t: tlm.qat_lm_forward({}, t, TCFG), "qat_lm_forward"),
-    (lambda p, t: tlm.make_lm_train_step(TCFG), "make_lm_train_step"),
+    (lambda p, t: tlm.qat_lm_forward({}, t, MOE_CFG), "MoE"),
+    (lambda p, t: tlm.make_lm_train_step(MOE_CFG), "MoE"),
     (lambda p, t: tlm.lm_forward(
         {**p, "blocks": [{**p["blocks"][0], "w_up_lora": (1, 2, 3)}]}, t, TCFG), "LoRA"),
-    (lambda p, t: tsd.make_draft_distill_step(p, TCFG, TCFG), "training"),
+    (lambda p, t: tsd.make_draft_distill_step(p, TCFG, MOE_CFG), "MoE"),
 ], ids=["moe", "qat_lm_forward", "make_lm_train_step", "lora", "make_draft_distill_step"])
 def test_left_out_options_raise(lm_pair, call, match):
     _, _, tpacked = lm_pair

@@ -99,8 +99,9 @@ def test_spec_guards_as_jax():
         tsd.generate_speculative(target[3], draft[3], toks, rcfg, cfg, 6, k=2)
     with pytest.raises(ValueError, match="buffer"):
         tsd.generate_speculative(target[3], draft[3], toks, cfg, cfg, 40, k=3)
-    with pytest.raises(NotImplementedError, match="training"):
-        tsd.make_draft_distill_step(target[3], target[1], draft[1])
+    with pytest.raises(ValueError, match="vocab"):
+        tsd.make_draft_distill_step(target[3], target[1],
+                                    tlm.TernaryLMConfig(**{**DRAFT, "vocab": 32}))
 
 
 def test_batched_spec_matches_plain_rows_jax_and_stats():
