@@ -17,7 +17,10 @@ which exits non-zero on failure:
    mode, at the test shapes and the headline shapes, with and without bias
    and PReLU, and the launch counter rising once per call; B1's row
    identity: in bf16 and int8, rows of M = 2, 5, 16, 17, 64 and 256 calls
-   bitwise the M = 1 calls, at 1024×8192 and 4096×4096;
+   bitwise the M = 1 calls, at 1024×8192 and 4096×4096; C1's reading: B1's
+   f32 headline call and the library's f32 product against f64 beside C1's
+   limits (B1's RMS error at most 1.25× the library's, its largest at most
+   2×), logged while C1 is open;
 4. the main path at full width: the packed ternary MLP of
    ``python -m smmb_tpu_torch mlp`` (depth 4, dim 4096, batch 256, density
    1/10, bf16) with exactly one kernel launch per layer, and the MLP of
@@ -176,6 +179,31 @@ which exits non-zero on failure:
     draft (the target's logits through B1, counted), the loss falling, the
     argmax agreement logged before and after. Each training step's time and
     peak device memory are logged beside the card's name and power limit.
+    C1's reading on each of the served forward's 25 B1 calls (as in phase
+    3, logged), and a second, well-conditioned LM (LeCun-scale masters, seed 26,
+    trained as the first): its served f32 logits on the kernels within the
+    rule 2e-4 + 1.1e-4·max|logit| of ``qat_lm_forward`` and of the plain
+    serving path at every one of the 2×256 positions, its B1 calls read too;
+25. the MoE LM at the ``lm`` widths with 8 experts, top-2: ``generate``
+    (bf16, 32-token prompt, 64 steps) with and without flash, B1 launched
+    2·E times a layer a call besides the projections and the head, B3, B5,
+    B6 and B7 never, B4 and B9 only under flash; the teacher-forced f32
+    logits: every B1 call within 1e-4 of its plain version on its own
+    input, each block and the head on the kernels within its stage's rule
+    of the plain products at every position (both fed the plain path's
+    input), a position exempt only where its token was routed to other
+    experts at a near tie of the plain gates (rank k against k+1 within
+    1e-4 of the largest; counted), a route that differs at a wider gap
+    failing; µs/token of ``lm --experts 8 --top-k 2``; three QAT steps at
+    phase 24's batch, taken again by the port on CPU tensors: on unit-scale
+    masters the first loss within 1e-3 of the CPU's (the later ones
+    logged), on LeCun-scale ones the first step's loss and gradients within
+    3e-5 of the CPU's (of max|g| for gradients) and the loss falling; the
+    aux positive and ``aux_weight`` moving the loss;
+26. LoRA on phase 8's LM, rank 8 on wq, wv, w_up and w_down: one
+    ``make_lora_train_step`` step (the base's packed bytes unchanged),
+    ``generate`` on the adapted model on B1 alone (B3, B5 and B6 never),
+    and its served f32 logits held call by call and stage by stage.
 
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
@@ -505,7 +533,8 @@ def main() -> int:
     check(y3.shape == (3, 4, 256), "3-D x keeps its leading dims")
     check(float((y3 - ref3).abs().max()) <= 1e-4 * max(1.0, float(ref3.abs().max())),
           "3-D x kernel vs plain")
-    log(f"phase 3 passed: {n_checked + 1} kernel calls checked against plain")
+    c1 = _read_c1([read_b1_f32_headline(torch, dev)], "B1 f32 at the headline")
+    log(f"phase 3 passed: {n_checked + 1} kernel calls checked against plain; C1 {c1}")
 
     # ---------------------------------------------------------------- 4
     cfg, packed, x, _ = build_mlp(4, 4096, 256, 10, dev)
@@ -661,6 +690,8 @@ def main() -> int:
     pipe_rows = time_serving_controls(torch, dev, spec, pipe)
     run_finetune_and_mlp_qat(torch, dev, card)
     run_lm_training(torch, dev, card)
+    run_moe_lm(torch, dev, card)
+    run_lora_lm(torch, dev, card, lm)
 
     main_mode = per_mode["bf16"]  # the main path's mode and per-layer shape
     summary = {"kernels": [{
@@ -1109,7 +1140,16 @@ def run_lm_path(torch, dev) -> dict:
     for cdt, tol in ((bf16, 2.0 ** -7), (torch.float32, 1e-4)):
         ids = toks if cdt == bf16 else generate(packed, prompt, cfg, steps,
                                                 compute_dtype=cdt)
-        kern = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, True)
+        call_errs, readings = [], []
+        with _held_b1_calls(torch, call_errs, readings):
+            kern = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, True)
+        # every B1 call on its own input, where rounding cannot compound
+        check(len(call_errs) == 6 * layers + steps and max(call_errs) <= tol,
+              f"LM {cdt}: {len(call_errs)} B1 calls, worst vs plain {max(call_errs):.3e}")
+        if readings:  # f32: C1's reading at the path's shapes, logged
+            rms, mx = _c1_ratios(readings)
+            log(f"LM f32 path: {len(readings)} B1 calls against f64, B1/library RMS ratio "
+                f"at most {rms:.3f}, max ratio at most {mx:.3f} (C1, logged)")
         with plain_kernels():
             plain = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, True)
         unfused = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, False)
@@ -1131,7 +1171,8 @@ def run_lm_path(torch, dev) -> dict:
               f"LM {cdt}: a token differs where the plain top-2 gap exceeds {tol:.1e}")
         log(f"LM {cdt} logits vs plain over {steps} steps: median {med:.2e}, worst "
             f"{worst:.2e} (plain orders' spread {float(spread.max()):.2e}, tolerance "
-            f"{tol:.1e}); {int(differs.sum())} near-tied tokens differ")
+            f"{tol:.1e}); {int(differs.sum())} near-tied tokens differ; "
+            f"{len(call_errs)} B1 calls within {max(call_errs):.2e} of plain")
     r = run_lm_bench(cfg, 1, prompt_len, steps, reps=3, device=dev)
     rp = _plain_lm_tokens_time(torch, cfg, packed, prompt, steps)
     print(json.dumps({"lm": "generate", "layers": layers, "d_model": 1024,
@@ -1188,7 +1229,7 @@ def plain_kernels():
     from smmb_tpu_torch.kernels import flash_decode as fd
     from smmb_tpu_torch.kernels import fused_mlp as fk
     from smmb_tpu_torch.kernels.packed_spmm import packed_spmm_plain
-    from smmb_tpu_torch.models import attention, lm, transformer
+    from smmb_tpu_torch.models import attention, lm, moe, transformer
 
     def plain_of(fn):
         return lambda *a, block_h=None, block_n=None, **k: fn(*a, **k)
@@ -1200,7 +1241,8 @@ def plain_kernels():
               for n in ("flash_attention_decode", "flash_attention_chunk",
                         "flash_attention_decode_quant", "flash_attention_chunk_quant")]
     swaps += [(fa, "flash_attention", fa.flash_attention_plain)]
-    swaps += [(m, "packed_spmm", packed_spmm_plain) for m in (attention, transformer, lm)]
+    swaps += [(m, "packed_spmm", packed_spmm_plain)
+              for m in (attention, transformer, lm, moe)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -2120,9 +2162,13 @@ def run_int8_lm_path(torch, dev, lm) -> dict:
         for cdt, tol in ((bf16, 2.0 ** -7), (f32, 1e-4)):
             ids = toks[flash] if cdt == bf16 else generate(
                 packed, prompt, cfg, steps, compute_dtype=cdt, kv_quant=True, use_flash=flash)
-            caches = []
-            kern = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, True, flash, True,
-                                   caches)
+            caches, call_errs = [], []
+            with _held_b1_calls(torch, call_errs):
+                kern = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, True, flash, True,
+                                       caches)
+            check(len(call_errs) == 6 * layers + steps and max(call_errs) <= tol,
+                  f"int8 LM {cdt}: {len(call_errs)} B1 calls, worst vs plain "
+                  f"{max(call_errs):.3e}")
             with plain_kernels():
                 plain = _teacher_forced(torch, cfg, packed, prompt, ids, cdt, True, flash, True,
                                         caches)
@@ -2665,6 +2711,90 @@ def time_serving_controls(torch, dev, spec, pipe) -> list:
     }]
 
 
+# ------------------------------------------------------------ C1: B1 f32 vs f64
+
+# C1 (ROADMAP §C) is decided per call, where rounding cannot compound: B1's
+# f32 output and the library's f32 product of the same operands
+# (``packed_spmm_plain``: the decode, then torch.matmul with TF32 off, the
+# flag ``ops.dense.full_f32_matmul`` sets), each against an f64 product,
+# relative to max(1, max|y64|). C1's limits: at every call B1's RMS error at
+# most C1_RMS_FACTOR times the library's and its largest error at most
+# C1_MAX_FACTOR times the library's. B1's f32 mode misses them and C1 is
+# open, so the readings and the calls beyond the limits are logged, not
+# gated; the repair that meets them re-rolls phases 8 and 18 (ROADMAP §C).
+C1_RMS_FACTOR = 1.25
+C1_MAX_FACTOR = 2.0
+
+
+def _f64_reading(torch, x, w, b, alpha, y) -> dict:
+    """One B1 f32 call ``y`` on the operands it received (x already scaled)
+    beside the library's f32 product, both against
+    ``PReLU(x·W + b, α)`` in f64: RMS and max of |error| / max(1, max|y64|)."""
+    from smmb_tpu_torch.formats.packed import unpack_ternary
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm_plain
+
+    x2 = x.reshape(-1, x.shape[-1])
+    with torch.no_grad():
+        y64 = x2.double() @ unpack_ternary(w, torch.float64)
+        if b is not None:
+            y64 = y64 + b.double()
+        if alpha is not None:  # the f32 slope both products use
+            y64 = torch.where(y64 > 0, y64, float(torch.tensor(alpha)) * y64)
+        lib = packed_spmm_plain(x2, w, b, alpha, compute_dtype=torch.float32)
+        scale = max(1.0, float(y64.abs().max()))
+
+        def stats(a):
+            e = (a.reshape(y64.shape).double() - y64).abs() / scale
+            return float(e.square().mean().sqrt()), float(e.max())
+
+        (b1_rms, b1_max), (lib_rms, lib_max) = stats(y), stats(lib)
+    return {"shape": [x2.shape[0], w.rows, w.cols], "b1_rms": b1_rms, "b1_max": b1_max,
+            "lib_rms": lib_rms, "lib_max": lib_max}
+
+
+def _ratio(a: float, b: float) -> float:
+    return a / b if b > 0 else (0.0 if a == 0 else math.inf)
+
+
+def _c1_ratios(readings: list) -> tuple:
+    """The worst B1/library RMS and max ratios of C1 readings."""
+    return (max(_ratio(r["b1_rms"], r["lib_rms"]) for r in readings),
+            max(_ratio(r["b1_max"], r["lib_max"]) for r in readings))
+
+
+def _read_c1(readings: list, what: str) -> dict:
+    """C1's reading of B1 f32 calls: the worst B1/library ratios and the
+    calls beyond C1's limits, logged (C1 is open, so not gated)."""
+    check(len(readings) > 0, f"{what}: no B1 f32 call was read against f64")
+    rms, mx = _c1_ratios(readings)
+    beyond = sum(not (r["b1_rms"] <= C1_RMS_FACTOR * r["lib_rms"]
+                      and r["b1_max"] <= C1_MAX_FACTOR * r["lib_max"]) for r in readings)
+    log(f"{what}: {len(readings)} B1 f32 calls against f64 (C1, open, logged): B1/library "
+        f"RMS ratio at most {rms:.3f} (limit {C1_RMS_FACTOR}), max ratio at most {mx:.3f} "
+        f"(limit {C1_MAX_FACTOR}), {beyond} calls beyond; B1 RMS "
+        f"{min(r['b1_rms'] for r in readings):.3e}–{max(r['b1_rms'] for r in readings):.3e}, "
+        f"library RMS {min(r['lib_rms'] for r in readings):.3e}–"
+        f"{max(r['lib_rms'] for r in readings):.3e}")
+    return {"calls": len(readings), "beyond_limits": beyond, "worst_rms_ratio": rms,
+            "worst_max_ratio": mx}
+
+
+def read_b1_f32_headline(torch, dev) -> dict:
+    """Phase 3: B1's f32 call at the headline (M=256, K=N=4096, ~10% nnz,
+    bias and PReLU) read against f64 beside the library (C1)."""
+    from smmb_tpu_torch.formats.packed import pack_ternary_device
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.utils import rng
+
+    gen = rng.make_generator(3, dev)
+    x = rng.rand_dense(gen, (256, 4096))
+    w = pack_ternary_device(rng.rand_ternary(gen, (4096, 4096), non_zero=10))
+    b = rng.rand_dense(gen, (4096,))
+    reading = _f64_reading(torch, x, w, b, ALPHA, packed_spmm(x, w, b, ALPHA))
+    print(json.dumps({"c1_headline": reading}), flush=True)
+    return reading
+
+
 # ------------------------------------------------------------ training slice
 
 FINETUNE = dict(depth=4, dim=4096, batch=256, non_zero=10)  # BASELINE config 5
@@ -2742,21 +2872,24 @@ def _served_stages(torch, packed, tokens, cfg) -> list:
 
 
 @contextlib.contextmanager
-def _held_b1_calls(torch, errs):
+def _held_b1_calls(torch, errs, readings=None):
     """B1 on the LM path with each call held against ``packed_spmm_plain``
     on the same input: appends max|y - plain| / max(1, max|plain|) to
-    ``errs``."""
+    ``errs``, and, when ``readings`` is a list, each f32 call's reading
+    against f64 (``_f64_reading``) to it."""
     from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
-    from smmb_tpu_torch.models import attention, lm, transformer
+    from smmb_tpu_torch.models import attention, lm, moe, transformer
 
     def held(x, w, b=None, alpha=None, *, compute_dtype=torch.float32):
         y = packed_spmm(x, w, b, alpha, compute_dtype=compute_dtype)
         ref = packed_spmm_plain(x.reshape(-1, x.shape[-1]), w, b, alpha,
                                 compute_dtype=compute_dtype).reshape(y.shape)
         errs.append(float((y - ref).abs().max()) / max(1.0, float(ref.abs().max())))
+        if readings is not None and compute_dtype == torch.float32:
+            readings.append(_f64_reading(torch, x, w, b, alpha, y))
         return y
 
-    mods = (attention, transformer, lm)
+    mods = (attention, transformer, lm, moe)
     try:
         for mod in mods:
             mod.packed_spmm = held
@@ -2764,6 +2897,93 @@ def _held_b1_calls(torch, errs):
     finally:
         for mod in mods:
             mod.packed_spmm = packed_spmm
+
+
+def _lecun(params: dict) -> dict:
+    """``init_lm`` masters with every projection's and the head's master
+    times 1/sqrt(fan_in) (LeCun scale: attention scores O(sqrt(hd)));
+    embeddings, norms and biases as they are. Works on dense and MoE trees."""
+    def scaled(w):
+        return (w / math.sqrt(w.shape[-2])).detach()
+
+    for blk in params["blocks"]:
+        for name in ("wq", "wk", "wv", "wo"):
+            blk["attn"][name] = scaled(blk["attn"][name])
+        tree = blk["moe"] if "moe" in blk else blk
+        for name in ("w_up", "w_down"):
+            tree[name] = scaled(tree[name])
+    params["head"] = scaled(params["head"])
+    return params
+
+
+def run_conditioned_lm(torch, dev, card) -> dict:
+    """Phase 24, second case: a well-conditioned LM at the ``lm`` widths
+    (``_lecun`` masters from seed 26), three QAT steps as the first case
+    takes them, packed with ``quantize=True``; its served f32 logits on the
+    kernels held at every one of the 2×256 positions within the LM rule
+    2e-4 + 1.1e-4·max|logit| of ``qat_lm_forward`` and of the plain serving
+    path, and its B1 calls read against f64 (C1)."""
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.lm import (
+        TernaryLMConfig,
+        init_lm,
+        lm_forward,
+        make_lm_train_step,
+        pack_lm,
+        qat_lm_forward,
+    )
+    from smmb_tpu_torch.utils import rng
+
+    (batch, seq), steps = LM_TRAIN_BATCH, 3
+    cfg = TernaryLMConfig(**LM_TRAIN, max_len=seq)
+    gen = rng.make_generator(26, dev)
+    params = _lecun(init_lm(gen, cfg))
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=dev)
+    init_opt, train_step = make_lm_train_step(cfg, learning_rate=1e-3, accum_steps=2,
+                                              attn_chunk=64)
+    opt = init_opt(params)
+
+    def step():
+        nonlocal params, opt
+        params, opt, loss = train_step(params, opt, tokens)
+        return float(loss)
+
+    losses, ms, peak = zip(*(_timed_step(torch, step) for _ in range(steps)))
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"well-conditioned LM QAT: the loss did not fall: {losses}")
+    row = _log_steps("well-conditioned LM QAT (LeCun masters, seed 26)", card, list(losses),
+                     list(ms), list(peak))
+    ev = tokens[:2]
+    with torch.no_grad():
+        packed = pack_lm(params, quantize=True)
+        qat = qat_lm_forward(params, ev, cfg)
+        packed_spmm.launches = 0
+        served = lm_forward(packed, ev, cfg)
+        torch.cuda.synchronize()
+        launches = packed_spmm.launches
+        plain = lm_forward(packed, ev, cfg, use_kernel=False)
+        errs, readings = [], []
+        with _held_b1_calls(torch, errs, readings):
+            lm_forward(packed, ev, cfg)
+    check(launches == 6 * cfg.n_layers + 1, f"served LM forward launched B1 {launches} times")
+    check(bool(torch.isfinite(served).all()), "well-conditioned served logits finite")
+    stats = {}
+    for name, ref in (("kernels vs QAT", qat), ("kernels vs plain serving", plain)):
+        e = (served - ref).abs().amax(-1).flatten()
+        lim = 2e-4 + 1.1e-4 * float(ref.abs().max())
+        stats[name] = {"rule": lim, "median": float(e.median()), "worst": float(e.max()),
+                       "beyond_rule": int((e > lim).sum()), "positions": e.numel()}
+    log("well-conditioned LM served (lm_forward, f32 kernels): " + "; ".join(
+        f"{k}: median {v['median']:.3e}, worst {v['worst']:.3e} (rule {v['rule']:.3e}), "
+        f"{v['beyond_rule']} of {v['positions']} beyond" for k, v in stats.items())
+        + f"; max|logit| {float(qat.abs().max()):.3f}; B1 calls vs plain {max(errs):.3e}")
+    for name, v in stats.items():
+        check(v["beyond_rule"] == 0, f"well-conditioned LM, {name}: {v['beyond_rule']} "
+              f"positions beyond the rule {v['rule']:.3e} (worst {v['worst']:.3e})")
+    check(max(errs) <= 1e-4, f"well-conditioned LM: B1 calls vs plain {max(errs):.3e} > 1e-4")
+    c1 = _read_c1(readings, "phase 24 well-conditioned LM")
+    return {**row, "served": stats, "b1_call_worst": max(errs), "c1": c1,
+            "c1_readings": readings}
 
 
 def run_finetune_and_mlp_qat(torch, dev, card) -> None:
@@ -2958,8 +3178,8 @@ def run_lm_training(torch, dev, card) -> None:
         plain = lm_forward(packed, ev, cfg, use_kernel=False)
         qat1 = qat_lm_forward(params, ev[:1], cfg)
         stages = _served_stages(torch, packed, ev, cfg)
-        call_errs = []
-        with _held_b1_calls(torch, call_errs):
+        call_errs, readings = [], []
+        with _held_b1_calls(torch, call_errs, readings):
             lm_forward(packed, ev, cfg)
     check(launches == 6 * layers + 1, f"served LM forward launched B1 {launches} times")
     check(bool(torch.isfinite(served).all()), "served LM logits finite")
@@ -2998,6 +3218,8 @@ def run_lm_training(torch, dev, card) -> None:
     for name, v in staged.items():
         check(v["worst"] <= v["rule"], f"LM served, {name} on the kernels vs the plain "
               f"products: worst position {v['worst']:.3e} > {v['rule']:.3e}")
+    out["lm_qat"]["c1"] = _read_c1(readings, "phase 24 served LM")
+    out["lm_qat"]["c1_readings"] = readings
 
     gsteps, prompt = 16, tokens[:1, :32]
     counted = (packed_spmm, fk.fused_norm_qkv, fk.fused_block_tail, fk.fused_mlp)
@@ -3016,6 +3238,7 @@ def run_lm_training(torch, dev, card) -> None:
     out["lm_qat"]["generate_launches"] = launches
     log(f"generate on the trained, packed LM ({gsteps} steps, bf16): launches {launches}")
     del params, opt, packed
+    out["conditioned"] = run_conditioned_lm(torch, dev, card)
 
     tcfg, dcfg = spec_bench.configs()
     target, _, _ = spec_bench.build(tcfg, dcfg, 32, device=dev)
@@ -3056,6 +3279,374 @@ def run_lm_training(torch, dev, card) -> None:
     print(json.dumps({"phase": 24, **out}), flush=True)
     log(f"phase 24 passed: distillation argmax agreement {a0:.4f} -> {a1:.4f} "
         "(logged, not gated)")
+
+
+# ------------------------------------------------------------ MoE and LoRA slice
+
+MOE_LM = dict(n_experts=8, top_k=2)  # Mixtral's routing at the `lm` widths
+NEAR_GATE = 1e-4  # a route flip is exempt only at a rank-k gap under this share
+
+
+def _moe_routes(torch, blk, x, bcfg):
+    """(chosen experts (N, k), ascending; the gates sorted descending (N, E))
+    of an MoE half's router on the residual stream ``x``, as serving routes."""
+    from smmb_tpu_torch.models import moe
+    from smmb_tpu_torch.models.transformer import rmsnorm
+
+    h = rmsnorm(x, blk["norm2"], bcfg.eps).reshape(-1, x.shape[-1])
+    logits = moe.router_logits(h, blk["moe"]["router"])
+    expert = moe._assign(logits, moe._round8(h.shape[0]), bcfg.top_k)[0]
+    return (expert.sort(dim=1).values,
+            torch.softmax(logits, dim=-1).sort(dim=-1, descending=True).values)
+
+
+def _hold_stages(torch, what, packed, tokens, cfg) -> dict:
+    """Each block and the head of ``lm_forward`` (f32) on the kernels
+    against the plain products, both fed the plain path's input, held at
+    every position within the stage's rule 2e-4 + 1.1e-4·max|·|. In an MoE
+    block a position beyond the rule is exempt only where the two paths
+    routed its token to different experts at a near tie of the plain
+    path's gates (rank k against rank k+1 within NEAR_GATE of the largest);
+    a different route at a wider gap fails."""
+    from smmb_tpu_torch.models import lm
+    from smmb_tpu_torch.models import moe_block as mb
+    from smmb_tpu_torch.models import transformer as tb
+    from smmb_tpu_torch.models.attention import attention_forward
+
+    f32, bcfg = torch.float32, cfg.block
+    x = packed["embed"][tokens] + packed["pos"][None, :tokens.shape[1]]
+    out, exempt = {}, 0
+    for i, blk in enumerate(packed["blocks"]):
+        flips = None
+        if "moe" in blk:
+            h = tb.rmsnorm(x, blk["norm1"], bcfg.eps)
+            mids = [x + attention_forward(blk["attn"], h, bcfg.attn, use_kernel=uk)
+                    for uk in (True, False)]
+            kern = mb._moe_half(blk, mids[0], bcfg, f32, True)
+            plain = mb._moe_half(blk, mids[1], bcfg, f32, False)
+            (ek, _), (ep, gates) = (_moe_routes(torch, blk, m, bcfg) for m in mids)
+            flips = (ek != ep).any(dim=1)
+            k = bcfg.top_k
+            near = gates[:, k - 1] - gates[:, k] <= NEAR_GATE * gates[:, 0]
+            check(not bool((flips & ~near).any()), f"{what}, block {i}: "
+                  f"{int((flips & ~near).sum())} tokens routed to other experts on the "
+                  "kernels at a gate gap wider than a near tie")
+        else:
+            kern = tb.block_forward(blk, x, bcfg)
+            plain = tb.block_forward(blk, x, bcfg, use_kernel=False)
+        err = (kern - plain).abs().amax(-1).flatten()
+        rule = 2e-4 + 1.1e-4 * float(plain.abs().max())
+        beyond = err > rule
+        if flips is not None:
+            exempt += int((beyond & flips).sum())
+            beyond = beyond & ~flips
+        out[f"block {i}"] = {"worst": float(err.max()), "rule": rule,
+                             "route_flips": 0 if flips is None else int(flips.sum())}
+        check(not bool(beyond.any()), f"{what}, block {i} on the kernels vs the plain "
+              f"products: {int(beyond.sum())} positions beyond the rule {rule:.3e} "
+              f"(worst {float(err.max()):.3e})")
+        x = plain
+    h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
+    kern = lm._head_logits(packed, h, cfg, f32, True)
+    plain = lm._head_logits(packed, h, cfg, f32, False)
+    err = (kern - plain).abs().amax(-1).flatten()
+    rule = 2e-4 + 1.1e-4 * float(plain.abs().max())
+    out["head"] = {"worst": float(err.max()), "rule": rule}
+    check(float(err.max()) <= rule, f"{what}, the head on the kernels vs the plain "
+          f"products: worst position {float(err.max()):.3e} > {rule:.3e}")
+    log(f"{what}, stages on the kernels vs the plain products (the plain path's input): "
+        + "; ".join(f"{k} worst {v['worst']:.3e} (rule {v['rule']:.3e}"
+                    + (f", {v['route_flips']} near-tie route flips" if v.get("route_flips")
+                       else "") + ")" for k, v in out.items())
+        + f"; {exempt} positions exempt by a near-tie route flip")
+    return {"stages": out, "exempt_positions": exempt}
+
+
+def _counted():
+    from smmb_tpu_torch.kernels import flash_attention as fa
+    from smmb_tpu_torch.kernels import flash_decode as fd
+    from smmb_tpu_torch.kernels import fused_mlp as fk
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+
+    return (packed_spmm, fk.fused_norm_qkv, fk.fused_block_tail, fk.fused_mlp,
+            fk.fused_norm_qkv_quant, fa.flash_attention, fd.flash_attention_decode)
+
+
+def _generate_counted(torch, packed, prompt, cfg, steps, **kw):
+    """(tokens, launches of every LM kernel) of one ``generate`` call, the
+    counts set to 0 just before it and read just after."""
+    from smmb_tpu_torch.models.lm import generate
+
+    counted = _counted()
+    torch.cuda.synchronize()
+    for fn in counted:
+        fn.launches = 0
+    toks = generate(packed, prompt, cfg, steps, **kw)
+    torch.cuda.synchronize()
+    return toks, {fn.__name__: fn.launches for fn in counted}
+
+
+def run_moe_lm(torch, dev, card) -> None:
+    """Phase 25: the MoE LM (A3.3) at the ``lm`` widths with 8 experts,
+    top-2: ``generate`` with and without flash and its launch counts, the
+    teacher-forced f32 logits held call by call and stage by stage, the
+    ``lm --experts 8 --top-k 2`` bench, and three QAT steps."""
+    from smmb_tpu_torch.bench.lm_bench import build_lm, config_from_args, parser, run_lm_bench
+    from smmb_tpu_torch.models.lm import TernaryLMConfig
+
+    layers, prompt_len, steps, e = LM_TRAIN["n_layers"], 32, 64, MOE_LM["n_experts"]
+    cfg = TernaryLMConfig(**LM_TRAIN, max_len=prompt_len + 3 * steps, **MOE_LM)
+    packed, prompt = build_lm(cfg, 1, prompt_len, device=dev)
+    out = {}
+    # B1: per layer in the prefill 6 projections and 2 per expert; per
+    # layer a decode step the fused QKV plane, wo and 2 per expert; the
+    # head once in the prefill and once a step. No fused kernel (the MoE
+    # half has no MLP; its attention gets normalized input, no prenorm).
+    b1 = layers * (6 + 2 * e) + 1 + steps * (layers * (2 + 2 * e) + 1)
+    for flash in (False, True):
+        toks, launches = _generate_counted(torch, packed, prompt, cfg, steps,
+                                           compute_dtype=torch.bfloat16, use_flash=flash)
+        log(f"MoE generate (E={e}, top-2, bf16, flash={flash}): launches {launches}")
+        check(toks.shape == (1, steps) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab, "MoE generate tokens shape / range")
+        want = {"packed_spmm": b1, "fused_norm_qkv": 0, "fused_block_tail": 0,
+                "fused_mlp": 0, "fused_norm_qkv_quant": 0,
+                "flash_attention": layers if flash else 0,
+                "flash_attention_decode": layers * steps if flash else 0}
+        check(launches == want, f"MoE generate launches {launches} != {want}")
+        out[f"generate_launches{'_flash' if flash else ''}"] = launches
+
+    # teacher-forced f32 on the kernels' own tokens: every B1 call of the
+    # prefill and the decode steps against its plain version on its own
+    # input, then each stage of the forward over the same 96 tokens
+    ids, _ = _generate_counted(torch, packed, prompt, cfg, steps, compute_dtype=torch.float32)
+    errs = []
+    with _held_b1_calls(torch, errs):
+        kern = _teacher_forced(torch, cfg, packed, prompt, ids, torch.float32, True)
+    check(torch.equal(kern.argmax(-1), ids[0]),
+          "teacher-forced MoE kernel path reproduces generate's tokens")
+    # the teacher-forced run takes one decode step fewer than generate
+    check(len(errs) == b1 - (layers * (2 + 2 * e) + 1) and max(errs) <= 1e-4,
+          f"MoE teacher-forced: {len(errs)} B1 calls, worst vs plain {max(errs):.3e} > 1e-4")
+    with plain_kernels():
+        plain = _teacher_forced(torch, cfg, packed, prompt, ids, torch.float32, True)
+    e2e = (kern - plain).abs().amax(-1)
+    with torch.no_grad():
+        stages = _hold_stages(torch, "MoE LM", packed, torch.cat([prompt, ids], 1), cfg)
+    out.update(b1_calls=len(errs), b1_call_worst=max(errs), **stages,
+               end_to_end={"median": float(e2e.median()), "worst": float(e2e.max()),
+                           "rule": 2e-4 + 1.1e-4 * float(plain.abs().max())})
+    log(f"MoE teacher-forced f32: {len(errs)} B1 calls within {max(errs):.3e} of plain; end "
+        f"to end (logged) median {float(e2e.median()):.3e}, worst {float(e2e.max()):.3e}")
+
+    args = parser().parse_args(["--experts", str(e), "--top-k", str(MOE_LM["top_k"])])
+    r = run_lm_bench(config_from_args(args), args.batch, args.prompt_len, args.steps,
+                     reps=3, device=dev)
+    out["lm_bench"] = {"us_per_token": r.per_token_s * 1e6, "tok_per_s": r.tokens_per_s,
+                       "lo_ms": r.lo_s * 1e3, "hi_ms": r.hi_s * 1e3, "card": card}
+    log(f"lm --experts {e} --top-k {MOE_LM['top_k']}: {r.per_token_s * 1e6:.1f} us/token, "
+        f"{r.tokens_per_s:.0f} tok/s ({card})")
+    del packed
+
+    # QAT at phase 24's batch, twice, each case's steps also taken by the
+    # port on CPU tensors from the same masters and tokens. On unit-scale
+    # masters (phase 24's first case) the first step's loss is held against
+    # the CPU's and the later ones logged: one Adam step of a model this
+    # chaotic lands elsewhere under another f32 order. On LeCun-scale
+    # masters (phase 24's second case) the first step's loss and gradients
+    # are held against the CPU's at the twins' rule and the loss falls. In
+    # both the aux is positive and aux_weight moves the loss.
+    out["qat"] = {name: _moe_qat(torch, dev, card, seed, lecun)
+                  for name, seed, lecun in (("unit_scale", 27, False), ("lecun", 29, True))}
+    print(json.dumps({"phase": 25, **out}), flush=True)
+    log("phase 25 passed")
+
+
+# the unit-scale MoE QAT case's first loss on the card against the port's on
+# CPU tensors, relative (a forward on the same masters; set before the run
+# that read it). After the first Adam step the two trajectories part (PR
+# 17: 9.3e-3 at the second step), so the later steps are logged.
+MOE_QAT_CPU_RTOL = 1e-3
+# the LeCun-scale case's first step against the CPU's, as the training twins
+# hold one step: the loss within 3e-5 of it, every gradient within 3e-5 of
+# the largest |g| of all tensors
+MOE_QAT_GRAD_REL = 3e-5
+
+
+def _moe_qat(torch, dev, card, seed, lecun) -> dict:
+    """Three MoE LM QAT steps at phase 24's batch (accum 2, attn_chunk 64)
+    from seed ``seed``, taken again on CPU tensors (three steps on unit-scale
+    masters, one on LeCun-scale ones) and held against them; the loss must
+    fall when ``lecun``."""
+    from smmb_tpu_torch.models.lm import (
+        TernaryLMConfig,
+        _qat_lm_forward_aux,
+        init_lm,
+        make_lm_train_step,
+    )
+    from smmb_tpu_torch.utils import rng
+
+    (batch, seq) = LM_TRAIN_BATCH
+    cfg = TernaryLMConfig(**LM_TRAIN, max_len=seq, **MOE_LM)
+    gen = rng.make_generator(seed, dev)
+    params = init_lm(gen, cfg)
+    params = _lecun(params) if lecun else _masters(params)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen, device=dev)
+    on_cpu = (_map_tree(lambda t: t.detach().to("cpu", copy=True), params), tokens.cpu())
+    ref = _map_tree(lambda t: t.detach().clone(), params)
+    init0, step0 = make_lm_train_step(cfg, learning_rate=1e-3, accum_steps=2, attn_chunk=64,
+                                      aux_weight=0.0)
+    _, _, loss0 = step0(ref, init0(ref), tokens)
+    loss0 = float(loss0)
+    del ref
+    init_opt, train_step = make_lm_train_step(cfg, learning_rate=1e-3, accum_steps=2,
+                                              attn_chunk=64)
+    opt = init_opt(params)
+    with torch.no_grad():
+        aux = float(_qat_lm_forward_aux(params, tokens[:4], cfg, attn_chunk=64)[1])
+    grads = []
+
+    def step():
+        nonlocal params, opt
+        params, opt, loss = train_step(params, opt, tokens)
+        if lecun and not grads:  # the first step's gradients, left in .grad
+            grads.extend(_grads(torch, params))
+        return float(loss)
+
+    what = f"MoE LM QAT ({'LeCun' if lecun else 'unit'}-scale masters, seed {seed})"
+    losses, ms, peak = zip(*(_timed_step(torch, step) for _ in range(3)))
+    check(all(math.isfinite(x) for x in losses), f"{what}: losses {losses}")
+    cpu_losses, cpu_ms, cpu_grads = _cpu_qat_steps(torch, cfg, *on_cpu, 1 if lecun else 3)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    row_cpu = {"cpu_losses": cpu_losses, "cpu_step_ms": cpu_ms, "card_vs_cpu_rel": rel}
+    msg = (f"{what} on CPU tensors (the port, {torch.get_num_threads()} threads): losses "
+           f"{', '.join(f'{x:.6g}' for x in cpu_losses)}; step s "
+           f"{', '.join(f'{x / 1e3:.1f}' for x in cpu_ms)}; card against CPU, relative: "
+           f"{', '.join(f'{x:.3e}' for x in rel)}")
+    if lecun:
+        gmax = max(float(g.abs().max()) for g in cpu_grads)
+        gerr = max(float((a - b).abs().max()) for a, b in zip(grads, cpu_grads))
+        row_cpu.update(grad_err=gerr, grad_max=gmax)
+        log(f"{msg}; first step's gradients within {gerr:.3e} of the CPU's, max|g| "
+            f"{gmax:.3e} (limits {MOE_QAT_GRAD_REL} of the loss and of max|g|)")
+        check(rel[0] <= MOE_QAT_GRAD_REL and gerr <= MOE_QAT_GRAD_REL * gmax,
+              f"{what}: the first step against the CPU's: loss {rel[0]:.3e}, gradients "
+              f"{gerr:.3e} of max|g| {gmax:.3e}")
+        check(losses[-1] < losses[0], f"{what}: the loss did not fall: {losses}")
+    else:
+        log(f"{msg} (limit {MOE_QAT_CPU_RTOL} on the first; the later ones logged)")
+        check(rel[0] <= MOE_QAT_CPU_RTOL,
+              f"{what}: first loss {losses[0]!r} against the CPU's {cpu_losses[0]!r}")
+    check(aux > 0, f"{what}: aux {aux} is not positive")
+    check(loss0 != losses[0], f"{what}: aux_weight=0 gives the same loss {loss0!r}")
+    row = _log_steps(f"{what} {LM_TRAIN} {MOE_LM}, batch {batch}x{seq}, accum 2, "
+                     "attn_chunk 64", card, list(losses), list(ms), list(peak))
+    log(f"{what}: aux {aux:.6g} on the first microbatch; first loss {losses[0]!r} "
+        f"(aux_weight 1e-2) against {loss0!r} (aux_weight 0)")
+    return {**row, **row_cpu, "aux_first_microbatch": aux, "loss_aux_weight_0": loss0}
+
+
+def _grads(torch, params) -> list:
+    """Every master's .grad on the CPU (zeros where a master took none), in
+    ``param_leaves`` order."""
+    from smmb_tpu_torch.models.train import param_leaves
+
+    return [(p.grad if p.grad is not None else torch.zeros_like(p)).detach().to(
+        "cpu", copy=True) for p in param_leaves(params)]
+
+
+def _cpu_qat_steps(torch, cfg, params, tokens, steps) -> tuple:
+    """``steps`` LM QAT steps of ``_moe_qat``'s settings through the port on
+    CPU tensors: (losses, host ms a step, the first step's gradients)."""
+    from smmb_tpu_torch.models.lm import make_lm_train_step
+
+    init_opt, train_step = make_lm_train_step(cfg, learning_rate=1e-3, accum_steps=2,
+                                              attn_chunk=64)
+    opt, losses, ms, grads = init_opt(params), [], [], None
+    for _ in range(steps):
+        t = time.perf_counter()
+        params, opt, loss = train_step(params, opt, tokens)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t) * 1e3)
+        grads = grads or _grads(torch, params)
+    return losses, ms, grads
+
+
+def run_lora_lm(torch, dev, card, lm) -> None:
+    """Phase 26: LoRA (A3.4) on phase 8's LM at the ``lm`` widths, rank 8 on
+    wq, wv, w_up and w_down: one ``make_lora_train_step`` step, the base's
+    packed bytes unchanged, ``generate`` on the adapted model with its
+    launch counts, and its served f32 logits held call by call and stage
+    by stage."""
+    from smmb_tpu_torch.models.lm import lm_forward
+    from smmb_tpu_torch.models.lora import attach_lora, init_lora_lm, make_lora_train_step
+    from smmb_tpu_torch.utils import rng
+
+    cfg, packed, prompt = lm["cfg"], lm["packed"], lm["prompt"]
+    layers, steps = cfg.n_layers, 16
+    targets = ("wq", "wv", "w_up", "w_down")
+    gen = rng.make_generator(28, dev)
+    adapters = init_lora_lm(gen, cfg, rank=8, targets=targets)
+    tokens = torch.randint(0, cfg.vocab, (4, 128), generator=gen, device=dev)
+    before = {id(t): t.data.clone() for t in _packed_planes(packed)}
+    init_opt, train_step = make_lora_train_step(packed, cfg, learning_rate=1e-3)
+    opt = init_opt(adapters)
+
+    def step():
+        nonlocal adapters, opt
+        adapters, opt, loss = train_step(adapters, opt, tokens)
+        return float(loss)
+
+    (loss,), (ms,), (peak,) = zip(_timed_step(torch, step))
+    check(math.isfinite(loss), f"LoRA step loss {loss}")
+    check(all(torch.equal(t.data, before[id(t)]) for t in _packed_planes(packed)),
+          "the LoRA step changed the packed base's bytes")
+    moved = max(float(b.detach().abs().max()) for blk in adapters for _, b in blk.values())
+    check(moved > 0, "the LoRA step left every B at zero")
+    out = {"step": _log_steps("LoRA step (rank 8, wq/wv/w_up/w_down, 4x128)", card, [loss],
+                              [ms], [peak])}
+    model = attach_lora(packed, [{n: (a.detach(), b.detach()) for n, (a, b) in blk.items()}
+                                 for blk in adapters])
+    # adapted Q/V take the per-projection path (3 B1 calls a step, no B3),
+    # adapted w_up/w_down keep the block off B5 and B6 (2 B1 calls)
+    b1 = layers * 8 + 1 + steps * (layers * 6 + 1)
+    toks, launches = _generate_counted(torch, model, prompt, cfg, steps,
+                                       compute_dtype=torch.bfloat16)
+    log(f"LoRA generate ({steps} steps, bf16): launches {launches}")
+    want = {"packed_spmm": b1, "fused_norm_qkv": 0, "fused_block_tail": 0, "fused_mlp": 0,
+            "fused_norm_qkv_quant": 0, "flash_attention": 0, "flash_attention_decode": 0}
+    check(launches == want, f"LoRA generate launches {launches} != {want}")
+    check(toks.shape == (1, steps) and int(toks.max()) < cfg.vocab, "LoRA generate tokens")
+    ev = tokens[:2]
+    errs = []
+    with torch.no_grad():
+        with _held_b1_calls(torch, errs):
+            served = lm_forward(model, ev, cfg)
+        base = lm_forward(packed, ev, cfg)
+        stages = _hold_stages(torch, "LoRA LM", model, ev, cfg)
+    check(len(errs) == 6 * layers + 1 and max(errs) <= 1e-4,
+          f"LoRA served: {len(errs)} B1 calls, worst vs plain {max(errs):.3e} > 1e-4")
+    check(bool(torch.isfinite(served).all()), "LoRA served logits finite")
+    shift = float((served - base).abs().max())
+    check(shift > 0, "the trained adapters do not change the served logits")
+    out.update(generate_launches=launches, b1_call_worst=max(errs), adapter_shift=shift,
+               **stages)
+    print(json.dumps({"phase": 26, **out}), flush=True)
+    log(f"phase 26 passed: {len(errs)} B1 calls within {max(errs):.3e} of plain; the "
+        f"adapters move the logits by up to {shift:.3e}")
+
+
+def _packed_planes(packed) -> list:
+    """Every ``TernaryPacked`` plane of a packed LM tree."""
+    from smmb_tpu_torch.formats.packed import TernaryPacked
+
+    if isinstance(packed, TernaryPacked):
+        return [packed]
+    if isinstance(packed, dict):
+        return [p for v in packed.values() for p in _packed_planes(v)]
+    if isinstance(packed, (list, tuple)):
+        return [p for v in packed for p in _packed_planes(v)]
+    return []
 
 
 if __name__ == "__main__":

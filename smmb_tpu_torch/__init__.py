@@ -6,10 +6,11 @@ the CUDA card unless the caller passes ``device="cpu"``; on a CPU tensor
 each kernel wrapper runs its plain PyTorch version.
 
 It carries the packed ternary MLP serving path, the ternary LM's serving
-path (dense blocks, float and int8 KV caches, flash attention, chunked
-extend, ragged batches, prefix forking, beam search and speculative
-decoding), their training (STE training of the MLP and the LM, draft
-distillation, fine-tuning through the packed kernel) and the reference
+path (dense or routed MoE blocks, float and int8 KV caches, flash
+attention, chunked extend, ragged batches, prefix forking, beam search,
+speculative decoding and LoRA adapters over the frozen packed base), their
+training (STE training of the MLP, the LM and the MoE, draft distillation,
+adapter training, fine-tuning through the packed kernel) and the reference
 benchmark (showcase, sweep and capacity):
 
 - ``formats``: the 2-bit ``TernaryPacked`` format, TCSC, TCSCPadded, BCSR
@@ -26,11 +27,12 @@ benchmark (showcase, sweep and capacity):
   ``make_packed_linear``, an autograd function over ``packed_spmm``
   (forward on W, backward on the packed Wᵀ);
 - ``models``: the packed ternary MLP (``mlp_forward``, ``PackedTernaryMLP``)
-  and the LM (``attention``, ``transformer``, ``lm``: ``generate``,
-  ``fork_cache``, ``generate_beam``; ``spec_decode``:
-  ``generate_speculative``) and their training (``train``:
-  ``make_train_step``; ``make_lm_train_step``,
-  ``make_draft_distill_step``);
+  and the LM (``attention``, ``transformer``, ``moe`` and ``moe_block``,
+  ``lm``: ``generate``, ``fork_cache``, ``generate_beam``; ``spec_decode``:
+  ``generate_speculative``; ``lora``: ``attach_lora``) and their training
+  (``train``: ``make_train_step``; ``make_lm_train_step``,
+  ``make_moe_train_step``, ``make_draft_distill_step``,
+  ``make_lora_train_step``);
 - ``nn``: the ``TernaryDense`` QAT layer, ``convert_to_packed`` and the
   ``PackedTernaryDense`` serving layer;
 - ``convert``: parameters and formats carried across from the JAX package;

@@ -11,12 +11,13 @@ call. The loop is eager, so launch gaps on the host count in the time.
 CLI: python -m smmb_tpu_torch lm [--layers 4] [--d-model 1024] [--n-heads 8]
      [--kv-heads N] [--d-ff 4096] [--vocab 8192] [--batch 1]
      [--prompt-len 32] [--steps 64] [--temperature T] [--reps 5]
-     [--rope] [--window W] [--flash] [--kv-quant]
+     [--rope] [--window W] [--flash] [--kv-quant] [--experts E [--top-k K]]
 ``--flash`` runs the prefill's attention as the flash kernel B9 and the
 decode steps' cache reads as B4. ``--kv-quant`` stores the KV caches as int8
 codes and per-token scales: B7 writes them each step and, with ``--flash``,
-B8 reads them. The JAX CLI's --experts and --top-k (experts per token)
-belong to a later slice of the port.
+B8 reads them. ``--experts E`` serves the MoE LM (every block's FFN routed
+over E packed experts of width ``--d-ff``, ``--top-k`` of them a token;
+each expert is two B1 calls a layer).
 """
 
 from __future__ import annotations
@@ -78,7 +79,7 @@ def config_from_args(args) -> TernaryLMConfig:
         vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
         d_ff=args.d_ff, n_layers=args.layers,
         max_len=args.prompt_len + 3 * args.steps, n_kv_heads=args.kv_heads,
-        rope=args.rope, window=args.window,
+        rope=args.rope, window=args.window, n_experts=args.experts, top_k=args.top_k,
     )
 
 
@@ -103,6 +104,9 @@ def parser():
                     help="flash attention: B9 in the prefill, B4 in the decode steps")
     ap.add_argument("--kv-quant", action="store_true",
                     help="int8 KV cache: B7 writes it, B8 reads it under --flash")
+    ap.add_argument("--experts", type=int, default=None,
+                    help="MoE LM: routed-FFN blocks with this many experts")
+    ap.add_argument("--top-k", type=int, default=1, help="experts per token (MoE)")
     return ap
 
 
@@ -118,6 +122,7 @@ def main(argv=None):
         f"kv={cfg.block.attn.kv_heads}{' rope' if args.rope else ''}"
         f"{f' win{args.window}' if args.window else ''}{' kvq' if args.kv_quant else ''}"
         f"{' flash' if args.flash else ''}"
+        f"{f' moe{args.experts}x{args.top_k}' if args.experts else ''}"
         f"  {r.per_token_s * 1e6:.1f}us/tok = {r.tokens_per_s:.0f} tok/s "
         f"(slope {args.steps}->{3 * args.steps} steps; "
         f"lo={r.lo_s * 1e3:.2f}ms hi={r.hi_s * 1e3:.2f}ms)"

@@ -86,22 +86,28 @@ def _tree_from_jax(node, dev):
     if isinstance(node, (list, tuple)):
         return [_tree_from_jax(v, dev) for v in node]
     if all(hasattr(node, f) for f in ("data", "rows", "cols", "nnz")):
-        return packed_from_numpy(np.asarray(node.data), int(node.rows),
-                                 int(node.cols), int(node.nnz), dev)
+        data = np.asarray(node.data)
+        if data.ndim == 3:  # MoE experts stacked on a leading axis (pack_moe)
+            return TernaryPacked(data=_tensor(data, dev, torch.int8).contiguous(),
+                                 rows=int(node.rows), cols=int(node.cols),
+                                 nnz=int(node.nnz))
+        return packed_from_numpy(data, int(node.rows), int(node.cols), int(node.nnz), dev)
     return _tensor(np.asarray(node), dev, torch.float32)
 
 
 def lm_params_from_jax(params_np: dict, device=None) -> dict:
-    """A JAX ``init_lm`` master pytree (dense blocks) → the port's, as f32
-    tensors on ``device`` (None = the CUDA card)."""
+    """A JAX ``init_lm`` master pytree (dense or MoE blocks: the router and
+    the stacked expert masters too) → the port's, as f32 tensors on
+    ``device`` (None = the CUDA card). Also takes ``init_moe`` trees."""
     return _tree_from_jax(params_np, resolve_device(device))
 
 
 def packed_lm_from_jax(packed, device=None) -> dict:
-    """A JAX ``pack_lm`` result (dense blocks) → the port's packed LM: the
-    blocks' packed planes (``wq``..``wo``, the fused ``wqkv``, ``w_up``,
-    ``w_down``) and the head keep their int8 words; scales, biases, norms
-    and embeddings become f32 tensors on ``device``."""
+    """A JAX ``pack_lm`` result → the port's packed LM: the blocks' packed
+    planes (``wq``..``wo``, the fused ``wqkv``, ``w_up``, ``w_down``, or an
+    MoE block's stacked expert planes, (E, K_pad/4, N)) and the head keep
+    their int8 words; scales, biases, norms, routers and embeddings become
+    f32 tensors on ``device``. Also takes ``pack_moe`` results."""
     return _tree_from_jax(packed, resolve_device(device))
 
 

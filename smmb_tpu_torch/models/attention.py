@@ -31,7 +31,10 @@ products on the masters around the plain attention math, or, with
 whose bodies ``torch.utils.checkpoint`` recomputes in the backward. Neither
 routes to the flash kernel B9, which has no backward.
 
-Left out of this slice, with a ``NotImplementedError``: LoRA adapters.
+LoRA (models/lora.py): a projection whose packed dict carries
+``<name>_lora = (A, B, scale)`` adds ``scale·((x A) B)`` of its raw input,
+two full f32 products outside any kernel (JAX's residual); an adapted Q, K
+or V takes the per-projection path, off the fused plane and off B3 and B7.
 """
 
 from __future__ import annotations
@@ -48,10 +51,9 @@ from smmb_tpu_torch.kernels import flash_decode as fd
 from smmb_tpu_torch.kernels import fused_mlp as fk
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
 from smmb_tpu_torch.models.train import absmean_scale, qat_linear, ternarize_ste
+from smmb_tpu_torch.ops.dense import full_f32_matmul
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
-
-LORA_SLICE = "LoRA adapters belong to a later slice of the port"
 
 # The flash-decode gate for batch > 1, copied from JAX
 # (smmb_tpu/models/attention.py:44-45) so that the port takes JAX's route:
@@ -162,9 +164,15 @@ def pack_attention(params: dict, quantize: bool = False) -> dict:
     return out
 
 
-def _check_lora(packed: dict, names) -> None:
-    if any(packed.get(n + "_lora") is not None for n in names):
-        raise NotImplementedError(LORA_SLICE)
+def lora_residual(raw: torch.Tensor, lora) -> torch.Tensor:
+    """An adapter's residual ``scale·((raw A) B)`` in full f32 (JAX's
+    ``jnp.matmul`` of the raw layer input, promoted to f32)."""
+    a, b, sc = lora
+    return full_f32_matmul(full_f32_matmul(raw, a), b) * sc
+
+
+def _has_lora(packed: dict, names) -> bool:
+    return any(packed.get(n + "_lora") is not None for n in names)
 
 
 def _attention_math(q, k, v, cfg: TernaryAttentionConfig, use_flash=False,
@@ -211,24 +219,29 @@ def _attention_math(q, k, v, cfg: TernaryAttentionConfig, use_flash=False,
 
 
 def _proj(packed, name, inp, cfg, compute_dtype, use_kernel):
-    _check_lora(packed, (name,))
     w, b = packed[name], packed[name.replace("w", "b")]
     s = packed.get(name + "_scale")
+    raw = inp
     if s is not None:
         inp = inp * s
     if use_kernel:
-        return packed_spmm(inp, w, b, compute_dtype=compute_dtype)
-    return packed_spmm_ref(inp, w, b, dtype=compute_dtype)
+        y = packed_spmm(inp, w, b, compute_dtype=compute_dtype)
+    else:
+        y = packed_spmm_ref(inp, w, b, dtype=compute_dtype)
+    lora = packed.get(name + "_lora")
+    # the adapter sees the raw layer input, not the scaled one
+    return y if lora is None else y + lora_residual(raw, lora)
 
 
 def _proj_qkv(packed, inp, cfg, compute_dtype, use_kernel):
     """Q, K and V of a decode step as one product with the fused plane;
-    scales and bias in f32 after it, cast back to the product's dtype."""
+    scales and bias in f32 after it, cast back to the product's dtype. An
+    adapted Q, K or V takes the per-projection path, so the adapters see
+    their raw layer input."""
     fused = packed.get("wqkv")
-    if fused is None:
+    if fused is None or _has_lora(packed, ("wq", "wk", "wv")):
         return tuple(_proj(packed, n, inp, cfg, compute_dtype, use_kernel)
                      for n in ("wq", "wk", "wv"))
-    _check_lora(packed, ("wq", "wk", "wv"))
     if use_kernel:
         y = packed_spmm(inp, fused, compute_dtype=compute_dtype)
     else:
@@ -419,7 +432,7 @@ def _qkv_prenorm_fusable(packed, cfg, compute_dtype, use_kernel) -> bool:
     return bool(
         use_kernel
         and packed.get("wqkv") is not None
-        and not any(packed.get(n + "_lora") is not None for n in ("wq", "wk", "wv"))
+        and not _has_lora(packed, ("wq", "wk", "wv"))
         and compute_dtype in fk.FLOAT_DTYPES
         and cfg.d_model % 512 == 0
         and packed["wqkv"].cols % 128 == 0

@@ -26,8 +26,11 @@ gradient accumulation over microbatches and the checkpointed chunked
 attention (``attn_chunk``). The trained masters serve through
 ``pack_lm(quantize=True)``.
 
-Left out of this slice, with a ``NotImplementedError``: MoE blocks
-(``n_experts``).
+``n_experts`` makes every block the routed MoE block of
+models/moe_block.py (Switch or Mixtral by ``top_k``; ``d_ff`` is then each
+expert's width). The entry points reach the block functions through
+``cfg._blk``, so every one of them serves MoE blocks as it serves dense
+ones, and the QAT forward sums the blocks' load-balance losses into aux.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 
 from smmb_tpu_torch.formats.packed import pack_ternary_device
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+from smmb_tpu_torch.models import moe_block as mb
 from smmb_tpu_torch.models import transformer as tb
 from smmb_tpu_torch.models.train import (
     absmean_scale,
@@ -49,8 +53,6 @@ from smmb_tpu_torch.models.train import (
 )
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
-
-MOE_SLICE = "MoE blocks (n_experts) belong to a later slice of the port"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,18 +70,36 @@ class TernaryLMConfig:
     rope: bool = False
     rope_theta: float = 10000.0
     window: int | None = None
-    n_experts: int | None = None  # MoE blocks: not in this slice
+    # n_experts switches every block's FFN to the routed ternary mixture
+    # (models/moe_block.py); d_ff is then the per-expert width
+    n_experts: int | None = None
+    top_k: int = 1
+    capacity_factor: float = 1.25
 
     @property
-    def block(self) -> tb.TernaryBlockConfig:
+    def block(self):
+        common = dict(d_model=self.d_model, n_heads=self.n_heads, d_ff=self.d_ff,
+                      alpha=self.alpha, causal=True, non_zero=self.non_zero,
+                      eps=self.eps, n_kv_heads=self.n_kv_heads, rope=self.rope,
+                      rope_theta=self.rope_theta, window=self.window)
         if self.n_experts is not None:
-            raise NotImplementedError(MOE_SLICE)
-        return tb.TernaryBlockConfig(
-            d_model=self.d_model, n_heads=self.n_heads, d_ff=self.d_ff,
-            alpha=self.alpha, causal=True, non_zero=self.non_zero, eps=self.eps,
-            n_kv_heads=self.n_kv_heads, rope=self.rope,
-            rope_theta=self.rope_theta, window=self.window,
-        )
+            return mb.TernaryMoEBlockConfig(n_experts=self.n_experts, top_k=self.top_k,
+                                            capacity_factor=self.capacity_factor,
+                                            **common)
+        return tb.TernaryBlockConfig(**common)
+
+    @property
+    def _blk(self) -> dict:
+        """The block functions: dense (transformer.py) or MoE (moe_block.py),
+        one interface, chosen by ``n_experts``."""
+        if self.n_experts is not None:
+            return {"init": mb.init_moe_block, "forward": mb.moe_block_forward,
+                    "prefill": mb.moe_block_prefill, "extend": mb.moe_block_extend,
+                    "decode": mb.moe_block_decode_step, "cache": mb.init_moe_block_cache}
+        return {"init": tb.init_block, "forward": tb.block_forward,
+                "prefill": tb.block_prefill, "extend": tb.block_extend,
+                "decode": tb.block_decode_step,
+                "cache": tb.init_block_cache}
 
 
 def init_lm(gen: torch.Generator, cfg: TernaryLMConfig) -> dict:
@@ -89,7 +109,7 @@ def init_lm(gen: torch.Generator, cfg: TernaryLMConfig) -> dict:
     scale = 1.0 / math.sqrt(cfg.d_model)
     embed = rng.rand_dense(gen, (cfg.vocab, cfg.d_model)) * scale
     pos = rng.rand_dense(gen, (cfg.max_len, cfg.d_model)) * scale
-    blocks = [tb.init_block(gen, bcfg) for _ in range(cfg.n_layers)]
+    blocks = [cfg._blk["init"](gen, bcfg) for _ in range(cfg.n_layers)]
     return {
         "embed": embed,
         "pos": pos,
@@ -106,13 +126,14 @@ def pack_lm(params: dict, quantize: bool = False) -> dict:
     if quantize:
         head_scale = absmean_scale(head).to(torch.float32)
         head = ternarize_ste(head)
-    for b in params["blocks"]:
-        if "moe" in b:
-            raise NotImplementedError(MOE_SLICE)
+
+    def pack_one(b):  # a block's kind is in its tree, as in JAX
+        return (mb.pack_moe_block if "moe" in b else tb.pack_block)(b, quantize=quantize)
+
     return {
         "embed": params["embed"],
         "pos": params["pos"],
-        "blocks": [tb.pack_block(b, quantize=quantize) for b in params["blocks"]],
+        "blocks": [pack_one(b) for b in params["blocks"]],
         "norm_f": params["norm_f"],
         "head": pack_ternary_device(head),
         "head_scale": head_scale,
@@ -136,8 +157,8 @@ def lm_forward(packed: dict, tokens: torch.Tensor, cfg: TernaryLMConfig, *,
     b, t = tokens.shape
     x = packed["embed"][tokens] + packed["pos"][None, :t]
     for blk in packed["blocks"]:
-        x = tb.block_forward(blk, x, cfg.block, compute_dtype=compute_dtype,
-                             use_kernel=use_kernel, use_flash=use_flash)
+        x = cfg._blk["forward"](blk, x, cfg.block, compute_dtype=compute_dtype,
+                                use_kernel=use_kernel, use_flash=use_flash)
     h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
     return _head_logits(packed, h, cfg, compute_dtype, use_kernel)
 
@@ -148,8 +169,8 @@ def lm_init_cache(cfg: TernaryLMConfig, batch: int, dtype=torch.float32,
     """One preallocated (B, max_len) KV cache per block on ``device``
     (None = the CUDA card); ``quantized``: the merged int8 layout
     (``attention.init_kv_cache``)."""
-    return [tb.init_block_cache(cfg.block, batch, cfg.max_len, dtype=dtype,
-                                quantized=quantized, ragged=ragged, device=device)
+    return [cfg._blk["cache"](cfg.block, batch, cfg.max_len, dtype=dtype,
+                              quantized=quantized, ragged=ragged, device=device)
             for _ in range(cfg.n_layers)]
 
 
@@ -174,9 +195,9 @@ def lm_prefill(packed: dict, tokens: torch.Tensor, cache: list,
         x = packed["embed"][tokens] + packed["pos"][pos_ids]
     new_cache = []
     for blk, c in zip(packed["blocks"], cache):
-        x, c = tb.block_prefill(blk, x, c, cfg.block, compute_dtype=compute_dtype,
-                                use_kernel=use_kernel, use_flash=use_flash,
-                                valid=prompt_mask)
+        x, c = cfg._blk["prefill"](blk, x, c, cfg.block, compute_dtype=compute_dtype,
+                                   use_kernel=use_kernel, use_flash=use_flash,
+                                   valid=prompt_mask)
         new_cache.append(c)
     h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
     logits = _head_logits(packed, h, cfg, compute_dtype, use_kernel)
@@ -198,8 +219,8 @@ def lm_decode_step(packed: dict, token_t: torch.Tensor, cache: list,
     x = packed["embed"][token_t][:, None, :] + pe
     new_cache = []
     for blk, c in zip(packed["blocks"], cache):
-        x, c = tb.block_decode_step(blk, x, c, cfg.block, compute_dtype=compute_dtype,
-                                    use_kernel=use_kernel, use_flash=use_flash)
+        x, c = cfg._blk["decode"](blk, x, c, cfg.block, compute_dtype=compute_dtype,
+                                  use_kernel=use_kernel, use_flash=use_flash)
         new_cache.append(c)
     h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
     logits = _head_logits(packed, h, cfg, compute_dtype, use_kernel)
@@ -317,8 +338,8 @@ def lm_extend(packed: dict, tokens: torch.Tensor, cache: list,
         x = packed["embed"][tokens] + packed["pos"][pos_ids]
     new_cache = []
     for blk, ch in zip(packed["blocks"], cache):
-        x, ch = tb.block_extend(blk, x, ch, cfg.block, compute_dtype=compute_dtype,
-                                use_kernel=use_kernel, use_flash=use_flash)
+        x, ch = cfg._blk["extend"](blk, x, ch, cfg.block, compute_dtype=compute_dtype,
+                                   use_kernel=use_kernel, use_flash=use_flash)
         new_cache.append(ch)
     h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
     return _head_logits(packed, h, cfg, compute_dtype, use_kernel), new_cache
@@ -341,8 +362,8 @@ def lm_prefill_chunked(packed: dict, tokens: torch.Tensor, cache: list,
         x = _chunk_embed(packed, tokens[:, c0:c0 + chunk], cache[0]["pos"], cfg)
         new_cache = []
         for blk, ch in zip(packed["blocks"], cache):
-            x, ch = tb.block_extend(blk, x, ch, cfg.block, compute_dtype=compute_dtype,
-                                    use_kernel=use_kernel, use_flash=use_flash)
+            x, ch = cfg._blk["extend"](blk, x, ch, cfg.block, compute_dtype=compute_dtype,
+                                       use_kernel=use_kernel, use_flash=use_flash)
             new_cache.append(ch)
         cache = new_cache
     h = tb.rmsnorm(x[:, -1:], packed["norm_f"], cfg.eps)
@@ -408,16 +429,20 @@ def generate_beam(packed: dict, prompt: torch.Tensor, cfg: TernaryLMConfig,
 
 def _qat_lm_forward_aux(params: dict, tokens: torch.Tensor, cfg: TernaryLMConfig,
                        attn_chunk: int | None = None):
-    """(logits, aux): the QAT forward and the summed MoE load-balance loss.
-    aux is always zero until MoE is ported (a later slice): dense blocks
-    have none, and MoE configurations raise through ``cfg.block``."""
+    """(logits, aux): the QAT forward and the MoE blocks' load-balance
+    losses summed (zero for dense blocks)."""
     bcfg = cfg.block
     t = tokens.shape[1]
     x = params["embed"][tokens] + params["pos"][None, :t]
+    aux = torch.zeros((), device=x.device)
     for blk in params["blocks"]:
-        x = tb.qat_block_forward(blk, x, bcfg, attn_chunk=attn_chunk)
+        if cfg.n_experts is not None:
+            x, a = mb.qat_moe_block_forward(blk, x, bcfg, attn_chunk=attn_chunk)
+            aux = aux + a
+        else:
+            x = tb.qat_block_forward(blk, x, bcfg, attn_chunk=attn_chunk)
     h = tb.rmsnorm(x, params["norm_f"], cfg.eps)
-    return qat_linear(h, params["head"]), torch.zeros((), device=x.device)
+    return qat_linear(h, params["head"]), aux
 
 
 def qat_lm_forward(params: dict, tokens: torch.Tensor, cfg: TernaryLMConfig,
@@ -442,18 +467,15 @@ def make_lm_train_step(cfg: TernaryLMConfig, learning_rate: float = 1e-3,
     them with the batch's loss before the update.
 
     The loss is the mean cross-entropy of ``logits[:, :-1]`` against
-    ``tokens[:, 1:]`` plus ``aux_weight·aux``; aux, MoE's load-balance
-    loss, is zero until MoE is ported, so ``aux_weight`` changes nothing
-    yet and is kept for JAX's signature. ``accum_steps > 1`` splits
+    ``tokens[:, 1:]`` plus ``aux_weight·aux``, aux being the MoE blocks'
+    summed load-balance loss (zero for dense blocks, where ``aux_weight``
+    changes nothing). ``accum_steps > 1`` splits
     the batch into that many equal microbatches, one forward and backward
     each (one microbatch's activations live at a time); their gradients are
     summed, then scaled by 1/``accum_steps`` before the single Adam step:
     the full-batch step's math, the mean of equal-size means being the
     batch mean.
     """
-    if cfg.n_experts is not None:
-        raise NotImplementedError(MOE_SLICE)
-
     def loss_fn(params, tokens):
         logits, aux = _qat_lm_forward_aux(params, tokens, cfg, attn_chunk)
         ce = torch.nn.functional.cross_entropy(

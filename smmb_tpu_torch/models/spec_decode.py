@@ -35,7 +35,6 @@ from __future__ import annotations
 import torch
 
 from smmb_tpu_torch.models.lm import (
-    MOE_SLICE,
     TernaryLMConfig,
     lm_decode_step,
     lm_extend,
@@ -72,8 +71,6 @@ def make_draft_distill_step(target: dict, target_cfg: TernaryLMConfig,
     """
     if target_cfg.vocab != draft_cfg.vocab:
         raise ValueError(f"vocab mismatch: target {target_cfg.vocab} vs draft {draft_cfg.vocab}")
-    if draft_cfg.n_experts is not None:
-        raise NotImplementedError(MOE_SLICE)
     inv_t = 1.0 / temperature
 
     def init_opt(params):

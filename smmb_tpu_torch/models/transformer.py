@@ -12,8 +12,11 @@ their size limits are re-derived from the CUDA kernels' shared memory.
 M = B·C rows, so a token's row is the same in a chunk as in its decode step;
 ``use_flash`` sends the attention to B9 (prefill) and B4 (decode, extend).
 Over an int8 cache (``init_block_cache(quantized=True)``) the attention
-layer takes B7 in B3's place and B8 in B4's. ``qat_block_forward`` is the
-training forward on the masters (STE-ternarized dense products).
+layer takes B7 in B3's place and B8 in B4's. LoRA adapters
+(models/lora.py) on ``wo``, ``w_up`` or ``w_down`` keep the block off B5 and
+B6, as JAX's gates do: their residuals are added around B1's products.
+``qat_block_forward`` is the training forward on the masters
+(STE-ternarized dense products).
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ from smmb_tpu_torch.formats.packed import GROUP_ROWS, pack_ternary_device
 from smmb_tpu_torch.kernels import fused_mlp as fk
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
 from smmb_tpu_torch.models.attention import (
-    LORA_SLICE,
     TernaryAttentionConfig,
     _qkv_prenorm_fusable,
     attention_decode_core,
@@ -37,6 +39,7 @@ from smmb_tpu_torch.models.attention import (
     attention_prefill,
     init_attention,
     init_kv_cache,
+    lora_residual,
     pack_attention,
     qat_attention_forward,
 )
@@ -194,8 +197,6 @@ def _fused_tail(packed, out, x, cfg, compute_dtype):
 
 
 def _mlp_half(packed, x, cfg, spmm, compute_dtype=None, use_kernel=False):
-    if packed.get("w_up_lora") is not None or packed.get("w_down_lora") is not None:
-        raise NotImplementedError(LORA_SLICE)
     h = rmsnorm(x, packed["norm2"], cfg.eps)
     h2d = h.reshape(-1, h.shape[-1])
     if compute_dtype is not None and _mlp_fusable(packed, h2d, compute_dtype, use_kernel):
@@ -206,8 +207,17 @@ def _mlp_half(packed, x, cfg, spmm, compute_dtype=None, use_kernel=False):
             block_h=_fused_block_h(packed["w_up"].shape[1], 1024),
         ).reshape(x.shape)
         return x + down
-    up = spmm(h, packed["w_up"], packed["s_up"], packed["b_up"], cfg.alpha)
-    return x + spmm(up, packed["w_down"], packed["s_down"], packed["b_down"])
+    up_lora = packed.get("w_up_lora")
+    if up_lora is None:
+        up = spmm(h, packed["w_up"], packed["s_up"], packed["b_up"], cfg.alpha)
+    else:
+        # the adapter adds before the activation, so B1 runs without its
+        # PReLU epilogue and the PReLU follows the sum (JAX's route)
+        pre = spmm(h, packed["w_up"], packed["s_up"], packed["b_up"])
+        up = prelu(pre + lora_residual(h, up_lora), cfg.alpha)
+    down = spmm(up, packed["w_down"], packed["s_down"], packed["b_down"])
+    dn_lora = packed.get("w_down_lora")
+    return x + (down if dn_lora is None else down + lora_residual(up, dn_lora))
 
 
 def _make_spmm(compute_dtype, use_kernel):

@@ -22,7 +22,11 @@ rounds to the compute dtype after the v scale in B8, before it in B4).
 The packed VJP (B1 forward on W, backward on the packed Wᵀ): y, dx and db
 against autograd through the plain version at the fused kernels' f32 1e-4
 and bf16 2**-7 (bf16 x, y and dx; the backward rounds the masked gradient to
-bf16 before its product, as JAX's VJP casts it).
+bf16 before its product, as JAX's VJP casts it). The MoE layer on B1 (2·E
+launches a call) against its plain products as the fused kernels (a bf16
+hidden row can round to the neighbouring bf16 before the down projection);
+its serving rows bitwise the one-token calls (B1's rows do not depend on
+M, and the combine sums each token's experts in rank order).
 """
 
 import numpy as np
@@ -41,6 +45,7 @@ from smmb_tpu_torch.kernels.packed_vjp import make_packed_linear, pack_with_tran
 from smmb_tpu_torch.models import attention as tattn
 from smmb_tpu_torch.models import lm as tlm
 from smmb_tpu_torch.models import mlp as tmlp
+from smmb_tpu_torch.models import moe as tmoe
 from smmb_tpu_torch.nn import PackedTernaryDense
 from smmb_tpu_torch.utils import rng
 from smmb_tpu_torch.utils.compare import assert_close
@@ -845,3 +850,78 @@ def test_generate_kv_quant_launch_counts_and_tokens(cuda):
         # int8 cache noise may flip late near-tie tokens; early steps agree
         plain = tlm.generate(packed, prompt, cfg, 5, use_kernel=False, kv_quant=True)
         assert torch.equal(toks[:, :2], plain[:, :2])
+
+
+def _moe_layer(cuda, seed, d=1024, f=4096, e=8, k=2):
+    cfg = tmoe.TernaryMoEConfig(d_model=d, d_ff=f, n_experts=e, top_k=k)
+    gen = rng.make_generator(seed)
+    packed = tmoe.pack_moe(tmoe.init_moe(gen, cfg))
+    return cfg, packed, rng.rand_dense(gen, (32, d)) * 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("no_drop", [False, True])
+def test_moe_layer_on_b1_matches_plain(cuda, cdt, no_drop):
+    cfg, packed, x = _moe_layer(cuda, 40)
+    packed_spmm.launches = 0
+    y = tmoe.moe_forward(packed, x, cfg, compute_dtype=cdt, no_drop=no_drop)
+    assert packed_spmm.launches == 2 * cfg.n_experts
+    ref = tmoe.moe_forward(packed, x, cfg, compute_dtype=cdt, no_drop=no_drop,
+                           use_kernel=False)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    assert_close(y, ref, FUSED_TOL[cdt] * max(1.0, float(ref.abs().max())), "MoE on B1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16])
+def test_moe_decode_rows_bitwise_the_forward_rows(cuda, cdt):
+    """Serving (no_drop): each token's row of a 32-token call equals its
+    one-token call bitwise, as a decode step's row equals the prefill's."""
+    cfg, packed, x = _moe_layer(cuda, 41)
+    full = tmoe.moe_forward(packed, x, cfg, compute_dtype=cdt, no_drop=True)
+    for i in (0, 5, 31):
+        one = tmoe.moe_forward(packed, x[i:i + 1], cfg, compute_dtype=cdt, no_drop=True)
+        assert torch.equal(one[0], full[i]), i
+
+
+@pytest.mark.cuda
+def test_moe_generate_launch_counts_and_tokens(cuda):
+    cfg = tlm.TernaryLMConfig(vocab=512, d_model=512, n_heads=4, d_ff=1024, n_layers=2,
+                              max_len=32, n_experts=4, top_k=2)
+    gen = rng.make_generator(0)
+    packed = tlm.pack_lm(tlm.init_lm(gen, cfg))
+    prompt = torch.randint(0, cfg.vocab, (1, 8), generator=gen, device=cuda)
+    counted = (packed_spmm, fk.fused_norm_qkv, fk.fused_block_tail, fk.fused_mlp)
+    for fn in counted:
+        fn.launches = 0
+    toks = tlm.generate(packed, prompt, cfg, 5)
+    # no fused kernel on an MoE block: B1 for every projection and expert
+    assert [fn.launches for fn in counted] == [2 * (6 + 8) + 1 + 5 * (2 * (2 + 8) + 1), 0, 0, 0]
+    plain = tlm.generate(packed, prompt, cfg, 5, use_kernel=False)
+    assert torch.equal(toks, plain)
+
+
+@pytest.mark.cuda
+def test_lora_generate_launch_counts_and_logits(cuda):
+    from smmb_tpu_torch.models.lora import attach_lora, init_lora_lm
+
+    cfg = tlm.TernaryLMConfig(vocab=512, d_model=512, n_heads=4, d_ff=1024,
+                              n_layers=2, max_len=32)
+    gen = rng.make_generator(0)
+    packed = tlm.pack_lm(tlm.init_lm(gen, cfg))
+    ad = init_lora_lm(gen, cfg, rank=8, targets=("wq", "wv", "w_up", "w_down"))
+    ad = [{n: (a, b + 0.01) for n, (a, b) in blk.items()} for blk in ad]
+    model = attach_lora(packed, ad)
+    prompt = torch.randint(0, cfg.vocab, (1, 8), generator=gen, device=cuda)
+    counted = (packed_spmm, fk.fused_norm_qkv, fk.fused_block_tail, fk.fused_mlp)
+    for fn in counted:
+        fn.launches = 0
+    toks = tlm.generate(model, prompt, cfg, 5)
+    # adapted layers are off B3, B5 and B6; the base stays on B1
+    assert [fn.launches for fn in counted] == [2 * 8 + 1 + 5 * (2 * 6 + 1), 0, 0, 0]
+    assert torch.equal(toks, tlm.generate(model, prompt, cfg, 5, use_kernel=False))
+    y = tlm.lm_forward(model, prompt, cfg)
+    ref = tlm.lm_forward(model, prompt, cfg, use_kernel=False)
+    assert_close(y, ref, 2e-4 + 1.1e-4 * float(ref.abs().max()), "LoRA logits")
