@@ -203,7 +203,19 @@ which exits non-zero on failure:
 26. LoRA on phase 8's LM, rank 8 on wq, wv, w_up and w_down: one
     ``make_lora_train_step`` step (the base's packed bytes unchanged),
     ``generate`` on the adapted model on B1 alone (B3, B5 and B6 never),
-    and its served f32 logits held call by call and stage by stage.
+    and its served f32 logits held call by call and stage by stage;
+27. the runtime: the native library (``runtime/native.py``) built, the
+    headline W of phase 3's C1 reading packed, and its TCSC and 128×128
+    BCSR built, natively, each byte-identical to the port's formats, B1 on
+    the planes and B2 on the BCSR against their plain versions in f32 and
+    bf16; a corpus of 2**26 tokens from the seed read back by
+    ``TokenDataset`` (windows a second at seq 256, batch 8) and three LM
+    QAT steps at the ``lm`` widths on its batches (phase 24's accumulation
+    and ``attn_chunk``; finite losses, ms a step, peak memory); and
+    ``bench/measure.py::measure_device`` (CUDA-graph replay) on the LM
+    head's B1 call and on B3 at M = 1, each within [GRAPH_LO×, GRAPH_HI× +
+    GRAPH_ADD_US] of the profiler's device time of the same call, beside
+    ``measure``'s host-bound time.
 
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
@@ -212,7 +224,11 @@ prints no result.
 
 ``python3 chip_smoke.py --fused-ab DIR`` instead holds B3, B7, B5 and B6 of
 this checkout against those of DIR, an earlier tree of the port: every
-output bitwise, and both sides' device µs a call (``fused_ab``).
+output bitwise, and both sides' device µs a call (``fused_ab``). It also
+reads C1's same-token A/B of DIR's B1 f32 body against this one on the f32
+paths of phases 8 and 18 over ``LM_AB_PAIRS`` (``c1_side``, ``c1_verdict``).
+``python3 chip_smoke.py --c1-candidate DIR`` writes such a DIR: this
+checkout's port with C1's candidate body (``C1_FOLD``).
 """
 
 import contextlib
@@ -692,6 +708,7 @@ def main() -> int:
     run_lm_training(torch, dev, card)
     run_moe_lm(torch, dev, card)
     run_lora_lm(torch, dev, card, lm)
+    run_runtime(torch, dev, card)
 
     main_mode = per_mode["bf16"]  # the main path's mode and per-layer shape
     summary = {"kernels": [{
@@ -820,11 +837,13 @@ FUSED_AB_CASES = [
 ]
 
 
-def fused_side(out) -> int:
+def fused_side(out, c1_tokens=None, c1_out=None) -> int:
     """One side of ``--fused-ab``, run with the side's package first on
     ``sys.path``: every case's outputs saved to ``out``, and a JSON line a
     case with its device µs and kernel launches a call by this checkout's
-    profiler breakdown (bench/trace.py)."""
+    profiler breakdown (bench/trace.py). With ``c1_tokens`` (the plain
+    path's tokens of every pair of ``LM_AB_PAIRS``) it also reads C1's
+    case on this side (``c1_side``) into the JSON file ``c1_out``."""
     import importlib.util
 
     import torch
@@ -855,6 +874,8 @@ def fused_side(out) -> int:
                           "launches": sum(r["launches"] for r in rows),
                           "kernels": [r["name"][:60] for r in rows]}), flush=True)
     torch.save(outs, out)
+    if c1_tokens is not None:
+        Path(c1_out).write_text(json.dumps(c1_side(torch, dev, torch.load(c1_tokens))))
     return 0
 
 
@@ -863,19 +884,26 @@ def fused_ab(other) -> int:
     kernels and this checkout's, each side in a process of its own, in
     turns (DIR, this, this, DIR, twice); one JSON line a case with each
     side's device µs in every run and whether this side's outputs equal
-    DIR's bitwise. Exits 1 if any output differs."""
+    DIR's bitwise. The first run of each side also reads C1's case
+    (``c1_side``) on the plain path's tokens, computed here once, and the
+    verdict of the A/B is printed (``c1_verdict``). Exits 1 if any output
+    differs."""
     import tempfile
 
     import torch
 
     print(card_line(), flush=True)
     runs = {"other": [], "this": []}
+    c1 = {}
     with tempfile.TemporaryDirectory() as work:
+        tokens = Path(work) / "c1_tokens.pt"
+        torch.save(c1_tokens(torch, torch.device("cuda")), tokens)
         for i, side in enumerate(("other", "this", "this", "other") * 2):
             out = Path(work) / f"{side}{i}.pt"
+            c1_args = [str(tokens), str(Path(work) / f"c1_{side}.json")] if i < 2 else []
             proc = subprocess.run(
                 [sys.executable, str(HERE / "chip_smoke.py"), "--fused-side",
-                 str(other if side == "other" else HERE), str(out)],
+                 str(other if side == "other" else HERE), str(out), *c1_args],
                 capture_output=True, text=True, timeout=900)
             check(proc.returncode == 0, f"{side} side failed:\n{proc.stdout}\n{proc.stderr}")
             rows = [json.loads(line) for line in proc.stdout.splitlines()
@@ -883,6 +911,9 @@ def fused_ab(other) -> int:
             for r in rows:
                 print(json.dumps({"side": side, "run": i, **r}), flush=True)
             runs[side].append((rows, torch.load(out)))
+            if c1_args:
+                c1[side] = json.loads(Path(c1_args[1]).read_text())
+    c1_verdict(c1["this"], c1["other"])
     same_all = True
     for j, case in enumerate(FUSED_AB_CASES):
         same = all(torch.equal(a, b) for a, b in zip(runs["other"][0][1][j],
@@ -893,6 +924,263 @@ def fused_ab(other) -> int:
             for side in runs for key in ("device_us", "launches")}}), flush=True)
     print(json.dumps({"all_bitwise": same_all}), flush=True)
     return 0 if same_all else 1
+
+
+# C1's same-token A/B, the LM case of ``--fused-ab DIR``: DIR's B1 f32 body
+# against this checkout's on the f32 paths of phases 8 and 18, both sides
+# teacher-forced on the plain path's f32 ``generate`` tokens. DIR for C1's
+# candidate is written by ``--c1-candidate DIR``. Pairs of (model seed,
+# prompt seed) at the ``lm`` defaults; None is build_lm's own prompt, so the
+# first pair is phase 8's LM and prompt.
+LM_AB_CFG = dict(vocab=8192, d_model=1024, n_heads=8, d_ff=4096, n_layers=4)
+LM_AB_PAIRS = [(0, None), (0, 7), (1, None), (2, None), (3, None), (4, None)]
+LM_AB_PROMPT, LM_AB_STEPS = 32, 64
+LM_AB_PATHS = {"float": (False, False), "int8_flash": (True, True), "int8": (False, True)}
+# the prefill's B1 calls in call order are, a layer, the cache's k and v,
+# then the forward's q, k, v and o; each split runs the named calls on the
+# kernel and every other B1 call on its plain version, to find which calls
+# start the int8 codes that differ
+LM_AB_SPLITS = {"l0_cache_kv": (0, 1), "l0_qkvo": (2, 3, 4, 5), "l1_cache_kv": (6, 7),
+                "l1_qkvo": (8, 9, 10, 11)}
+# C1's candidate B1 f32 body (``--c1-candidate``): each 32-row K chunk
+# summed from zero in registers and folded into the running sum with
+# __fadd_rn, chunks in the kernel's K order
+C1_FOLD = [
+    ("    __syncthreads();\n\n#pragma unroll\n    for (int j = 0; j < BK; ++j) {",
+     "    __syncthreads();\n\n    float part[TM][TN];\n#pragma unroll\n"
+     "    for (int r = 0; r < TM; ++r)\n#pragma unroll\n"
+     "      for (int c = 0; c < TN; ++c) part[r][c] = 0.f;\n"
+     "#pragma unroll\n    for (int j = 0; j < BK; ++j) {"),
+    ("        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);\n"
+     "    }\n    __syncthreads();",
+     "        for (int c = 0; c < TN; ++c) part[r][c] = fmaf(av[r], bv[c], part[r][c]);\n"
+     "    }\n#pragma unroll\n    for (int r = 0; r < TM; ++r)\n#pragma unroll\n"
+     "      for (int c = 0; c < TN; ++c) acc[r][c] = __fadd_rn(acc[r][c], part[r][c]);\n"
+     "    __syncthreads();"),
+]
+
+
+def c1_candidate(out) -> int:
+    """``--c1-candidate DIR``: DIR gets a copy of this checkout's port with
+    C1's candidate B1 f32 body (``C1_FOLD``) in ``packed_spmm.cu``."""
+    import shutil
+
+    shutil.copytree(HERE / "smmb_tpu_torch", out / "smmb_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    src = out / "smmb_tpu_torch" / "kernels" / "csrc" / "packed_spmm.cu"
+    text = src.read_text()
+    for old, new in C1_FOLD:
+        check(text.count(old) == 1, f"C1 candidate: {old!r} is not in packed_spmm.cu once")
+        text = text.replace(old, new)
+    src.write_text(text)
+    log(f"C1's candidate B1 f32 body written to {src}")
+    return 0
+
+
+def _ab_lm(torch, dev, pair):
+    """(cfg, packed, prompt) of one ``LM_AB_PAIRS`` pair."""
+    from smmb_tpu_torch.bench.lm_bench import build_lm
+    from smmb_tpu_torch.models.lm import TernaryLMConfig
+    from smmb_tpu_torch.utils import rng
+
+    cfg = TernaryLMConfig(**LM_AB_CFG, max_len=LM_AB_PROMPT + 3 * LM_AB_STEPS)
+    packed, prompt = build_lm(cfg, 1, LM_AB_PROMPT, seed=pair[0], device=dev)
+    if pair[1] is not None:
+        prompt = torch.randint(0, cfg.vocab, (1, LM_AB_PROMPT), device=dev,
+                               generator=rng.make_generator(pair[1], dev))
+    return cfg, packed, prompt
+
+
+def c1_tokens(torch, dev) -> list:
+    """The plain path's f32 ``generate`` tokens of every pair and path of
+    C1's A/B, with each pair's prompt (CPU tensors)."""
+    from smmb_tpu_torch.models.lm import generate
+
+    out = []
+    for pair in LM_AB_PAIRS:
+        cfg, packed, prompt = _ab_lm(torch, dev, pair)
+        toks = {"prompt": prompt.cpu()}
+        with plain_kernels():
+            for path, (flash, quant) in LM_AB_PATHS.items():
+                toks[path] = generate(packed, prompt, cfg, LM_AB_STEPS,
+                                      compute_dtype=torch.float32, kv_quant=quant,
+                                      use_flash=flash).cpu()
+        out.append(toks)
+    return out
+
+
+@contextlib.contextmanager
+def _routed_b1(torch, calls, on=None):
+    """B1 on the LM path, the i-th call (in call order) on the kernel when
+    ``on`` is None or holds i, else on its plain version. With ``on`` None,
+    each call's deviation from ``packed_spmm_plain`` on its own input (RMS
+    and max of |y - plain| / max(1, max|plain|)) and its reading against
+    f64 (``_f64_reading``) are appended to ``calls``."""
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
+    from smmb_tpu_torch.models import attention, lm, moe, transformer
+
+    count = [0]
+
+    def routed(x, w, b=None, alpha=None, *, compute_dtype=torch.float32):
+        i, count[0] = count[0], count[0] + 1
+        ref = packed_spmm_plain(x.reshape(-1, x.shape[-1]), w, b, alpha,
+                                compute_dtype=compute_dtype).reshape(*x.shape[:-1], w.cols)
+        if on is not None and i not in on:
+            return ref
+        y = packed_spmm(x, w, b, alpha, compute_dtype=compute_dtype)
+        if on is None:
+            d = (y - ref).double().abs() / max(1.0, float(ref.abs().max()))
+            calls.append({"rms": float(d.square().mean().sqrt()), "max": float(d.max()),
+                          **_f64_reading(torch, x, w, b, alpha, y)})
+        return y
+
+    mods = (attention, transformer, lm, moe)
+    try:
+        for mod in mods:
+            mod.packed_spmm = routed
+        yield
+    finally:
+        for mod in mods:
+            mod.packed_spmm = packed_spmm
+
+
+def _flip_map(torch, got, want, head_dim) -> list:
+    """Int8 codes that differ between two LM caches, a row a layer:
+    [K at prefill positions, K at decode positions, V prefill, V decode]."""
+    rows = []
+    for g, w in zip(got, want):
+        b, s, kvd2 = g["kv"].shape
+        d = (g["kv"] != w["kv"]).view(b, s, kvd2 // (2 * head_dim), 2, head_dim)
+        rows.append([int(d[:, part, :, kv].sum()) for kv in (0, 1)
+                     for part in (slice(0, LM_AB_PROMPT), slice(LM_AB_PROMPT, s))])
+    return rows
+
+
+def _ab_path(torch, cfg, packed, prompt, ids, flash, quant) -> dict:
+    """One f32 path of C1's A/B on this side's B1, teacher-forced on
+    ``ids``: the logits' median and worst step error against the plain
+    path and the plain orders' spread (as phases 8 and 18 read them),
+    whether those phases' gates would hold, each B1 call's deviation from
+    plain at layers 0 and 1, C1's ratios over every call and, over the int8
+    cache, the codes that differ by layer, K or V and prefill or decode
+    position, alone and under each of ``LM_AB_SPLITS``."""
+    f32, hd = torch.float32, cfg.d_model // cfg.n_heads
+    calls, caches = [], []
+    with _routed_b1(torch, calls):
+        kern = _teacher_forced(torch, cfg, packed, prompt, ids, f32, True, flash, quant, caches)
+    with plain_kernels():
+        plain = _teacher_forced(torch, cfg, packed, prompt, ids, f32, True, flash, quant,
+                                caches)
+        unfused = _teacher_forced(torch, cfg, packed, prompt, ids, f32, False, flash, quant)
+    scale = plain.abs().amax(-1).clamp_min(1.0)
+    err = (kern - plain).abs().amax(-1) / scale
+    spread = float(((unfused - plain).abs().amax(-1) / scale).max())
+    rms, mx = _c1_ratios(calls)
+    out = {"median": float(err.median()), "worst": float(err.max()), "spread": spread,
+           "b1_l01": [[c["rms"], c["max"]] for c in calls[:12]],
+           "c1_rms_ratio": rms, "c1_max_ratio": mx}
+    flips = 0
+    if quant:
+        out["flips"] = _flip_map(torch, caches[0], caches[1], hd)
+        flips = sum(map(sum, out["flips"]))
+        out["splits"] = {}
+        for name, on in LM_AB_SPLITS.items():
+            split = []
+            with _routed_b1(torch, [], on):
+                _teacher_forced(torch, cfg, packed, prompt, ids, f32, True, flash, quant, split)
+            out["splits"][name] = _flip_map(torch, split[0], caches[1], hd)
+    out["gates_hold"] = (out["median"] <= 1e-4 and out["worst"]
+                         <= max(1e-4, spread, INT8_REL if flips else 0.0))
+    return out
+
+
+def _b1_f32_order(torch, x, w, b, alpha, fold):
+    """B1's f32 body replayed in plain f32 adds. With a ternary W each FMA
+    adds ±x or 0 exactly, so ``acc + x[:, c]·w[c]`` over the kernel's K
+    order (a chunk: 8 packed rows of each of the 4 planes, plane by plane)
+    is its result bit for bit; ``fold`` sums each chunk from zero and adds
+    it to the running sum (C1's candidate). Then bias and PReLU in f32."""
+    from smmb_tpu_torch.formats.packed import GROUP_ROWS, SUB, unpack_ternary
+
+    wd, k = unpack_ternary(w), x.shape[1]
+    acc = torch.zeros(x.shape[0], w.cols, device=x.device)
+    for pr0 in range(0, w.data.shape[0], 8):
+        part = torch.zeros_like(acc) if fold else acc
+        for i in range(4):
+            col0 = (pr0 // SUB) * GROUP_ROWS + i * SUB + pr0 % SUB
+            for col in range(col0, min(col0 + 8, k)):
+                part = part + x[:, col:col + 1] * wd[col]
+        acc = acc + part if fold else part
+    if b is not None:
+        acc = acc + b
+    return acc if alpha is None else torch.where(acc > 0, acc, alpha * acc)
+
+
+def _b1_order_rows(torch, dev) -> list:
+    """Which K order this side's B1 f32 body takes, bitwise, at the LM's
+    shapes (the prefill's 32×1024×1024, the head's 1×1024×8192), the
+    headline and two ragged K, and whether rows of an M-row call are
+    bitwise the M = 1 calls."""
+    from smmb_tpu_torch.formats.packed import pack_ternary_device
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.utils import rng
+
+    gen = rng.make_generator(31, dev)
+    rows = []
+    for m, k, n in ((32, 1024, 1024), (1, 1024, 8192), (256, 4096, 4096), (5, 100, 256),
+                    (17, 1000, 300)):
+        w = pack_ternary_device(rng.rand_ternary(gen, (k, n), non_zero=10 if k == 4096 else 2))
+        x, b = rng.rand_dense(gen, (m, k)), rng.rand_dense(gen, (n,))
+        y = packed_spmm(x, w, b, ALPHA)
+        ones = torch.cat([packed_spmm(x[r:r + 1], w, b, ALPHA) for r in range(m)])
+        rows.append({"shape": [m, k, n], "rows_bitwise_m1": bool(torch.equal(y, ones)),
+                     **{name: bool(torch.equal(y, _b1_f32_order(torch, x, w, b, ALPHA, fold)))
+                        for name, fold in (("chain", False), ("fold", True))}})
+    return rows
+
+
+def c1_side(torch, dev, tokens) -> dict:
+    """C1's case on one side of ``--fused-ab``: B1's f32 headline against
+    f64 (phase 3's reading), its K order (``_b1_order_rows``) and each
+    pair's three paths (``_ab_path``) on the plain path's ``tokens``."""
+    out = {"headline": read_b1_f32_headline(torch, dev),
+           "order": _b1_order_rows(torch, dev), "pairs": []}
+    for pair, toks in zip(LM_AB_PAIRS, tokens):
+        cfg, packed, _ = _ab_lm(torch, dev, pair)
+        prompt = toks["prompt"].to(dev)
+        out["pairs"].append({"pair": list(pair), **{
+            path: _ab_path(torch, cfg, packed, prompt, toks[path].to(dev), flash, quant)
+            for path, (flash, quant) in LM_AB_PATHS.items()}})
+    return out
+
+
+def _ab_totals(pair: dict) -> tuple:
+    """(worst f32 step error over the three paths, int8 codes that differ
+    over both int8 paths) of one side's pair."""
+    return (max(pair[p]["worst"] for p in LM_AB_PATHS),
+            sum(sum(map(sum, pair[p]["flips"])) for p in LM_AB_PATHS if "flips" in pair[p]))
+
+
+def c1_verdict(this: dict, other: dict) -> dict:
+    """C1's decision rule (PERF.md §6): DIR's B1 (``other``, the candidate)
+    is worse on a pair when both its worst f32 step error and its int8
+    codes that differ exceed this side's, and worse on most when that holds
+    on more than half of the pairs. One JSON line a side (headline reading,
+    K order), one a pair, and the verdict."""
+    for side, res in (("this", this), ("other", other)):
+        print(json.dumps({"c1_side": side, "headline": res["headline"],
+                          "order": res["order"]}), flush=True)
+    worse = 0
+    for a, b in zip(this["pairs"], other["pairs"]):
+        (wa, fa), (wb, fb) = _ab_totals(a), _ab_totals(b)
+        worse += wb > wa and fb > fa
+        print(json.dumps({"c1_pair": a["pair"], "this": a, "other": b,
+                          "worst": [wa, wb], "codes_differ": [fa, fb],
+                          "other_worse": wb > wa and fb > fa}), flush=True)
+    verdict = {"c1_ab": {"pairs": len(this["pairs"]), "other_worse": worse,
+                         "worse_on_most": 2 * worse > len(this["pairs"])}}
+    print(json.dumps(verdict), flush=True)
+    return verdict
 
 
 def check_fused_kernels(torch, dev) -> dict:
@@ -3636,6 +3924,169 @@ def run_lora_lm(torch, dev, card, lm) -> None:
         f"adapters move the logits by up to {shift:.3e}")
 
 
+# ------------------------------------------------------------ runtime slice
+
+RUNTIME_CORPUS = 1 << 26  # tokens of phase 27's corpus: 256 MB of uint32
+# measure_device's per-call device time against the profiler's device time of
+# the same call (bench/trace.py): at least GRAPH_LO times it and at most
+# GRAPH_HI times it plus GRAPH_ADD_US (a graph's gap between two kernels)
+GRAPH_LO, GRAPH_HI, GRAPH_ADD_US = 0.9, 1.25, 2.0
+
+
+def run_runtime(torch, dev, card) -> dict:
+    """Phase 27: the runtime and ``measure_device``."""
+    from smmb_tpu_torch.bench.measure import measure, measure_device
+    from smmb_tpu_torch.bench.trace import kernel_breakdown
+    from smmb_tpu_torch.formats.bcsr import bcsr_from_dense
+    from smmb_tpu_torch.formats.packed import TernaryPacked, pack_ternary_device
+    from smmb_tpu_torch.formats.tcsc import tcsc_from_dense
+    from smmb_tpu_torch.kernels import fused_mlp as fk
+    from smmb_tpu_torch.kernels.bcsr_spmm import (
+        bcsr_prepare,
+        bcsr_spmm_kernel,
+        bcsr_spmm_kernel_plain,
+    )
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
+    from smmb_tpu_torch.models.lm import TernaryLMConfig, init_lm, make_lm_train_step
+    from smmb_tpu_torch.runtime import data, native
+    from smmb_tpu_torch.utils import rng
+
+    out = {}
+    t = time.perf_counter()
+    check(native.native_available(), "the native runtime library did not build")
+    out["build_s"] = time.perf_counter() - t
+    check(native.library_path().parent == HERE / "smmb_tpu_torch" / "_build",
+          "the runtime library lies outside smmb_tpu_torch/_build")
+
+    # the headline W of phase 3's C1 reading (seed 3), its formats built natively
+    gen = rng.make_generator(3, dev)
+    x = rng.rand_dense(gen, (256, 4096))
+    w = rng.rand_ternary(gen, (4096, 4096), non_zero=10)
+    b = rng.rand_dense(gen, (4096,))
+    w_np = w.cpu().numpy()
+    t = time.perf_counter()
+    p = native.pack_ternary_native(w_np, dev)
+    out["pack_native_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    tcsc = native.tcsc_from_dense_native(w_np, dev)
+    out["tcsc_native_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    bcsr = native.bcsr_from_dense_native(w_np, 128, 128, dev)
+    out["bcsr_native_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    p_dev = pack_ternary_device(w)
+    torch.cuda.synchronize()
+    out["pack_device_s"] = time.perf_counter() - t
+    check(torch.equal(p.data, p_dev.data) and p.nnz == int(torch.count_nonzero(w)),
+          "natively packed planes differ from pack_ternary_device's")
+    t_np, t_bc = tcsc_from_dense(w_np, dev), bcsr_from_dense(w_np, 128, 128, dev)
+    check(all(torch.equal(getattr(tcsc, f), getattr(t_np, f)) for f in
+              ("col_start_pos", "col_start_neg", "row_index_pos", "row_index_neg")),
+          "native TCSC differs from formats.tcsc's")
+    check(bcsr.k == t_bc.k and all(torch.equal(getattr(bcsr, f), getattr(t_bc, f)) for f in
+                                   ("b_row_start", "b_col_idx", "b_values")),
+          "native BCSR differs from formats.bcsr's")
+    prepared = bcsr_prepare(bcsr, dev)
+    for name, cdt, tol in (("f32", torch.float32, 1e-4), ("bf16", torch.bfloat16, 2.0 ** -7)):
+        before = (packed_spmm.launches, bcsr_spmm_kernel.launches)
+        y = packed_spmm(x, p, b, ALPHA, compute_dtype=cdt)
+        ref = packed_spmm_plain(x, p, b, ALPHA, compute_dtype=cdt)
+        xb = x.to(cdt)
+        y2, ref2 = bcsr_spmm_kernel(xb, prepared, b, ALPHA), bcsr_spmm_kernel_plain(xb, prepared,
+                                                                                   b, ALPHA)
+        torch.cuda.synchronize()
+        check((packed_spmm.launches, bcsr_spmm_kernel.launches)
+              == (before[0] + 1, before[1] + 1), f"B1 and B2 launch once each ({name})")
+        for what, got, want in (("B1", y, ref), ("B2", y2, ref2)):
+            err = float((got.float() - want.float()).abs().max())
+            lim = tol * max(1.0, float(want.float().abs().max()))
+            check(err <= lim, f"{what} {name} on the native formats vs plain: {err:.3e} > "
+                  f"{lim:.3e}")
+            out[f"{what}_{name}_err"] = err
+    log(f"native runtime built in {out['build_s']:.1f}s; headline W packed natively in "
+        f"{out['pack_native_s']:.3f}s (pack_ternary_device {out['pack_device_s']:.3f}s), "
+        f"TCSC {out['tcsc_native_s']:.3f}s, BCSR 128x128 {out['bcsr_native_s']:.3f}s, each "
+        "byte-identical to the port's formats; B1 and B2 on them within their tolerances")
+
+    # a corpus from the seed, read back by TokenDataset
+    import tempfile
+
+    import numpy as np
+
+    vocab = LM_TRAIN["vocab"]
+    with tempfile.TemporaryDirectory() as work:
+        path = str(Path(work) / "corpus.u32")
+        t = time.perf_counter()
+        data.write_token_file(path, np.random.default_rng(27).integers(
+            0, vocab, RUNTIME_CORPUS, dtype=np.uint32))
+        out["corpus_write_s"] = time.perf_counter() - t
+        ds = data.TokenDataset(path, seq_len=256, batch=8, seed=27)
+        n, t = 0, time.perf_counter()
+        for batch in ds.batches(0):
+            n += 1
+            if n == 4096:
+                break
+        out["windows_per_s"] = n * 8 / (time.perf_counter() - t)
+        check(batch.shape == (8, 257) and batch.dtype == torch.int64
+              and 0 <= int(batch.min()) and int(batch.max()) < vocab, "TokenDataset batch")
+        log(f"corpus of {RUNTIME_CORPUS} tokens written in {out['corpus_write_s']:.2f}s; "
+            f"TokenDataset (seq 256, batch 8, native): {out['windows_per_s']:.0f} windows/s "
+            f"over {n} batches of {len(ds)}")
+
+        # three LM QAT steps at the `lm` widths on its batches (phase 24's
+        # accumulation and attn_chunk; windows of 256 tokens, phase 24's rows)
+        (bs, seq) = LM_TRAIN_BATCH
+        cfg = TernaryLMConfig(**LM_TRAIN, max_len=seq)
+        params = _masters(init_lm(rng.make_generator(27, dev), cfg))
+        init_opt, train_step = make_lm_train_step(cfg, learning_rate=1e-3, accum_steps=2,
+                                                  attn_chunk=64)
+        opt = init_opt(params)
+        batches = data.TokenDataset(path, seq_len=seq - 1, batch=bs, seed=27).batches(0)
+
+        def step():
+            nonlocal params, opt
+            params, opt, loss = train_step(params, opt, next(batches).to(dev))
+            return float(loss)
+
+        losses, ms, peak = zip(*(_timed_step(torch, step) for _ in range(3)))
+    check(all(math.isfinite(v) for v in losses), f"LM QAT on the corpus: losses {losses}")
+    out["lm_qat"] = _log_steps(f"LM QAT {LM_TRAIN} on TokenDataset batches {bs}x{seq}, "
+                               "accum 2, attn_chunk 64", card, list(losses), list(ms),
+                               list(peak))
+
+    # measure_device at the LM's M=1 calls, against the profiler's device time
+    bf16 = torch.bfloat16
+    hgen = rng.make_generator(27, dev)
+    head = pack_ternary_device(rng.rand_ternary(hgen, (1024, 8192), non_zero=2))
+    x1 = rng.rand_dense(hgen, (1, 1024))
+    qkv = _fused_inputs(torch, hgen, "fused_norm_qkv", 1, 1024, 3072, dev)
+    qkv_kw = _kernel_kwargs("fused_norm_qkv", bf16)
+    cases = {
+        "b1_head_1x1024x8192": (lambda a, d: packed_spmm(
+            a, TernaryPacked(d, head.rows, head.cols, head.nnz), compute_dtype=bf16),
+            (x1, head.data)),
+        "b3_1x1024x3072": (lambda *a: fk.fused_norm_qkv(*a, **qkv_kw), qkv),
+    }
+    out["measure_device"] = {}
+    for name, (fn, args) in cases.items():
+        graph_us = measure_device(fn, *args).min_s * 1e6
+        prof_us = sum(r["us"] for r in kernel_breakdown(fn, *args, n_calls=50))
+        host_us = measure(fn, *args).min_s * 1e6
+        row = {"call": name, "graph_us": graph_us, "profiler_us": prof_us, "host_us": host_us,
+               "limits_us": [GRAPH_LO * prof_us, GRAPH_HI * prof_us + GRAPH_ADD_US]}
+        if name.startswith("b1"):  # W streamed from device memory, a copy a call
+            row["graph_rotated_us"] = measure_device(fn, *args, rotate_argnums=(1,)).min_s * 1e6
+        print(json.dumps({"measure_device": row, "card": card}), flush=True)
+        check(row["limits_us"][0] <= graph_us <= row["limits_us"][1],
+              f"measure_device {name}: {graph_us:.2f} us outside {row['limits_us']} "
+              f"(profiler {prof_us:.2f} us)")
+        out["measure_device"][name] = row
+    log("phase 27 passed: " + "; ".join(
+        f"{k} {r['graph_us']:.2f} us under a graph, {r['profiler_us']:.2f} by the profiler, "
+        f"{r['host_us']:.2f} a call by measure" for k, r in out["measure_device"].items()))
+    return out
+
+
 def _packed_planes(packed) -> list:
     """Every ``TernaryPacked`` plane of a packed LM tree."""
     from smmb_tpu_torch.formats.packed import TernaryPacked
@@ -3652,7 +4103,9 @@ def _packed_planes(packed) -> list:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fused-side"]:
         sys.path.insert(0, sys.argv[2])
-        sys.exit(fused_side(sys.argv[3]))
+        sys.exit(fused_side(*sys.argv[3:6]))
     if sys.argv[1:2] == ["--fused-ab"]:
         sys.exit(fused_ab(Path(sys.argv[2]).resolve()))
+    if sys.argv[1:2] == ["--c1-candidate"]:
+        sys.exit(c1_candidate(Path(sys.argv[2]).resolve()))
     sys.exit(main())

@@ -925,3 +925,39 @@ def test_lora_generate_launch_counts_and_logits(cuda):
     y = tlm.lm_forward(model, prompt, cfg)
     ref = tlm.lm_forward(model, prompt, cfg, use_kernel=False)
     assert_close(y, ref, 2e-4 + 1.1e-4 * float(ref.abs().max()), "LoRA logits")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.float32, torch.bfloat16, torch.int8])
+def test_native_packed_planes_through_b1_bitwise(cuda, cdt):
+    from smmb_tpu_torch.runtime import native
+
+    assert native.native_available()
+    gen = rng.make_generator(41, "cuda")
+    w = rng.rand_ternary(gen, (1000, 640), non_zero=4)
+    x = rng.rand_dense(gen, (33, 1000))
+    b = rng.rand_dense(gen, (640,))
+    p_native = native.pack_ternary_native(w.cpu().numpy(), "cuda")
+    p_numpy = pack_ternary(w.cpu().numpy(), "cuda")
+    assert torch.equal(p_native.data, p_numpy.data) and p_native.nnz == p_numpy.nnz
+    before = packed_spmm.launches
+    y = packed_spmm(x, p_native, b, ALPHA, compute_dtype=cdt)
+    assert torch.equal(y, packed_spmm(x, p_numpy, b, ALPHA, compute_dtype=cdt))
+    assert packed_spmm.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_measure_device_times_a_graph(cuda):
+    from smmb_tpu_torch.bench.measure import measure, measure_device
+
+    gen = rng.make_generator(42, "cuda")
+    p = pack_ternary(rng.rand_ternary(gen, (1024, 8192)).cpu(), "cuda")
+    x = rng.rand_dense(gen, (1, 1024))
+
+    def head():
+        return packed_spmm(x, p, compute_dtype=torch.bfloat16)
+
+    m = measure_device(head, iters=64, reps=3)
+    assert m.calls_per_batch == 64 and 0 < m.min_s <= m.mean_s
+    # the host's launch cost is cancelled: under the host-timed call's time
+    assert m.min_s < measure(head, reps=3).min_s
