@@ -20,7 +20,7 @@ which exits non-zero on failure:
    bitwise the M = 1 calls, at 1024×8192 and 4096×4096; C1's reading: B1's
    f32 headline call and the library's f32 product against f64 beside C1's
    limits (B1's RMS error at most 1.25× the library's, its largest at most
-   2×), logged while C1 is open;
+   2×), logged (C1 is a measured precision gap, ROADMAP queue B);
 4. the main path at full width: the packed ternary MLP of
    ``python -m smmb_tpu_torch mlp`` (depth 4, dim 4096, batch 256, density
    1/10, bf16) with exactly one kernel launch per layer, and the MLP of
@@ -215,7 +215,30 @@ which exits non-zero on failure:
     ``bench/measure.py::measure_device`` (CUDA-graph replay) on the LM
     head's B1 call and on B3 at M = 1, each within [GRAPH_LO×, GRAPH_HI× +
     GRAPH_ADD_US] of the profiler's device time of the same call, beside
-    ``measure``'s host-bound time.
+    ``measure``'s host-bound time;
+28. the parallel layer (``smmb_tpu_torch.parallel``). NCCL refuses two
+    ranks on one device, so a 2-rank gloo world on the one card
+    (``run_world``; every collective staged through host memory by
+    ``parallel/mesh.py``, counted and printed): at the headline in f32,
+    bf16 and W2A8, column shards gathered bitwise the unsharded B1 call,
+    row and ring-overlap shards against the same calls on the plain bodies
+    (f32 1e-4, bf16 2^-7, int8 1e-6 of max(1, max|Y|)), 4 B1 launches a
+    rank; ``sharded_bcsr_spmm`` at 256×1024×4096 against its plain bodies,
+    one B2 launch a rank; ``mlp_forward_sharded`` at config 5 and
+    ``block_forward_tp`` at 4096-d (with and without flash) within
+    max(1e-4, 2e-5·max|ref|) of the single-rank calls; ``generate_tp`` at
+    the ``lm`` widths on model = 2, plain, flash and int8 + flash, its
+    launches a rank (B1 1113, B9 4, B4 or B8 256) and its teacher-forced
+    logits within the LM rule of the single-rank path at every position on
+    a LeCun-scale LM in f32 (bf16 and the unit-scale LM logged), with
+    µs/token beside ``generate``'s and where a call's time goes; a 2-stage
+    ``lm_forward_pp`` within the LM rule of ``lm_forward``; three DP steps
+    against one rank on the whole batch (the first loss within 1e-5); a
+    1-rank NCCL world (column bitwise, row 1e-4, a TP block, none staged);
+    the latency of one small all_reduce, staged from the card and of host
+    tensors;
+    and ``python -m smmb_tpu_torch scaling --mesh 1x1,1x2``, its 2-rank
+    points labelled as sharing the card.
 
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
@@ -709,6 +732,7 @@ def main() -> int:
     run_moe_lm(torch, dev, card)
     run_lora_lm(torch, dev, card, lm)
     run_runtime(torch, dev, card)
+    par = run_parallel(torch, dev, card)
 
     main_mode = per_mode["bf16"]  # the main path's mode and per-layer shape
     summary = {"kernels": [{
@@ -725,6 +749,24 @@ def main() -> int:
         "library_ms": main_mode["library_ms"],
         "design": "mma.sync",
     }, *bcsr_rows, *fused_rows, *flash_rows, *int8_rows, *pipe_rows]}
+    lm_tp = par["lm"]
+    par_launches = {  # phase 28, a rank's launches on 2 ranks sharing the card
+        "packed_spmm": {"sharded SpMMs (column + row + overlap)": par["spmm"]["b1_launches"]["bf16"],
+                        "mlp_forward_sharded": par["mlp"]["b1_launches"],
+                        "block_forward_tp": par["block"]["b1_launches"],
+                        "generate_tp": lm_tp["unit_bf16_plain"]["launches"]["packed_spmm"],
+                        "lm_forward_pp": par["pp"]["b1_launches"]},
+        "bcsr_spmm_kernel": {"sharded_bcsr_spmm": par["bcsr"]["f32"]["b2_launches"]},
+        "flash_attention": {"generate_tp(use_flash)":
+                            lm_tp["unit_bf16_flash"]["launches"]["flash_attention"]},
+        "flash_attention_decode": {"generate_tp(use_flash)":
+                                   lm_tp["unit_bf16_flash"]["launches"]["flash_attention_decode"]},
+        "flash_attention_decode_quant": {"generate_tp(kv_quant, use_flash)": lm_tp[
+            "unit_bf16_int8_flash"]["launches"]["flash_attention_decode_quant"]},
+    }
+    for row in summary["kernels"]:
+        if row["name"] in par_launches:
+            row["parallel_launches"] = par_launches[row["name"]]
     log(f"all phases passed in {time.time() - T0:.1f}s")
     print(json.dumps(summary), flush=True)
     print(card_line(), flush=True)
@@ -3001,15 +3043,16 @@ def time_serving_controls(torch, dev, spec, pipe) -> list:
 
 # ------------------------------------------------------------ C1: B1 f32 vs f64
 
-# C1 (ROADMAP §C) is decided per call, where rounding cannot compound: B1's
+# C1 (ROADMAP queue B, beside the B1 f32 item) is read per call, where rounding cannot compound: B1's
 # f32 output and the library's f32 product of the same operands
 # (``packed_spmm_plain``: the decode, then torch.matmul with TF32 off, the
 # flag ``ops.dense.full_f32_matmul`` sets), each against an f64 product,
 # relative to max(1, max|y64|). C1's limits: at every call B1's RMS error at
 # most C1_RMS_FACTOR times the library's and its largest error at most
-# C1_MAX_FACTOR times the library's. B1's f32 mode misses them and C1 is
-# open, so the readings and the calls beyond the limits are logged, not
-# gated; the repair that meets them re-rolls phases 8 and 18 (ROADMAP §C).
+# C1_MAX_FACTOR times the library's. B1's f32 mode misses them: C1 is a
+# measured precision gap, so the readings and the calls beyond the limits
+# are logged, not gated; a redesign of B1's f32 mode that meets them must
+# also hold phases 8 and 18 as they stand (ROADMAP queue B).
 C1_RMS_FACTOR = 1.25
 C1_MAX_FACTOR = 2.0
 
@@ -3052,12 +3095,13 @@ def _c1_ratios(readings: list) -> tuple:
 
 def _read_c1(readings: list, what: str) -> dict:
     """C1's reading of B1 f32 calls: the worst B1/library ratios and the
-    calls beyond C1's limits, logged (C1 is open, so not gated)."""
+    calls beyond C1's limits, logged: C1 is a measured precision gap, not a
+    gate, until a redesign of B1's f32 mode takes it up (ROADMAP queue B)."""
     check(len(readings) > 0, f"{what}: no B1 f32 call was read against f64")
     rms, mx = _c1_ratios(readings)
     beyond = sum(not (r["b1_rms"] <= C1_RMS_FACTOR * r["lib_rms"]
                       and r["b1_max"] <= C1_MAX_FACTOR * r["lib_max"]) for r in readings)
-    log(f"{what}: {len(readings)} B1 f32 calls against f64 (C1, open, logged): B1/library "
+    log(f"{what}: {len(readings)} B1 f32 calls against f64 (C1, a measured gap, logged): B1/library "
         f"RMS ratio at most {rms:.3f} (limit {C1_RMS_FACTOR}), max ratio at most {mx:.3f} "
         f"(limit {C1_MAX_FACTOR}), {beyond} calls beyond; B1 RMS "
         f"{min(r['b1_rms'] for r in readings):.3e}–{max(r['b1_rms'] for r in readings):.3e}, "
@@ -3167,6 +3211,7 @@ def _held_b1_calls(torch, errs, readings=None):
     against f64 (``_f64_reading``) to it."""
     from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain
     from smmb_tpu_torch.models import attention, lm, moe, transformer
+    from smmb_tpu_torch.parallel import sharded
 
     def held(x, w, b=None, alpha=None, *, compute_dtype=torch.float32):
         y = packed_spmm(x, w, b, alpha, compute_dtype=compute_dtype)
@@ -3177,7 +3222,7 @@ def _held_b1_calls(torch, errs, readings=None):
             readings.append(_f64_reading(torch, x, w, b, alpha, y))
         return y
 
-    mods = (attention, transformer, lm, moe)
+    mods = (attention, transformer, lm, moe, sharded)
     try:
         for mod in mods:
             mod.packed_spmm = held
@@ -4085,6 +4130,719 @@ def run_runtime(torch, dev, card) -> dict:
         f"{k} {r['graph_us']:.2f} us under a graph, {r['profiler_us']:.2f} by the profiler, "
         f"{r['host_us']:.2f} a call by measure" for k, r in out["measure_device"].items()))
     return out
+
+
+# ------------------------------------------------------------ parallel layer
+PAR_HEADLINE = (256, 4096, 4096, 10)  # M, K, N, non_zero of the sharded SpMMs
+PAR_MODES = {  # name: (compute dtype, x dtype, tolerance of max(1, max|Y|))
+    "f32": ("float32", "float32", 1e-4),
+    "bf16": ("bfloat16", "bfloat16", 2.0 ** -7),
+    "int8": ("int8", "float32", 1e-6),
+}
+PAR_BCSR = (256, 1024, 4096)  # the showcase's largest case, all 128x128 blocks stored
+PAR_CALLS = 20  # calls a timed batch of a sharded call (every rank the same)
+PAR_LM = dict(vocab=8192, d_model=1024, n_heads=8, d_ff=4096, n_layers=4)  # the `lm` CLI's
+PAR_PROMPT, PAR_STEPS = 32, 64
+DP_BATCH = (4, 128)  # tokens of a DP step: 2 rows a rank on 2 ranks
+PAR_MLP = (4, 4096, 256, 10)  # depth, dim, batch, non_zero: BASELINE config 5
+PAR_BLOCK = dict(d_model=4096, n_heads=8, d_ff=4096)  # scaling's tp_block
+LM_RULE = (2e-4, 1.1e-4)  # the LM rule: 2e-4 + 1.1e-4·max|logit|
+BF16_TOL = 2.0 ** -7  # bf16 results, relative to max(1, max|ref|)
+
+
+def _rank_log(world, msg: str) -> None:
+    if world.rank == 0:
+        log(f"[phase 28, rank 0 of {world.size}] {msg}")
+
+
+@contextlib.contextmanager
+def _plain_sharded():
+    """The parallel layer's per-rank bodies on their plain versions (B1 and
+    B2); the launch counts do not move."""
+    from smmb_tpu_torch.kernels.bcsr_spmm import bcsr_spmm_kernel_plain
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm_plain
+    from smmb_tpu_torch.parallel import bcsr_sharded, sharded
+
+    saved = (sharded.packed_spmm, bcsr_sharded.bcsr_spmm_kernel)
+    sharded.packed_spmm = packed_spmm_plain
+    bcsr_sharded.bcsr_spmm_kernel = (
+        lambda x, w, b=None, alpha=None, **_: bcsr_spmm_kernel_plain(x, w, b, alpha))
+    try:
+        yield
+    finally:
+        sharded.packed_spmm, bcsr_sharded.bcsr_spmm_kernel = saved
+
+
+def _par_time(torch, fn, calls=PAR_CALLS) -> float:
+    """ms a call of ``fn`` (a fixed number of calls, so that the ranks issue
+    the same collectives)."""
+    from smmb_tpu_torch.bench.measure import measure
+
+    return measure(fn, calls=calls, reps=5).min_s * 1e3
+
+
+def _par_alone(torch, world, fn) -> float | None:
+    """ms a call of ``fn`` timed on rank 0 while the other ranks wait at a
+    barrier (None on them)."""
+    import torch.distributed as dist
+
+    from smmb_tpu_torch.bench.measure import measure
+
+    t = measure(fn, reps=5).min_s * 1e3 if world.rank == 0 else None
+    dist.barrier()
+    return t
+
+
+def _par_spmms(torch, world, mesh) -> dict:
+    """Phase 28a: the sharded SpMMs at the headline in each mode: column
+    shards gathered bitwise the unsharded B1 call; row and ring-overlap
+    shards against the same sharded calls on the plain bodies, and against
+    an unsharded reference: in f32 and bf16 the unsharded B1 call; in int8,
+    whose sharded paths quantize X per K chunk (as JAX's), the unsharded B1
+    call on each chunk of X and of the dense W, summed in f32, then the
+    bias and the PReLU."""
+    from smmb_tpu_torch.formats.packed import pack_ternary_device
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.parallel import mesh as pm
+    from smmb_tpu_torch.parallel.overlap import sharded_spmm_column_overlapped
+    from smmb_tpu_torch.parallel.sharded import (
+        shard_packed_columns,
+        shard_packed_rows,
+        sharded_spmm_column,
+        sharded_spmm_row,
+    )
+    from smmb_tpu_torch.utils import rng
+
+    m, k, n, nz = PAR_HEADLINE
+    dev = mesh.device
+    gen = rng.make_generator(0, dev)
+    x32 = rng.rand_dense(gen, (m, k))
+    w = rng.rand_ternary(gen, (k, n), non_zero=nz)
+    b = rng.rand_dense(gen, (n,))
+    p = pack_ternary_device(w)
+    pc, pr = shard_packed_columns(p, mesh), shard_packed_rows(p, mesh)
+    kc = k // mesh.model
+    w_chunks = [pack_ternary_device(w[j * kc:(j + 1) * kc]) for j in range(mesh.model)]
+    out, launches = {}, {}
+    for name, (cdt_name, xdt_name, tol) in PAR_MODES.items():
+        cdt, x = getattr(torch, cdt_name), x32.to(getattr(torch, xdt_name))
+        xk = pm.local_cols(x, mesh)
+        kw = dict(mesh=mesh, alpha=ALPHA, compute_dtype=cdt)
+        whole = packed_spmm(x, p, b, ALPHA, compute_dtype=cdt)
+        torch.cuda.synchronize()
+        packed_spmm.launches = 0
+        col = pm.all_gather(sharded_spmm_column(x, pc, b, **kw), mesh, pm.MODEL_AXIS, dim=-1)
+        row = sharded_spmm_row(xk, pr, b, **kw)
+        ring = pm.all_gather(sharded_spmm_column_overlapped(xk, pc, b, **kw), mesh,
+                             pm.MODEL_AXIS, dim=-1)
+        torch.cuda.synchronize()
+        launches[name] = packed_spmm.launches
+        check(launches[name] == 1 + 1 + mesh.model,
+              f"sharded SpMMs {name}: {launches[name]} B1 launches a rank, "
+              f"expected {2 + mesh.model}")
+        with _plain_sharded():
+            row_p = sharded_spmm_row(xk, pr, b, **kw)
+            ring_p = pm.all_gather(sharded_spmm_column_overlapped(xk, pc, b, **kw), mesh,
+                                   pm.MODEL_AXIS, dim=-1)
+        if name == "int8":
+            acc = sum(packed_spmm(x[:, j * kc:(j + 1) * kc], w_chunks[j], None, None,
+                                  compute_dtype=cdt).float() for j in range(mesh.model))
+            unsharded = torch.where(acc + b > 0, acc + b, ALPHA * (acc + b))
+        else:
+            unsharded = whole
+        check(torch.equal(col, whole), f"column shards {name} not bitwise the unsharded B1 call")
+        errs = {}
+        for what, got, ref in (("row", row, row_p), ("overlap", ring, ring_p),
+                               ("row_unsharded", row, unsharded),
+                               ("overlap_unsharded", ring, unsharded)):
+            err = float((got.float() - ref.float()).abs().max())
+            lim = tol * max(1.0, float(ref.float().abs().max()))
+            check(err <= lim, f"{what} shards {name} vs "
+                  f"{'the unsharded reference' if 'unsharded' in what else 'plain'}: "
+                  f"{err:.3e} > {lim:.3e}")
+            errs[what] = err
+        xs = (x, pc, b)
+        times = {
+            "unsharded_ms": _par_alone(torch, world,
+                                       lambda: packed_spmm(x, p, b, ALPHA, compute_dtype=cdt)),
+            "column_ms": _par_time(torch, lambda: sharded_spmm_column(*xs, **kw)),
+            "row_ms": _par_time(torch, lambda: sharded_spmm_row(xk, pr, b, **kw)),
+            "overlap_ms": _par_time(torch,
+                                    lambda: sharded_spmm_column_overlapped(xk, pc, b, **kw)),
+        }
+        out[name] = {"row_err": errs["row"], "overlap_err": errs["overlap"],
+                     "row_unsharded_err": errs["row_unsharded"],
+                     "overlap_unsharded_err": errs["overlap_unsharded"], **times}
+        _rank_log(world, f"sharded SpMMs {name} at {m}x{k}x{n}: column bitwise, row "
+                  f"{errs['row']:.2e}, overlap {errs['overlap']:.2e} vs plain, row "
+                  f"{errs['row_unsharded']:.2e}, overlap {errs['overlap_unsharded']:.2e} vs "
+                  f"unsharded (limit {tol:.1e} of max(1, max|Y|)); ms a call: " + ", ".join(
+                      f"{k_} {v:.4f}" for k_, v in times.items() if v is not None))
+    return {"modes": out, "b1_launches": launches}
+
+
+def _par_bcsr(torch, world, mesh) -> dict:
+    """Phase 28b: ``sharded_bcsr_spmm`` at the showcase's 256×1024×4096
+    (128×128 blocks), f32 and bf16, against its plain bodies."""
+    from smmb_tpu_torch.kernels.bcsr_spmm import bcsr_spmm_kernel
+    from smmb_tpu_torch.parallel import mesh as pm
+    from smmb_tpu_torch.parallel.bcsr_sharded import shard_bcsr_columns, sharded_bcsr_spmm
+    from smmb_tpu_torch.utils import rng
+
+    dev = mesh.device
+    gen = rng.make_generator(5, dev)
+    m, k, n = PAR_BCSR
+    _, prep, b = _bcsr_case(torch, gen, k, n, 128, 128, 1.0, 2, dev)
+    shards = shard_bcsr_columns(prep, mesh)
+    x32 = rng.rand_dense(gen, (m, k))
+    out = {}
+    for name, dt, tol in (("f32", torch.float32, 1e-4), ("bf16", torch.bfloat16, 2.0 ** -7)):
+        x = x32.to(dt)
+        torch.cuda.synchronize()
+        bcsr_spmm_kernel.launches = 0
+        y = pm.all_gather(sharded_bcsr_spmm(x, shards, b, mesh=mesh, alpha=ALPHA), mesh,
+                          pm.MODEL_AXIS, dim=-1)
+        torch.cuda.synchronize()
+        launches = bcsr_spmm_kernel.launches
+        check(launches == 1, f"sharded BCSR {name}: {launches} B2 launches a rank")
+        with _plain_sharded():
+            ref = pm.all_gather(sharded_bcsr_spmm(x, shards, b, mesh=mesh, alpha=ALPHA), mesh,
+                                pm.MODEL_AXIS, dim=-1)
+        err = float((y.float() - ref.float()).abs().max())
+        lim = tol * max(1.0, float(ref.float().abs().max()))
+        check(err <= lim, f"sharded BCSR {name} vs plain: {err:.3e} > {lim:.3e}")
+        whole = bcsr_spmm_kernel(x, prep, b, ALPHA)
+        ms = _par_time(torch, lambda: sharded_bcsr_spmm(x, shards, b, mesh=mesh, alpha=ALPHA))
+        alone = _par_alone(torch, world, lambda: bcsr_spmm_kernel(x, prep, b, ALPHA))
+        out[name] = {"err": err, "bitwise_unsharded": bool(torch.equal(y, whole)), "ms": ms,
+                     "unsharded_ms": alone, "b2_launches": launches}
+        _rank_log(world, f"sharded BCSR {name} 256x1024x4096: {err:.2e} vs plain (limit "
+                  f"{lim:.2e}), bitwise the unsharded B2 call: {out[name]['bitwise_unsharded']}; "
+                  f"{ms:.4f} ms a call (unsharded {alone})")
+    return out
+
+
+def _par_mlp_block(torch, world, mesh) -> dict:
+    """Phase 28c: ``mlp_forward_sharded`` at BASELINE config 5 against
+    ``mlp_forward``, and ``block_forward_tp`` at scaling's ``tp_block``
+    (4096-d, 8 heads, 4096-ff) against ``block_forward``, f32, each within
+    max(TOL_DENSE, 2e-5·max|ref|)."""
+    from smmb_tpu_torch.bench.mlp_bench import build_mlp
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.mlp import mlp_forward, mlp_forward_sharded, shard_mlp
+    from smmb_tpu_torch.models.transformer import (
+        TernaryBlockConfig,
+        block_forward,
+        init_block,
+        pack_block,
+    )
+    from smmb_tpu_torch.parallel import mesh as pm
+    from smmb_tpu_torch.parallel.tp_transformer import block_forward_tp, shard_block_tp
+    from smmb_tpu_torch.utils import rng
+
+    dev = mesh.device
+    out = {}
+    cfg, packed, x, _ = build_mlp(*PAR_MLP, dev)
+    sh = shard_mlp(packed, mesh)
+    packed_spmm.launches = 0
+    y = mlp_forward_sharded(sh, x, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = packed_spmm.launches
+    ref = mlp_forward(packed, x, cfg)
+    err = float((y - ref).abs().max())
+    lim = max(1e-4, 2e-5 * float(ref.abs().max()))
+    check(launches == cfg.num_layers, f"sharded MLP: {launches} B1 launches a rank")
+    check(err <= lim, f"sharded MLP vs mlp_forward: {err:.3e} > {lim:.3e}")
+    out["mlp"] = {"err": err, "limit": lim, "b1_launches": launches,
+                  "ms": _par_time(torch, lambda: mlp_forward_sharded(sh, x, cfg, mesh=mesh)),
+                  "unsharded_ms": _par_alone(torch, world, lambda: mlp_forward(packed, x, cfg))}
+    _rank_log(world, f"sharded MLP (config 5, f32): {err:.3e} vs mlp_forward (limit {lim:.3e}),"
+              f" {launches} B1 launches a rank; ms {out['mlp']['ms']:.4f} (one rank alone "
+              f"{out['mlp']['unsharded_ms']})")
+
+    bcfg = TernaryBlockConfig(**PAR_BLOCK)
+    bpacked = pack_block(init_block(rng.make_generator(4, dev), bcfg))
+    xb = rng.rand_dense(rng.make_generator(5, dev), (2, 128, bcfg.d_model)) * 0.1
+    bsh = shard_block_tp(bpacked, mesh)
+    for flash in (False, True):
+        packed_spmm.launches = 0
+        pm.CALLS.clear()
+        yb = block_forward_tp(bsh, xb, bcfg, mesh=mesh, use_flash=flash)
+        torch.cuda.synchronize()
+        launches = packed_spmm.launches
+        reduces = pm.CALLS[("all_reduce", pm.MODEL_AXIS)]
+        refb = block_forward(bpacked, xb, bcfg, use_flash=flash)
+        errb = float((yb - refb).abs().max())
+        limb = max(1e-4, 2e-5 * float(refb.abs().max()))
+        check(launches == 6 and reduces == 2,
+              f"TP block: {launches} B1 launches, {reduces} all_reduces a rank")
+        check(errb <= limb, f"TP block (flash {flash}) vs block_forward: {errb:.3e} > {limb:.3e}")
+        key = "block_flash" if flash else "block"
+        out[key] = {"err": errb, "limit": limb, "b1_launches": launches,
+                    "ms": _par_time(torch, lambda: block_forward_tp(bsh, xb, bcfg, mesh=mesh,
+                                                                   use_flash=flash)),
+                    "unsharded_ms": _par_alone(torch, world, lambda: block_forward(
+                        bpacked, xb, bcfg, use_flash=flash))}
+        _rank_log(world, f"TP block 4096-d (flash {flash}, f32): {errb:.3e} vs block_forward "
+                  f"(limit {limb:.3e}); 6 B1 launches and 2 all_reduces a rank; ms "
+                  f"{out[key]['ms']:.4f} (one rank alone {out[key]['unsharded_ms']})")
+    return out
+
+
+def _tp_teacher_forced(torch, cfg, sharded, prompt, ids, mesh, cdt, flash, quant):
+    from smmb_tpu_torch.parallel.tp_transformer import (
+        lm_decode_step_tp,
+        lm_init_cache_tp,
+        lm_prefill_tp,
+    )
+
+    kw = dict(mesh=mesh, compute_dtype=cdt, use_flash=flash)
+    cache = lm_init_cache_tp(cfg, prompt.shape[0], mesh, dtype=cdt, quantized=quant)
+    logits, cache = lm_prefill_tp(sharded, prompt, cache, cfg, **kw)
+    out = [logits]
+    for i in range(ids.shape[1] - 1):
+        logits, cache = lm_decode_step_tp(sharded, ids[:, i], cache, cfg, **kw)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return torch.stack(out, 1)[0].float()
+
+
+def _wrong_head_shard(torch, sharded, mesh, hd):
+    """A control for the TP LM's gates: ``sharded`` with rank 1's layer-0
+    Q/K/V heads in the wrong order (each plane and bias rolled by one head),
+    the fault a wrong head offset makes; rank 0's shard as it is."""
+    from smmb_tpu_torch.formats.packed import TernaryPacked, concat_packed_cols
+    from smmb_tpu_torch.parallel import mesh as pm
+
+    if mesh.index(pm.MODEL_AXIS) != 1:
+        return sharded
+    a = dict(sharded["blocks"][0]["attn"])
+    for name in ("wq", "wk", "wv"):
+        w, bname = a[name], name.replace("w", "b")
+        a[name] = TernaryPacked(torch.roll(w.data, hd, dims=1).contiguous(), w.rows, w.cols,
+                                w.nnz)
+        a[bname] = torch.roll(a[bname], hd, dims=0)
+    a["wqkv"] = concat_packed_cols([a["wq"], a["wk"], a["wv"]])
+    a["bqkv"] = torch.cat([a["bq"], a["bk"], a["bv"]])
+    blocks = list(sharded["blocks"])
+    blocks[0] = {**blocks[0], "attn": a}
+    return {**sharded, "blocks": blocks}
+
+
+def _tp_step_split(torch, fn) -> dict:
+    """Where one ``fn()`` (a ``generate_tp`` call) spends its host time:
+    in the TP layer's collectives, split into waiting for the card to reach
+    them (a synchronize at entry) and the staged collective itself, and
+    the rest (launches and the card's work between them)."""
+    from smmb_tpu_torch.parallel import tp_transformer as tp
+
+    spent = {"wait_ms": 0.0, "collective_ms": 0.0, "calls": 0}
+
+    def timed(real):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            y = real(*a, **k)
+            t2 = time.perf_counter()
+            spent["wait_ms"] += (t1 - t0) * 1e3
+            spent["collective_ms"] += (t2 - t1) * 1e3
+            spent["calls"] += 1
+            return y
+        return call
+
+    saved = tp.all_reduce, tp.all_gather
+    tp.all_reduce, tp.all_gather = timed(saved[0]), timed(saved[1])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        tp.all_reduce, tp.all_gather = saved
+    return {"total_ms": total, **spent,
+            "rest_ms": total - spent["wait_ms"] - spent["collective_ms"]}
+
+
+def _tokens_us(torch, fn) -> float:
+    """µs a token: the slope of ``fn(steps)``'s host time between 16 and
+    64 steps (the prefill cancelling), the best of 3."""
+    def t(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(steps)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    fn(16)
+    return min((t(PAR_STEPS) - t(16)) / (PAR_STEPS - 16) for _ in range(3)) * 1e6
+
+
+def _par_lm(torch, world, mesh) -> dict:
+    """Phase 28d: ``generate_tp`` at the ``lm`` widths on model = 2, plain,
+    with ``use_flash`` and with ``kv_quant`` + ``use_flash``: launches a
+    rank; every B1 call of the TP path held against ``packed_spmm_plain``
+    on its own input (f32 1e-4, bf16 2^-7 of max(1, max|plain|), both LMs);
+    tokens against the single-rank ``generate``; teacher-forced logits
+    against the single-rank path's, gated at every position on the
+    LeCun-scale LM (f32: the LM rule; bf16: 2^-7 of max(1, max|logit|), a
+    rank's Q/K/V heads in the wrong order as the control that must fail
+    it), logged on the unit-scale LM; µs a token beside ``generate``'s
+    (unit-scale, bf16); then ``lm_forward_pp`` with 2 stages against
+    ``lm_forward`` on the LeCun-scale LM (f32, the LM rule)."""
+    import torch.distributed as dist
+
+    from smmb_tpu_torch.kernels import flash_attention as fa
+    from smmb_tpu_torch.kernels import flash_decode as fd
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.lm import TernaryLMConfig, generate, init_lm, lm_forward, pack_lm
+    from smmb_tpu_torch.parallel.pp_lm import lm_forward_pp, shard_lm_pp
+    from smmb_tpu_torch.parallel.tp_transformer import generate_tp, shard_lm_tp
+    from smmb_tpu_torch.utils import rng
+
+    dev = mesh.device
+    cfg = TernaryLMConfig(**PAR_LM, max_len=PAR_PROMPT + 3 * PAR_STEPS)
+    bf16 = torch.bfloat16
+    gen = rng.make_generator(0, dev)
+    unit = pack_lm(init_lm(gen, cfg))
+    prompt = torch.randint(0, cfg.vocab, (1, PAR_PROMPT), generator=gen, device=dev)
+    lecun = pack_lm(_lecun(init_lm(rng.make_generator(26, dev), cfg)), quantize=True)
+    counted = (packed_spmm, fa.flash_attention, fd.flash_attention_decode,
+               fd.flash_attention_decode_quant)
+    out = {"lm": {}}
+    # the LM rule is an f32 rule (phase 24's): in bf16 the routes round X to
+    # bf16 before or after its absmean scale (B1 takes X·s, B3/B5/B6 scale
+    # their f32 sums), ~2^-8 apart, so bf16 logits are held to the port's
+    # bf16 tolerance, as its bf16 B1 calls are
+    runs = (("lecun", lecun, torch.float32, True), ("lecun", lecun, bf16, True),
+            ("unit", unit, bf16, False))
+    tf_calls = 6 * cfg.n_layers + 1 + (PAR_STEPS - 1) * (4 * cfg.n_layers + 1)
+    for model_name, packed, cdt, gated in runs:
+        sharded = shard_lm_tp(packed, mesh)
+        dt_name = "f32" if cdt == torch.float32 else "bf16"
+        call_tol = 1e-4 if cdt == torch.float32 else BF16_TOL
+        for path, (flash, quant) in {"plain": (False, False), "flash": (True, False),
+                                     "int8_flash": (True, True)}.items():
+            kw = dict(compute_dtype=cdt, use_flash=flash, kv_quant=quant)
+            want = generate(packed, prompt, cfg, PAR_STEPS, **kw)
+            torch.cuda.synchronize()
+            for fn in counted:
+                fn.launches = 0
+            toks = generate_tp(sharded, prompt, cfg, PAR_STEPS, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in counted}
+            want_b1 = 6 * cfg.n_layers + 1 + PAR_STEPS * (4 * cfg.n_layers + 1)
+            check(launches["packed_spmm"] == want_b1,
+                  f"generate_tp {path}: {launches['packed_spmm']} B1 launches, want {want_b1}")
+            check(launches["flash_attention"] == (cfg.n_layers if flash else 0),
+                  f"generate_tp {path}: B9 launches {launches['flash_attention']}")
+            steps_b4 = cfg.n_layers * PAR_STEPS if flash else 0
+            check(launches["flash_attention_decode"] == (0 if quant else steps_b4)
+                  and launches["flash_attention_decode_quant"] == (steps_b4 if quant else 0),
+                  f"generate_tp {path}: B4/B8 launches {launches}")
+            check(toks.shape == (1, PAR_STEPS) and int(toks.min()) >= 0
+                  and int(toks.max()) < cfg.vocab, "generate_tp tokens shape / range")
+            ref = _teacher_forced(torch, cfg, packed, prompt, want, cdt, True, use_flash=flash,
+                                  kv_quant=quant)
+            call_errs = []
+            with _held_b1_calls(torch, call_errs):
+                got = _tp_teacher_forced(torch, cfg, sharded, prompt, want, mesh, cdt, flash,
+                                         quant)
+            check(len(call_errs) == tf_calls and max(call_errs) <= call_tol,
+                  f"generate_tp {model_name} {dt_name} {path}: {len(call_errs)} B1 calls (want "
+                  f"{tf_calls}), worst vs plain {max(call_errs):.3e} > {call_tol:.1e}")
+            e = (got - ref).abs().amax(-1)
+            lim = (LM_RULE[0] + LM_RULE[1] * float(ref.abs().max()) if cdt == torch.float32
+                   else BF16_TOL * max(1.0, float(ref.abs().max())))
+            row = {"launches": launches, "same_tokens": int((toks == want).sum()),
+                   "worst": float(e.max()), "median": float(e.median()), "rule": lim,
+                   "beyond_rule": int((e > lim).sum()), "gated": gated,
+                   "b1_calls_worst": max(call_errs)}
+            if gated:
+                check(row["beyond_rule"] == 0,
+                      f"generate_tp {path} {dt_name} on the LeCun-scale LM: {row['beyond_rule']} of "
+                      f"{e.numel()} positions beyond {lim:.3e} (worst {row['worst']:.3e})")
+            if gated and cdt == bf16 and path == "plain":
+                ctrl = _tp_teacher_forced(torch, cfg, _wrong_head_shard(
+                    torch, sharded, mesh, cfg.d_model // cfg.n_heads), prompt, want, mesh, cdt,
+                    flash, quant)
+                ec = (ctrl - ref).abs().amax(-1)
+                row["control_worst"], row["control_beyond"] = float(ec.max()), int((ec > lim).sum())
+                check(row["control_beyond"] > 0,
+                      f"the bf16 TP gate's control (rank 1's layer-0 heads in the wrong order) "
+                      f"stays within {lim:.3e} (worst {row['control_worst']:.3e})")
+            if model_name == "unit":
+                row["tp_us_per_token"] = _tokens_us(torch, lambda s: generate_tp(
+                    sharded, prompt, cfg, s, mesh=mesh, **kw))
+                us = [None]
+                if world.rank == 0:
+                    us[0] = _tokens_us(torch, lambda s: generate(packed, prompt, cfg, s, **kw))
+                dist.barrier()
+                row["single_us_per_token"] = us[0]
+                row["step_split"] = _tp_step_split(torch, lambda: generate_tp(
+                    sharded, prompt, cfg, PAR_STEPS, mesh=mesh, **kw))
+            out["lm"][f"{model_name}_{dt_name}_{path}"] = row
+            _rank_log(world, f"generate_tp {model_name} {dt_name} {path}: launches a rank {launches}; "
+                      f"{row['same_tokens']} of {PAR_STEPS} tokens as generate's; teacher-forced "
+                      f"logits worst {row['worst']:.3e}, median {row['median']:.3e}, rule "
+                      f"{lim:.3e}, {row['beyond_rule']} beyond ({'gated' if gated else 'logged'}); "
+                      f"{len(call_errs)} B1 calls within {row['b1_calls_worst']:.2e} of plain"
+                      + (f"; control (wrong head order) worst {row['control_worst']:.3e}, "
+                         f"{row['control_beyond']} beyond" if "control_worst" in row else "")
+                      + (f"; {row['tp_us_per_token']:.1f} us/token on 2 ranks sharing the card, "
+                         f"generate alone {row['single_us_per_token']}; a generate_tp call "
+                         f"{row['step_split']}" if "tp_us_per_token" in row else ""))
+
+    toks = torch.randint(0, cfg.vocab, (4, 2 * PAR_PROMPT), generator=rng.make_generator(7, dev),
+                         device=dev)
+    packed_spmm.launches = 0
+    y = lm_forward_pp(shard_lm_pp(lecun, mesh), toks, cfg, mesh=mesh, microbatches=2)
+    torch.cuda.synchronize()
+    launches = packed_spmm.launches
+    ref = lm_forward(lecun, toks, cfg)
+    e = (y - ref).abs().amax(-1).flatten()
+    lim = LM_RULE[0] + LM_RULE[1] * float(ref.abs().max())
+    beyond = int((e > lim).sum())
+    check(beyond == 0, f"lm_forward_pp: {beyond} positions beyond the LM rule {lim:.3e} "
+          f"(worst {float(e.max()):.3e})")
+    out["pp"] = {"worst": float(e.max()), "rule": lim, "b1_launches": launches}
+    _rank_log(world, f"lm_forward_pp, 2 stages x 2 microbatches, f32, LeCun-scale LM: worst "
+              f"{float(e.max()):.3e} (rule {lim:.3e}), {launches} B1 launches a rank")
+    return out
+
+
+def _par_dp(torch, world, mesh) -> dict:
+    """Phase 28e: three ``make_lm_train_step_dp`` steps on 2 ranks against
+    one rank's steps on the whole batch: the first loss within 1e-5
+    relative, and on LeCun-scale masters the second and third too (on
+    unit-scale ones an Adam step under another f32 order lands elsewhere:
+    logged). The exchange itself: the first step's averaged gradients (each
+    leaf's ``.grad`` as the DP step hands it to Adam) within 1e-6 of the
+    largest |g| of the mean of one rank's gradients on each DP rank's rows,
+    on both masters. Against one rank's gradients on the whole batch they
+    are logged, beside one rank's own mean over the halves against its
+    whole batch: a batch of 4 rows and two of 2 sum in other f32 orders."""
+    import torch.distributed as dist
+
+    from smmb_tpu_torch.models.lm import TernaryLMConfig, init_lm, make_lm_train_step
+    from smmb_tpu_torch.models.train import param_leaves
+    from smmb_tpu_torch.parallel import mesh as pm
+    from smmb_tpu_torch.parallel.dp_train import make_lm_train_step_dp
+    from smmb_tpu_torch.utils import rng
+
+    dev = mesh.device
+    batch, seq = DP_BATCH
+    cfg = TernaryLMConfig(**PAR_LM, max_len=seq)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=rng.make_generator(9, dev),
+                           device=dev)
+    dmesh = pm.make_mesh(2, 1, device=dev)
+
+    def grads(params):
+        return [torch.zeros_like(q) if q.grad is None else q.grad.clone()
+                for q in param_leaves(params)]
+
+    def single_steps(masters, toks, steps):
+        init1, step1 = make_lm_train_step(cfg, learning_rate=1e-3)
+        p1 = masters()
+        o1, losses = init1(p1), []
+        for i in range(steps):
+            p1, o1, loss = step1(p1, o1, toks)
+            losses.append(float(loss))
+            if i == 0:
+                g = grads(p1)
+        return losses, g
+
+    def parted(a, b):  # worst leaf's max|a - b| over the largest |b|, and the leaf
+        gmax = max(float(y.abs().max()) for y in b)
+        errs = [float((x - y).abs().max()) / gmax for x, y in zip(a, b)]
+        return max(errs), errs.index(max(errs))
+
+    out = {}
+    for name, masters in (("unit", lambda: init_lm(rng.make_generator(11, dev), cfg)),
+                          ("lecun", lambda: _lecun(init_lm(rng.make_generator(11, dev), cfg)))):
+        params = masters()
+        init_opt, step, place = make_lm_train_step_dp(cfg, dmesh, learning_rate=1e-3)
+        p, o, t = place(params, init_opt(params), tokens)
+        dp, dp_grads = [], None
+        for i in range(3):
+            p, o, loss = step(p, o, t)
+            dp.append(float(loss))
+            if i == 0 and world.rank == 0:
+                dp_grads = grads(p)
+        single, row = [None] * 3, {}
+        if world.rank == 0:
+            single, g1 = single_steps(masters, tokens, 3)
+            rows = batch // 2
+            halves = [single_steps(masters, tokens[h * rows:(h + 1) * rows], 1)[1]
+                      for h in range(2)]
+            g_half = [(a + b) / 2 for a, b in zip(*halves)]
+            ex, ex_leaf = parted(dp_grads, g_half)
+            whole, whole_leaf = parted(dp_grads, g1)
+            split, split_leaf = parted(g_half, g1)
+            rel = [abs(a - b) / abs(b) for a, b in zip(dp, single)]
+            row = {"exchange_err": ex, "exchange_leaf": ex_leaf, "whole_err": whole,
+                   "whole_leaf": whole_leaf, "split_err": split, "split_leaf": split_leaf,
+                   "loss_rel": rel}
+            check(rel[0] <= 1e-5, f"DP first loss ({name}) {dp[0]!r} vs one rank "
+                  f"{single[0]!r}: {rel[0]:.2e} relative > 1e-5")
+            check(len(dp_grads) == len(g_half) and ex <= 1e-6,
+                  f"DP first step's averaged gradients ({name}): leaf {ex_leaf} {ex:.2e} of "
+                  f"the largest |g| from the mean of one rank's on the DP ranks' rows > 1e-6")
+            if name == "lecun":
+                check(max(rel[1:]) <= 1e-5, f"DP later losses ({name}) {dp[1:]} vs one rank "
+                      f"{single[1:]}: {max(rel[1:]):.2e} relative > 1e-5")
+            _rank_log(world, f"DP training ({name}-scale masters), 2 ranks x {rows} rows of "
+                      f"{seq} tokens: losses {dp} vs one rank on the whole batch {single} "
+                      f"(relative {', '.join(f'{r:.2e}' for r in rel)}); the first step's "
+                      f"averaged gradients {ex:.2e} of the largest |g| from the mean of one "
+                      f"rank's on the DP ranks' rows (leaf {ex_leaf} of {len(g1)}, gated); "
+                      f"logged: {whole:.2e} from one rank's on the whole batch (leaf "
+                      f"{whole_leaf}), where one rank's own mean over the halves reads "
+                      f"{split:.2e} (leaf {split_leaf})")
+        dist.barrier()
+        out[name] = {"dp_losses": dp, "single_losses": single, **row}
+    return out
+
+
+def _collective_latency(torch, world, mesh) -> dict:
+    """µs a model-axis all_reduce of one (1, 1024) f32 row, the TP decode
+    step's size: of a CUDA tensor (staged through host memory) and of a CPU
+    tensor (gloo alone), 200 calls each with nothing between them."""
+    import torch.distributed as dist
+
+    from smmb_tpu_torch.parallel import mesh as pm
+
+    out = {}
+    for name, dev in (("staged_cuda_us", mesh.device), ("host_us", torch.device("cpu"))):
+        t = torch.ones((1, 1024), device=dev)
+        for _ in range(10):
+            pm.all_reduce(t, mesh, pm.MODEL_AXIS)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            pm.all_reduce(t, mesh, pm.MODEL_AXIS)
+        out[name] = (time.perf_counter() - t0) / 200 * 1e6
+    _rank_log(world, f"a (1, 1024) f32 all_reduce over 2 ranks: {out['staged_cuda_us']:.1f} us "
+              f"staged from the card, {out['host_us']:.1f} us of host tensors")
+    return out
+
+
+def _parallel_rank(world) -> dict:
+    """Phase 28's 2-rank world on one card: every check above, on the
+    (1 × 2) mesh (DP on (2 × 1)); returns the rank's readings."""
+    import torch
+
+    from smmb_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(1, world.size, device=world.device)
+    pm.make_mesh(2, 1, device=world.device)  # every rank makes every group, in order
+    out = {"latency": _collective_latency(torch, world, mesh),
+           "spmm": _par_spmms(torch, world, mesh), "bcsr": _par_bcsr(torch, world, mesh)}
+    out.update(_par_mlp_block(torch, world, mesh))
+    out.update(_par_lm(torch, world, mesh))
+    out["dp"] = _par_dp(torch, world, mesh)
+    out["staged"] = dict(pm.STAGED)
+    return out
+
+
+def _nccl_rank(world) -> dict:
+    """Phase 28's 1-rank NCCL world: the mesh's collectives through NCCL
+    (none staged), the column shard bitwise and the row shard within f32
+    1e-4 of the unsharded B1 call, one TP block against ``block_forward``."""
+    import torch
+
+    from smmb_tpu_torch.formats.packed import pack_ternary_device
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.transformer import (
+        TernaryBlockConfig,
+        block_forward,
+        init_block,
+        pack_block,
+    )
+    from smmb_tpu_torch.parallel import mesh as pm
+    from smmb_tpu_torch.parallel.sharded import (
+        shard_packed_columns,
+        shard_packed_rows,
+        sharded_spmm_column,
+        sharded_spmm_row,
+    )
+    from smmb_tpu_torch.parallel.tp_transformer import block_forward_tp, shard_block_tp
+    from smmb_tpu_torch.utils import rng
+
+    mesh = pm.make_mesh(1, 1, device=world.device)
+    dev = mesh.device
+    m, k, n, nz = PAR_HEADLINE
+    gen = rng.make_generator(0, dev)
+    x = rng.rand_dense(gen, (m, k))
+    p = pack_ternary_device(rng.rand_ternary(gen, (k, n), non_zero=nz))
+    b = rng.rand_dense(gen, (n,))
+    whole = packed_spmm(x, p, b, ALPHA)
+    pm.CALLS.clear()
+    col = pm.all_gather(sharded_spmm_column(x, shard_packed_columns(p, mesh), b, mesh=mesh,
+                                            alpha=ALPHA), mesh, pm.MODEL_AXIS, dim=-1)
+    row = sharded_spmm_row(x, shard_packed_rows(p, mesh), b, mesh=mesh, alpha=ALPHA)
+    check(torch.equal(col, whole), "NCCL world: the column shard is not the unsharded call")
+    err = float((row - whole).abs().max())
+    check(err <= 1e-4 * max(1.0, float(whole.abs().max())), f"NCCL world: row {err:.3e}")
+    bcfg = TernaryBlockConfig(d_model=1024, n_heads=8, d_ff=4096)
+    bp = pack_block(init_block(rng.make_generator(4, dev), bcfg))
+    xb = rng.rand_dense(rng.make_generator(5, dev), (2, 32, 1024)) * 0.1
+    yb = block_forward_tp(shard_block_tp(bp, mesh), xb, bcfg, mesh=mesh)
+    refb = block_forward(bp, xb, bcfg)
+    errb = float((yb - refb).abs().max())
+    check(errb <= max(1e-4, 2e-5 * float(refb.abs().max())), f"NCCL world: TP block {errb:.3e}")
+    torch.cuda.synchronize()
+    calls = {f"{op} {axis}": c for (op, axis), c in pm.CALLS.items()}
+    check(not pm.STAGED and calls.get("all_reduce model", 0) >= 3
+          and calls.get("all_gather model", 0) >= 1,
+          f"NCCL world: collectives {calls}, staged {dict(pm.STAGED)}")
+    return {"row_err": err, "block_err": errb, "collectives": calls}
+
+
+def run_parallel(torch, dev, card) -> dict:
+    """Phase 28: the parallel layer on one card. NCCL refuses two ranks on
+    one device, so the checks run in a 2-rank gloo world, each rank on the
+    H100, its collectives staged through host memory (mesh.py logs and
+    counts them); a 1-rank NCCL world runs the NCCL path; then
+    ``python -m smmb_tpu_torch scaling`` over (1, 1) and (1, 2)."""
+    from smmb_tpu_torch.parallel.mesh import run_world
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t = time.time()
+    ranks = run_world(_parallel_rank, 2, backend="gloo", device="cuda", timeout=600)
+    log(f"2-rank gloo world ({time.time() - t:.1f}s): staged through host memory, rank 0 "
+        f"{ranks[0]['staged']}, rank 1 {ranks[1]['staged']}")
+    check(ranks[0]["staged"].get("all_reduce", 0) > 0, "gloo world staged no all_reduce")
+    t = time.time()
+    nccl = run_world(_nccl_rank, 1, backend="nccl", device="cuda", timeout=300)[0]
+    log(f"1-rank NCCL world ({time.time() - t:.1f}s): row {nccl['row_err']:.2e}, TP block "
+        f"{nccl['block_err']:.2e}, collectives {nccl['collectives']}, none staged")
+    t = time.time()
+    cli = subprocess.run([sys.executable, "-m", "smmb_tpu_torch", "scaling", "--mesh", "1x1,1x2",
+                          "--reps", "3"], cwd=HERE, capture_output=True, text=True, timeout=420)
+    print(cli.stdout, flush=True)
+    check(cli.returncode == 0, f"scaling CLI exited {cli.returncode}:\n{cli.stderr[-4000:]}")
+    pts = [json.loads(line) for line in cli.stdout.splitlines() if line.startswith("{")]
+    parts = {"column", "row", "overlap", "bcsr_column", "tp_block", "pp_lm"}
+    check({(q["partitioning"], q["mesh"]) for q in pts}
+          == {(q, s) for q in parts for s in ("1x1", "1x2")}, f"scaling points {pts}")
+    check(all(q["shared"] == (q["mesh"] == "1x2") for q in pts),
+          "scaling: the 2-rank points must be labelled as sharing the card")
+    log(f"scaling CLI ({time.time() - t:.1f}s): {len(pts)} points, the 1x2 ones labelled as "
+        f"2 ranks sharing {card}")
+    r0 = ranks[0]
+    par = {"card": card, "latency": r0["latency"], "spmm": r0["spmm"], "bcsr": r0["bcsr"], "mlp": r0["mlp"],
+           "block": r0["block"], "block_flash": r0["block_flash"], "lm": r0["lm"],
+           "pp": r0["pp"], "dp": r0["dp"], "nccl": nccl, "scaling": pts,
+           "ranks": "2 ranks sharing one card (gloo)"}
+    print(json.dumps({"phase28": par}), flush=True)
+    log("phase 28 passed: " + "; ".join(
+        f"generate_tp {k} {v['tp_us_per_token']:.1f} us/token (generate "
+        f"{v['single_us_per_token']:.1f})" for k, v in r0["lm"].items()
+        if "tp_us_per_token" in v))
+    return par
 
 
 def _packed_planes(packed) -> list:

@@ -1,5 +1,6 @@
 """CLI: ``python -m smmb_tpu_torch
-{showcase,sweep,capacity,mlp,headline,lm,decode,spec}`` — runs on the CUDA card.
+{showcase,sweep,capacity,scaling,mlp,headline,lm,decode,spec}`` — runs on the
+CUDA card. Every mode prints a provenance stamp first (utils/stamp.py).
 
 - ``showcase`` (the default) and ``sweep``: the reference
   benchmark, every format and kernel row validated against the dense oracle,
@@ -16,13 +17,20 @@
 - ``decode``: the block-level decode step and its roofline fraction
   (bench/decode_bench.py; ``--flash`` reads the caches through B4);
 - ``spec``: speculative decoding against plain ``generate``, µs/token of
-  plain, spec-self and spec-draft (bench/spec_bench.py).
+  plain, spec-self and spec-draft (bench/spec_bench.py);
+- ``scaling``: the sharded products' nnz/s and scaling efficiency over
+  growing meshes of ranks (bench/scaling.py; ``--mesh 1x1,1x2``,
+  ``--partitionings``, ``--reps``, ``--config``);
+  points whose ranks share a card are labelled as such.
 """
 
 import sys
 
 
 def main():
+    from smmb_tpu_torch.utils.stamp import print_stamp
+
+    print_stamp()  # every output records the commit it measured
     args = sys.argv[1:]
     mode = args[0] if args else "showcase"
     rest = args[1:]
@@ -34,6 +42,10 @@ def main():
         from smmb_tpu_torch.bench.capacity import main as capacity_main
 
         sys.exit(capacity_main(rest))
+    elif mode == "scaling":
+        from smmb_tpu_torch.bench.scaling import main as scaling_main
+
+        sys.exit(scaling_main(rest))
     elif mode == "mlp":
         from smmb_tpu_torch.bench.mlp_bench import main as mlp_main
 

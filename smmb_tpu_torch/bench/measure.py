@@ -17,12 +17,16 @@ JAX's protocol, and what is left over R or 2R is the per-call device time
 (the kernels and the gaps between them inside a graph).
 
 Neither has a CPU path: a measurement without a card raises.
+``measure_host`` is the host's wall clock per call, for runs of a harness
+on CPU tensors (the scaling bench's CPU worlds); its numbers are host
+times, never device times.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
@@ -178,3 +182,23 @@ def measure_device(fn, *args, iters: int | None = None, reps: int = DEFAULT_REPS
         calls_per_batch=r,
         reps=reps,
     )
+
+
+def measure_host(fn, *args, calls: int, reps: int = DEFAULT_REPS) -> Measurement:
+    """Per-call host wall-clock time of ``fn(*args)`` on CPU tensors:
+    ``WARMUP_CALLS`` calls, then ``reps`` batches of ``calls`` calls timed
+    by ``time.perf_counter``. The call count is fixed, not calibrated, so
+    ranks that exchange collectives in ``fn`` issue the same number."""
+    if calls < 1:
+        raise ValueError(f"calls={calls} must be at least 1")
+    for _ in range(WARMUP_CALLS):
+        fn(*args)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        times.append((time.perf_counter() - t0) / calls)
+    times = np.array(times)
+    return Measurement(mean_s=float(times.mean()), min_s=float(times.min()),
+                       std_s=float(times.std()), calls_per_batch=calls, reps=reps)

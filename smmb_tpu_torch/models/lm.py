@@ -455,6 +455,17 @@ def qat_lm_forward(params: dict, tokens: torch.Tensor, cfg: TernaryLMConfig,
     return _qat_lm_forward_aux(params, tokens, cfg, attn_chunk)[0]
 
 
+def lm_loss(params: dict, tokens: torch.Tensor, cfg: TernaryLMConfig,
+            attn_chunk: int | None = None, aux_weight: float = 1e-2) -> torch.Tensor:
+    """The training loss: the mean cross-entropy of the QAT forward's
+    ``logits[:, :-1]`` against ``tokens[:, 1:]``, plus ``aux_weight·aux``
+    (the MoE blocks' summed load-balance loss; zero for dense blocks)."""
+    logits, aux = _qat_lm_forward_aux(params, tokens, cfg, attn_chunk)
+    ce = torch.nn.functional.cross_entropy(
+        logits[:, :-1].reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
+    return ce + aux_weight * aux
+
+
 def make_lm_train_step(cfg: TernaryLMConfig, learning_rate: float = 1e-3,
                        accum_steps: int = 1, attn_chunk: int | None = None,
                        aux_weight: float = 1e-2):
@@ -477,10 +488,7 @@ def make_lm_train_step(cfg: TernaryLMConfig, learning_rate: float = 1e-3,
     batch mean.
     """
     def loss_fn(params, tokens):
-        logits, aux = _qat_lm_forward_aux(params, tokens, cfg, attn_chunk)
-        ce = torch.nn.functional.cross_entropy(
-            logits[:, :-1].reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
-        return ce + aux_weight * aux
+        return lm_loss(params, tokens, cfg, attn_chunk, aux_weight)
 
     def init_opt(params):
         return make_adam(params, learning_rate)

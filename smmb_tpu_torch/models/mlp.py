@@ -4,7 +4,9 @@ smmb_tpu/models/mlp.py:39-118).
 Each layer is ``Y = PReLU(X·W + B)`` with a ternary W: one ``packed_spmm``
 launch per layer (bias and PReLU fused), or, with ``use_kernel=False``, the
 plain decode-then-matmul ``packed_spmm_ref``. ``shard_mlp`` and
-``mlp_forward_sharded`` belong to the parallel slice of the port.
+``mlp_forward_sharded`` (smmb_tpu/models/mlp.py:121-164) run it over the
+process mesh of parallel/mesh.py: layers alternate column- and
+row-parallel, so the activations stay feature-sharded within a pair.
 """
 
 from __future__ import annotations
@@ -18,6 +20,13 @@ from smmb_tpu_torch.formats.packed import TernaryPacked, pack_ternary_device
 from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
 from smmb_tpu_torch.models.train import absmean_scale, ternarize_ste
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
+from smmb_tpu_torch.parallel.mesh import MODEL_AXIS, all_gather
+from smmb_tpu_torch.parallel.sharded import (
+    shard_packed_columns,
+    shard_packed_rows,
+    sharded_spmm_column,
+    sharded_spmm_row,
+)
 from smmb_tpu_torch.utils import rng
 
 
@@ -92,6 +101,49 @@ def mlp_forward(
             x = packed_spmm(x, w, b, alpha=cfg.alpha, compute_dtype=compute_dtype)
         else:
             x = packed_spmm_ref(x, w, b, alpha=cfg.alpha, dtype=compute_dtype)
+    return x
+
+
+def shard_mlp(packed: dict, mesh) -> dict:
+    """The rank's shards of the packed layers: even layers column-sharded,
+    odd layers row-sharded; biases and scales whole."""
+    out = {"w": [], "b": [], "scale": list(_layer_scales(packed))}
+    for i, (w, b) in enumerate(zip(packed["w"], packed["b"])):
+        shard = shard_packed_columns if i % 2 == 0 else shard_packed_rows
+        out["w"].append(shard(w, mesh))
+        out["b"].append(b.to(mesh.device))
+    out["scale"] = [None if s is None else s.to(mesh.device) for s in out["scale"]]
+    return out
+
+
+def mlp_forward_sharded(
+    packed: dict,
+    x: torch.Tensor,
+    cfg: TernaryMLPConfig,
+    *,
+    mesh,
+    compute_dtype=torch.float32,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Mesh-sharded forward (BASELINE.json config 5) on ``shard_mlp``'s
+    shards: x is the rank's batch rows (M_local, d0).
+
+    Even layers column-parallel, odd layers row-parallel: activations stay
+    feature-sharded between the pair, and the only collective is the
+    model-axis ``all_reduce`` closing each pair; at an odd depth the last
+    column layer's panels are gathered, so every rank returns its rows of
+    the whole Y (M_local, d_L).
+    """
+    scales = _layer_scales(packed)
+    for i in range(cfg.num_layers):
+        w, b = packed["w"][i], packed["b"][i]
+        if scales[i] is not None:
+            x = x * scales[i]
+        layer = sharded_spmm_column if i % 2 == 0 else sharded_spmm_row
+        x = layer(x, w, b, mesh=mesh, alpha=cfg.alpha, compute_dtype=compute_dtype,
+                  use_kernel=use_kernel)
+    if cfg.num_layers % 2 == 1:
+        x = all_gather(x, mesh, MODEL_AXIS, dim=-1)
     return x
 
 

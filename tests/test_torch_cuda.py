@@ -26,7 +26,11 @@ bf16 before its product, as JAX's VJP casts it). The MoE layer on B1 (2·E
 launches a call) against its plain products as the fused kernels (a bf16
 hidden row can round to the neighbouring bf16 before the down projection);
 its serving rows bitwise the one-token calls (B1's rows do not depend on
-M, and the combine sums each token's experts in rank order).
+M, and the combine sums each token's experts in rank order). The sharded
+B1 and B2 paths run in one 2-rank gloo world sharing the card
+(tests/torch_parallel_ranks.py): column shards bitwise the unsharded call,
+row and ring-overlap shards at f32 1e-4, bf16 2**-7 and int8 1e-6 of the
+same calls on the plain bodies.
 """
 
 import numpy as np
@@ -961,3 +965,39 @@ def test_measure_device_times_a_graph(cuda):
     assert m.calls_per_batch == 64 and 0 < m.min_s <= m.mean_s
     # the host's launch cost is cancelled: under the host-timed call's time
     assert m.min_s < measure(head, reps=3).min_s
+
+
+@pytest.fixture(scope="module")
+def sharded_card():
+    """One 2-rank gloo world on the card (tests/torch_parallel_ranks.py),
+    its collectives staged through host memory: every sharded case below."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import torch_parallel_ranks
+
+    from smmb_tpu_torch.parallel.mesh import run_world
+
+    return run_world(torch_parallel_ranks.card_sharded, 2, backend="gloo", device="cuda")[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,tol", [("f32", 1e-4), ("bf16", 2.0 ** -7), ("int8", 1e-6)])
+def test_sharded_b1_on_two_ranks(sharded_card, mode, tol):
+    """Column shards gathered bitwise the unsharded B1 call; row and
+    ring-overlap shards within the mode's tolerance of the same sharded
+    calls on the plain bodies (bf16: the sum rounds once to bf16); 4 B1
+    launches a rank (column 1, row 1, overlap 2)."""
+    r = sharded_card[mode]
+    assert r["column_bitwise"]
+    assert r["row"] <= tol and r["overlap"] <= tol, r
+    assert r["launches"] == 4
+    assert sharded_card["staged"].get("all_reduce", 0) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,tol", [("bcsr_f32", 1e-4), ("bcsr_bf16", 2.0 ** -7)])
+def test_sharded_b2_on_two_ranks(sharded_card, mode, tol):
+    """Block-column shards of B2 (padded block lists) against their plain
+    bodies, one B2 launch a rank."""
+    r = sharded_card[mode]
+    assert r["err"] <= tol and r["launches"] == 1, r
