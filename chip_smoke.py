@@ -237,8 +237,26 @@ which exits non-zero on failure:
     1-rank NCCL world (column bitwise, row 1e-4, a TP block, none staged);
     the latency of one small all_reduce, staged from the card and of host
     tensors;
-    and ``python -m smmb_tpu_torch scaling --mesh 1x1,1x2``, its 2-rank
-    points labelled as sharing the card.
+    and ``python -m smmb_tpu_torch scaling --mesh 1x1,1x2`` (14 points,
+    ``ep_moe`` among them), its 2-rank points labelled as sharing the card;
+29. the parallel layer's second half, in phase 28's 2-rank gloo world:
+    ``moe_forward_ep`` at scaling's ``ep_moe`` shape (8 experts of
+    1024→4096→1024, 256 tokens; top-1 and top-2, f32 and bf16) bitwise the
+    single-rank ``moe_forward``, 8 B1 launches and one all_reduce a rank;
+    ``moe_block_forward_tp`` at the ``lm`` widths (8 experts, top-2) within
+    max(1e-4, 5e-5·max|ref|) of ``moe_block_forward``; ``generate_tp`` on
+    phase 25's MoE LM (LeCun-scale masters), plain, flash and int8 +
+    flash: its launches a rank (B1 49 + 41 a step), every bf16 B1 call
+    against its plain version, the f32 teacher-forced logits within the LM
+    rule of the single-rank path at every position (router margins
+    logged), µs/token beside ``generate``'s; ``lm_forward_sp`` on the
+    LeCun-scale LM at T = 4096 within the LM rule of ``lm_forward``,
+    ``ring_attention`` at T = 4096 within 2e-5 of the attention math, an SP
+    MoE block at T = 512, the SP prefill's µs/token beside
+    ``lm_forward``'s; ``lm_forward_pp`` on the MoE LM within the LM rule;
+    LoRA under TP (rank 8, all six targets): ``lm_forward_tp`` and
+    ``generate_tp``'s teacher-forced logits within the LM rule of the
+    single-rank adapted path; the NCCL world's ``moe_forward_ep`` bitwise.
 
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
@@ -749,20 +767,34 @@ def main() -> int:
         "library_ms": main_mode["library_ms"],
         "design": "mma.sync",
     }, *bcsr_rows, *fused_rows, *flash_rows, *int8_rows, *pipe_rows]}
-    lm_tp = par["lm"]
-    par_launches = {  # phase 28, a rank's launches on 2 ranks sharing the card
+    lm_tp, a4b = par["lm"], par["a4b"]
+    moe_tp = a4b["moe_lm"]
+    par_launches = {  # phases 28 and 29, a rank's launches on 2 ranks sharing the card
         "packed_spmm": {"sharded SpMMs (column + row + overlap)": par["spmm"]["b1_launches"]["bf16"],
                         "mlp_forward_sharded": par["mlp"]["b1_launches"],
                         "block_forward_tp": par["block"]["b1_launches"],
                         "generate_tp": lm_tp["unit_bf16_plain"]["launches"]["packed_spmm"],
-                        "lm_forward_pp": par["pp"]["b1_launches"]},
+                        "lm_forward_pp": par["pp"]["b1_launches"],
+                        "moe_forward_ep": a4b["ep"]["top2_bf16"]["b1_launches"],
+                        "moe_block_forward_tp": a4b["tpep_block"]["b1_launches"],
+                        "generate_tp (MoE)": moe_tp["plain"]["launches"]["packed_spmm"],
+                        "lm_forward_sp": a4b["sp"]["lm"]["b1_launches"],
+                        "block_forward_sp (MoE)": a4b["sp"]["moe_block"]["b1_launches"],
+                        "lm_forward_pp (MoE)": a4b["pp_moe"]["b1_launches"],
+                        "lm_forward_tp (LoRA)": a4b["lora"]["forward"]["b1_launches"]},
         "bcsr_spmm_kernel": {"sharded_bcsr_spmm": par["bcsr"]["f32"]["b2_launches"]},
         "flash_attention": {"generate_tp(use_flash)":
-                            lm_tp["unit_bf16_flash"]["launches"]["flash_attention"]},
+                            lm_tp["unit_bf16_flash"]["launches"]["flash_attention"],
+                            "generate_tp(use_flash) (MoE)":
+                            moe_tp["flash"]["launches"]["flash_attention"]},
         "flash_attention_decode": {"generate_tp(use_flash)":
-                                   lm_tp["unit_bf16_flash"]["launches"]["flash_attention_decode"]},
+                                   lm_tp["unit_bf16_flash"]["launches"]["flash_attention_decode"],
+                                   "generate_tp(use_flash) (MoE)":
+                                   moe_tp["flash"]["launches"]["flash_attention_decode"]},
         "flash_attention_decode_quant": {"generate_tp(kv_quant, use_flash)": lm_tp[
-            "unit_bf16_int8_flash"]["launches"]["flash_attention_decode_quant"]},
+            "unit_bf16_int8_flash"]["launches"]["flash_attention_decode_quant"],
+            "generate_tp(kv_quant, use_flash) (MoE)": moe_tp[
+            "int8_flash"]["launches"]["flash_attention_decode_quant"]},
     }
     for row in summary["kernels"]:
         if row["name"] in par_launches:
@@ -4150,9 +4182,9 @@ LM_RULE = (2e-4, 1.1e-4)  # the LM rule: 2e-4 + 1.1e-4·max|logit|
 BF16_TOL = 2.0 ** -7  # bf16 results, relative to max(1, max|ref|)
 
 
-def _rank_log(world, msg: str) -> None:
+def _rank_log(world, msg: str, phase: int = 28) -> None:
     if world.rank == 0:
-        log(f"[phase 28, rank 0 of {world.size}] {msg}")
+        log(f"[phase {phase}, rank 0 of {world.size}] {msg}")
 
 
 @contextlib.contextmanager
@@ -4728,9 +4760,439 @@ def _collective_latency(torch, world, mesh) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 29
+A4B_EP = (256, 1024, 4096, 8)  # tokens, d_model, d_ff, experts: scaling's ep_moe
+A4B_BLOCK_X = (2, 64)  # the TP-EP block's batch x tokens
+A4B_SP_T = 4096  # the SP prefill's tokens (2048 a rank on 2 ranks)
+A4B_SP_MOE_T = 512  # the SP MoE block's tokens
+A4B_PP_TOKENS = (4, 64)
+A4B_LORA = (8, 0.01)  # adapter rank, the wave added to A and B (live adapters)
+A4B_CALLS = 5  # calls a timed batch of a phase 29 call
+
+
+def _lm_rule(torch, got, ref, scale=None) -> dict:
+    """Every position of ``got`` against ``ref`` by the LM rule, its
+    max|logit| that of ``scale`` (default ``ref``)."""
+    e = (got - ref).abs().amax(-1).flatten()
+    lim = LM_RULE[0] + LM_RULE[1] * float((ref if scale is None else scale).abs().max())
+    return {"worst": float(e.max()), "median": float(e.median()), "rule": lim,
+            "beyond": int((e > lim).sum()), "positions": e.numel(),
+            "worst_at": int(e.argmax())}
+
+
+def _gate_margins(torch, packed, tokens, cfg) -> list:
+    """(positions,) the smallest top-k router margin over the MoE blocks of
+    ``lm_forward``'s plain path on ``tokens`` (batch 1): the rank-k gate
+    minus the rank-k+1 gate over the largest, as phase 25's near-tie rule
+    reads it."""
+    from smmb_tpu_torch.models import moe_block as mb
+    from smmb_tpu_torch.models.attention import attention_forward
+    from smmb_tpu_torch.models.transformer import rmsnorm
+
+    bcfg, k = cfg.block, cfg.top_k
+    x = packed["embed"][tokens] + packed["pos"][None, :tokens.shape[1]]
+    margins = None
+    for blk in packed["blocks"]:
+        mid = x + attention_forward(blk["attn"], rmsnorm(x, blk["norm1"], bcfg.eps), bcfg.attn,
+                                    use_kernel=False)
+        _, gates = _moe_routes(torch, blk, mid, bcfg)
+        m = (gates[:, k - 1] - gates[:, k]) / gates[:, 0]
+        margins = m if margins is None else torch.minimum(margins, m)
+        x = mb._moe_half(blk, mid, bcfg, torch.float32, False)
+    return margins
+
+
+def _a4b_ep(torch, world, mesh) -> dict:
+    """Phase 29a: ``moe_forward_ep`` at scaling's ``ep_moe`` shape (8
+    experts of 1024→4096→1024, 256 tokens), top-1 and top-2, f32 and bf16,
+    bitwise the single-rank ``moe_forward`` on the same tokens; 2·E/model B1
+    launches and one all_reduce a call; ms a call beside one rank alone."""
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.moe import TernaryMoEConfig, init_moe, moe_forward, pack_moe
+    from smmb_tpu_torch.parallel import mesh as pm
+    from smmb_tpu_torch.parallel.ep_moe import moe_forward_ep, shard_moe_ep
+    from smmb_tpu_torch.utils import rng
+
+    n, d, f, e = A4B_EP
+    dev = mesh.device
+    out = {}
+    want_b1 = 2 * e // mesh.model
+    for k in (1, 2):
+        cfg = TernaryMoEConfig(d_model=d, d_ff=f, n_experts=e, top_k=k)
+        packed = pack_moe(init_moe(rng.make_generator(4, dev), cfg))
+        sh = shard_moe_ep(packed, mesh)
+        x32 = rng.rand_dense(rng.make_generator(5, dev), (n, d)) * 0.5
+        for name, cdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x = x32.to(cdt)
+            packed_spmm.launches = 0
+            pm.CALLS.clear()
+            y = moe_forward_ep(sh, x, cfg, mesh=mesh, compute_dtype=cdt)
+            torch.cuda.synchronize()
+            launches, reduces = packed_spmm.launches, dict(pm.CALLS)
+            ref = moe_forward(packed, x, cfg, compute_dtype=cdt)
+            torch.cuda.synchronize()
+            err = float((y - ref).abs().max())
+            check(torch.equal(y, ref), f"moe_forward_ep top-{k} {name}: {err:.3e} from the "
+                  "single-rank moe_forward, not bitwise")
+            check(launches == want_b1 and reduces == {("all_reduce", pm.MODEL_AXIS): 1},
+                  f"moe_forward_ep top-{k} {name}: {launches} B1 launches (want {want_b1}), "
+                  f"collectives {reduces}")
+            row = {"bitwise": True, "b1_launches": launches,
+                   "ms": _par_time(torch, lambda: moe_forward_ep(sh, x, cfg, mesh=mesh,
+                                                                compute_dtype=cdt),
+                                   calls=A4B_CALLS),
+                   "single_ms": _par_alone(torch, world, lambda: moe_forward(
+                       packed, x, cfg, compute_dtype=cdt))}
+            out[f"top{k}_{name}"] = row
+            _rank_log(world, f"moe_forward_ep (E={e}, {d}->{f}->{d}, {n} tokens, top-{k}, "
+                      f"{name}): bitwise moe_forward; {launches} B1 launches and 1 all_reduce a "
+                      f"rank; {row['ms']:.4f} ms a call on 2 ranks sharing the card "
+                      f"(moe_forward alone {row['single_ms']})", phase=29)
+    return out
+
+
+def _a4b_tpep_block(torch, world, mesh) -> dict:
+    """Phase 29b: ``moe_block_forward_tp`` at the ``lm`` widths with 8
+    experts, top-2 (f32) within max(1e-4, 5e-5·max|ref|) of
+    ``moe_block_forward``; 12 B1 launches and 2 all_reduces a rank; the
+    smallest router margin logged."""
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models import moe_block as mb
+    from smmb_tpu_torch.models.attention import attention_forward
+    from smmb_tpu_torch.models.transformer import rmsnorm
+    from smmb_tpu_torch.parallel import mesh as pm
+    from smmb_tpu_torch.parallel.tp_moe import moe_block_forward_tp, shard_moe_block_tp
+    from smmb_tpu_torch.utils import rng
+
+    dev = mesh.device
+    bcfg = mb.TernaryMoEBlockConfig(d_model=PAR_LM["d_model"], n_heads=PAR_LM["n_heads"],
+                                    d_ff=PAR_LM["d_ff"], **MOE_LM)
+    packed = mb.pack_moe_block(mb.init_moe_block(rng.make_generator(6, dev), bcfg))
+    x = rng.rand_dense(rng.make_generator(7, dev), (*A4B_BLOCK_X, bcfg.d_model)) * 0.1
+    sh = shard_moe_block_tp(packed, mesh)
+    packed_spmm.launches = 0
+    pm.CALLS.clear()
+    y = moe_block_forward_tp(sh, x, bcfg, mesh=mesh)
+    torch.cuda.synchronize()
+    launches, reduces = packed_spmm.launches, dict(pm.CALLS)
+    ref = mb.moe_block_forward(packed, x, bcfg)
+    err = (y - ref).abs().amax(-1).flatten()
+    lim = max(1e-4, 5e-5 * float(ref.abs().max()))
+    mid = x + attention_forward(packed["attn"], rmsnorm(x, packed["norm1"], bcfg.eps), bcfg.attn)
+    _, gates = _moe_routes(torch, packed, mid, bcfg)
+    k = bcfg.top_k
+    margin = (gates[:, k - 1] - gates[:, k]) / gates[:, 0]
+    worst = int(err.argmax())
+    want_b1 = 4 + 2 * bcfg.n_experts // mesh.model
+    check(launches == want_b1 and reduces == {("all_reduce", pm.MODEL_AXIS): 2},
+          f"TP-EP block: {launches} B1 launches (want {want_b1}), collectives {reduces}")
+    check(float(err.max()) <= lim, f"TP-EP block vs moe_block_forward: {float(err.max()):.3e} "
+          f"> {lim:.3e} at token {worst}, its router margin {float(margin[worst]):.3e}")
+    out = {"err": float(err.max()), "limit": lim, "b1_launches": launches,
+           "margin_min": float(margin.min()), "margin_at_worst": float(margin[worst]),
+           "ms": _par_time(torch, lambda: moe_block_forward_tp(sh, x, bcfg, mesh=mesh),
+                           calls=A4B_CALLS),
+           "single_ms": _par_alone(torch, world, lambda: mb.moe_block_forward(packed, x, bcfg))}
+    _rank_log(world, f"TP-EP block (lm widths, E=8, top-2, {A4B_BLOCK_X}, f32): "
+              f"{out['err']:.3e} vs moe_block_forward (limit {lim:.3e}); {launches} B1 launches, "
+              f"2 all_reduces a rank; smallest router margin {out['margin_min']:.3e} (at the worst token "
+              f"{out['margin_at_worst']:.3e}); {out['ms']:.4f} ms a call on 2 ranks sharing the "
+              f"card (moe_block_forward alone {out['single_ms']})", phase=29)
+    return out
+
+
+def _moe_lecun_lm(torch, dev):
+    """Phase 25's MoE LM (the ``lm`` widths, 8 experts, top-2) on LeCun-scale
+    masters (phase 25's backward's seed), packed with ``quantize=True``."""
+    from smmb_tpu_torch.models.lm import TernaryLMConfig, init_lm, pack_lm
+    from smmb_tpu_torch.utils import rng
+
+    cfg = TernaryLMConfig(**PAR_LM, max_len=PAR_PROMPT + 3 * PAR_STEPS, **MOE_LM)
+    return cfg, pack_lm(_lecun(init_lm(rng.make_generator(29, dev), cfg)), quantize=True)
+
+
+def _a4b_moe_lm(torch, world, mesh, cfg, packed) -> dict:
+    """Phase 29c: ``generate_tp`` on the MoE LM (phase 25's config on
+    LeCun-scale masters, model = 2), plain, ``use_flash`` and ``kv_quant`` +
+    ``use_flash``: in bf16 its launches a rank and every B1 call held
+    against ``packed_spmm_plain`` on its own input (2^-7 of max(1,
+    max|plain|)); in f32 its tokens beside the single-rank ``generate``'s
+    and its teacher-forced logits within the LM rule of the single-rank
+    path at every position, the smallest router margin at the worst
+    position logged; µs/token beside ``generate``'s (plain, bf16)."""
+    import torch.distributed as dist
+
+    from smmb_tpu_torch.kernels import flash_attention as fa
+    from smmb_tpu_torch.kernels import flash_decode as fd
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.lm import generate
+    from smmb_tpu_torch.parallel.tp_transformer import generate_tp, shard_lm_tp
+    from smmb_tpu_torch.utils import rng
+
+    dev = mesh.device
+    f32, bf16 = torch.float32, torch.bfloat16
+    layers, e_loc = cfg.n_layers, cfg.n_experts // mesh.model
+    prompt = torch.randint(0, cfg.vocab, (1, PAR_PROMPT), generator=rng.make_generator(0, dev),
+                           device=dev)
+    sharded = shard_lm_tp(packed, mesh)
+    counted = (packed_spmm, fa.flash_attention, fd.flash_attention_decode,
+               fd.flash_attention_decode_quant)
+    # B1 a rank: the prefill's Q, K, V, O and 2 a local expert a layer and
+    # the head; a decode step's fused Q/K/V, O and 2 a local expert a layer
+    # and the head
+    prefill_b1, step_b1 = layers * (4 + 2 * e_loc) + 1, layers * (2 + 2 * e_loc) + 1
+    want_b1 = prefill_b1 + PAR_STEPS * step_b1
+    out = {}
+    for path, (flash, quant) in {"plain": (False, False), "flash": (True, False),
+                                 "int8_flash": (True, True)}.items():
+        kw = dict(use_flash=flash, kv_quant=quant)
+        errs = []
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+        with _held_b1_calls(torch, errs):
+            toks16 = generate_tp(sharded, prompt, cfg, PAR_STEPS, mesh=mesh, compute_dtype=bf16,
+                                 **kw)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counted}
+        check(launches["packed_spmm"] == want_b1,
+              f"MoE generate_tp {path}: {launches['packed_spmm']} B1 launches, want {want_b1}")
+        check(launches["flash_attention"] == (layers if flash else 0),
+              f"MoE generate_tp {path}: B9 launches {launches['flash_attention']}")
+        steps_b4 = layers * PAR_STEPS if flash else 0
+        check(launches["flash_attention_decode"] == (0 if quant else steps_b4)
+              and launches["flash_attention_decode_quant"] == (steps_b4 if quant else 0),
+              f"MoE generate_tp {path}: B4/B8 launches {launches}")
+        check(len(errs) == want_b1 and max(errs) <= BF16_TOL,
+              f"MoE generate_tp {path} bf16: {len(errs)} B1 calls, worst vs plain "
+              f"{max(errs):.3e} > {BF16_TOL:.1e}")
+        check(toks16.shape == (1, PAR_STEPS) and int(toks16.min()) >= 0
+              and int(toks16.max()) < cfg.vocab, "MoE generate_tp tokens shape / range")
+        want = generate(packed, prompt, cfg, PAR_STEPS, compute_dtype=f32, **kw)
+        toks = generate_tp(sharded, prompt, cfg, PAR_STEPS, mesh=mesh, compute_dtype=f32, **kw)
+        ref = _teacher_forced(torch, cfg, packed, prompt, want, f32, True, use_flash=flash,
+                              kv_quant=quant)
+        got = _tp_teacher_forced(torch, cfg, sharded, prompt, want, mesh, f32, flash, quant)
+        row = {"launches": launches, "b1_calls_worst": max(errs),
+               "same_tokens": int((toks == want).sum()), **_lm_rule(torch, got, ref)}
+        with torch.no_grad():
+            margins = _gate_margins(torch, packed, torch.cat([prompt, want], 1), cfg)
+        # logits row i predicts token i + 1 of the prompt-and-ids sequence
+        row["margin_min"] = float(margins[PAR_PROMPT - 1:].min())
+        row["margin_at_worst"] = float(margins[PAR_PROMPT - 1 + row["worst_at"]])
+        check(row["beyond"] == 0, f"MoE generate_tp {path} f32: {row['beyond']} of "
+              f"{row['positions']} positions beyond the LM rule {row['rule']:.3e} (worst "
+              f"{row['worst']:.3e}, router margin there {row['margin_at_worst']:.3e})")
+        if path == "plain":
+            row["tp_us_per_token"] = _tokens_us(torch, lambda s: generate_tp(
+                sharded, prompt, cfg, s, mesh=mesh, compute_dtype=bf16))
+            us = [None]
+            if world.rank == 0:
+                us[0] = _tokens_us(torch, lambda s: generate(packed, prompt, cfg, s,
+                                                          compute_dtype=bf16))
+            dist.barrier()
+            row["single_us_per_token"] = us[0]
+        out[path] = row
+        _rank_log(world, f"MoE generate_tp {path}: launches a rank {launches} (bf16, every B1 "
+                  f"call within {max(errs):.2e} of plain); f32: {row['same_tokens']} of "
+                  f"{PAR_STEPS} tokens as generate's, teacher-forced worst {row['worst']:.3e}, "
+                  f"median {row['median']:.3e}, rule {row['rule']:.3e}; smallest router margin "
+                  f"{row['margin_min']:.3e}, at the worst position {row['margin_at_worst']:.3e}"
+                  + (f"; {row['tp_us_per_token']:.1f} us/token on 2 ranks sharing the card, "
+                     f"generate alone {row['single_us_per_token']}" if path == "plain" else ""),
+                  phase=29)
+    return out
+
+
+def _a4b_sp(torch, world, mesh) -> dict:
+    """Phase 29d: ``lm_forward_sp`` on the dense LeCun-scale LM at the
+    ``lm`` widths, T = 4096 (f32), within the LM rule of ``lm_forward`` at
+    every position, 25 B1 launches, 4 ring shifts and no all_gather a rank,
+    µs a token beside ``lm_forward``'s; ``ring_attention`` at B=1, H=8,
+    hd=128, T=4096, causal, within 2e-5 of ``_attention_math``; one SP MoE
+    block (lm widths, E=8, top-2, T=512) within max(1e-4, 5e-5·max|ref|)
+    of ``moe_block_forward``."""
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models import moe_block as mb
+    from smmb_tpu_torch.models.attention import TernaryAttentionConfig, _attention_math
+    from smmb_tpu_torch.models.lm import TernaryLMConfig, init_lm, lm_forward, pack_lm
+    from smmb_tpu_torch.parallel import mesh as pm
+    from smmb_tpu_torch.parallel.ring_attention import local_seq, ring_attention
+    from smmb_tpu_torch.parallel.sp_block import block_forward_sp, lm_forward_sp
+    from smmb_tpu_torch.utils import rng
+
+    dev = mesh.device
+    t = A4B_SP_T
+    cfg = TernaryLMConfig(**PAR_LM, max_len=t)
+    packed = pack_lm(_lecun(init_lm(rng.make_generator(26, dev), cfg)), quantize=True)
+    toks = torch.randint(0, cfg.vocab, (1, t), generator=rng.make_generator(8, dev), device=dev)
+    tl = local_seq(toks, mesh)
+    packed_spmm.launches = 0
+    pm.CALLS.clear()
+    y = lm_forward_sp(packed, tl, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    launches, calls = packed_spmm.launches, dict(pm.CALLS)
+    ref = lm_forward(packed, toks, cfg)
+    torch.cuda.synchronize()
+    row = _lm_rule(torch, y, local_seq(ref, mesh), scale=ref)  # the rule of the whole T
+    want_b1 = 6 * cfg.n_layers + 1
+    check(launches == want_b1
+          and calls == {("ring_shift", pm.MODEL_AXIS): cfg.n_layers * (mesh.model - 1)},
+          f"lm_forward_sp: {launches} B1 launches (want {want_b1}), collectives {calls}")
+    check(row["beyond"] == 0, f"lm_forward_sp T={t}: {row['beyond']} positions of the rank's "
+          f"{row['positions']} beyond the LM rule {row['rule']:.3e} (worst {row['worst']:.3e})")
+    row["b1_launches"] = launches
+    row["ms"] = _par_time(torch, lambda: lm_forward_sp(packed, tl, cfg, mesh=mesh), calls=2)
+    row["single_ms"] = _par_alone(torch, world, lambda: lm_forward(packed, toks, cfg))
+    row["us_per_token"] = row["ms"] * 1e3 / t
+    row["single_us_per_token"] = None if row["single_ms"] is None else row["single_ms"] * 1e3 / t
+    out = {"lm": row}
+    _rank_log(world, f"lm_forward_sp (lm widths, LeCun-scale, T={t}, f32): worst "
+              f"{row['worst']:.3e}, median {row['median']:.3e} (rule {row['rule']:.3e}); "
+              f"{launches} B1 launches, {mesh.model - 1} ring shift a layer a rank; prefill "
+              f"{row['us_per_token']:.3f} us/token on 2 ranks sharing the card (lm_forward "
+              f"alone {row['single_us_per_token']})", phase=29)
+    del ref
+
+    g = rng.make_generator(9, dev)
+    h, hd = PAR_LM["n_heads"], PAR_LM["d_model"] // PAR_LM["n_heads"]
+    q, k, v = (rng.rand_dense(g, (1, t, h, hd)) * 0.5 for _ in range(3))
+    acfg = TernaryAttentionConfig(d_model=h * hd, n_heads=h, causal=True)
+    pm.CALLS.clear()
+    yr = ring_attention(*(local_seq(a, mesh) for a in (q, k, v)), mesh=mesh)
+    shifts = dict(pm.CALLS)
+    full = _attention_math(q.reshape(1, t, -1), k.reshape(1, t, -1), v.reshape(1, t, -1), acfg)
+    err = float((yr.reshape(1, t // mesh.model, -1) - local_seq(full, mesh)).abs().max())
+    check(err <= 2e-5 and shifts == {("ring_shift", pm.MODEL_AXIS): mesh.model - 1},
+          f"ring_attention T={t}: {err:.3e} from _attention_math (limit 2e-5), {shifts}")
+    out["ring"] = {"err": err, "limit": 2e-5,
+                   "ms": _par_time(torch, lambda: ring_attention(
+                       *(local_seq(a, mesh) for a in (q, k, v)), mesh=mesh), calls=A4B_CALLS)}
+    _rank_log(world, f"ring_attention (B=1, H={h}, hd={hd}, T={t}, causal, f32): {err:.3e} "
+              f"from _attention_math (limit 2e-5); {out['ring']['ms']:.3f} ms a call", phase=29)
+    del q, k, v, full
+
+    bcfg = mb.TernaryMoEBlockConfig(d_model=PAR_LM["d_model"], n_heads=h, d_ff=PAR_LM["d_ff"],
+                                    **MOE_LM)
+    bp = mb.pack_moe_block(mb.init_moe_block(rng.make_generator(10, dev), bcfg))
+    xb = rng.rand_dense(rng.make_generator(11, dev), (1, A4B_SP_MOE_T, bcfg.d_model)) * 0.1
+    packed_spmm.launches = 0
+    yb = block_forward_sp(bp, local_seq(xb, mesh), bcfg, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = packed_spmm.launches
+    refb = mb.moe_block_forward(bp, xb, bcfg)
+    eb = (yb - local_seq(refb, mesh)).abs().amax(-1).flatten()
+    lim = max(1e-4, 5e-5 * float(refb.abs().max()))
+    check(launches == 4 + 2 * bcfg.n_experts, f"SP MoE block: {launches} B1 launches")
+    check(float(eb.max()) <= lim, f"SP MoE block T={A4B_SP_MOE_T} vs moe_block_forward: "
+          f"{float(eb.max()):.3e} > {lim:.3e}")
+    out["moe_block"] = {"err": float(eb.max()), "limit": lim, "b1_launches": launches}
+    _rank_log(world, f"SP MoE block (lm widths, E=8, top-2, T={A4B_SP_MOE_T}, f32): "
+              f"{float(eb.max()):.3e} vs moe_block_forward (limit {lim:.3e}); {launches} B1 "
+              "launches a rank", phase=29)
+    return out
+
+
+def _a4b_pp_moe(torch, world, mesh, cfg, packed) -> dict:
+    """Phase 29e: ``lm_forward_pp`` on the MoE LM (2 stages, 2
+    microbatches, f32) within the LM rule of ``lm_forward``."""
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.lm import lm_forward
+    from smmb_tpu_torch.parallel.pp_lm import lm_forward_pp, shard_lm_pp
+    from smmb_tpu_torch.utils import rng
+
+    dev = mesh.device
+    toks = torch.randint(0, cfg.vocab, A4B_PP_TOKENS, generator=rng.make_generator(12, dev),
+                         device=dev)
+    packed_spmm.launches = 0
+    y = lm_forward_pp(shard_lm_pp(packed, mesh), toks, cfg, mesh=mesh, microbatches=2)
+    torch.cuda.synchronize()
+    launches = packed_spmm.launches
+    row = {**_lm_rule(torch, y, lm_forward(packed, toks, cfg)), "b1_launches": launches}
+    per = cfg.n_layers // mesh.model
+    want_b1 = per * 2 * (4 + 2 * cfg.n_experts) + 1
+    check(launches == want_b1, f"MoE lm_forward_pp: {launches} B1 launches, want {want_b1}")
+    check(row["beyond"] == 0, f"MoE lm_forward_pp: {row['beyond']} positions beyond the LM "
+          f"rule {row['rule']:.3e} (worst {row['worst']:.3e})")
+    _rank_log(world, f"MoE lm_forward_pp (2 stages x 2 microbatches, {A4B_PP_TOKENS}, f32): "
+              f"worst {row['worst']:.3e} (rule {row['rule']:.3e}); {launches} B1 launches a rank",
+              phase=29)
+    return row
+
+
+def _a4b_lora(torch, world, mesh) -> dict:
+    """Phase 29f: LoRA under TP on the dense LeCun-scale LM at the ``lm``
+    widths, rank 8 on all six targets (live adapters): ``lm_forward_tp``
+    within the LM rule of the single-rank adapted ``lm_forward`` at every
+    position, then ``generate_tp``'s teacher-forced logits within the LM
+    rule of the single-rank path (f32)."""
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.lm import TernaryLMConfig, generate, init_lm, lm_forward, pack_lm
+    from smmb_tpu_torch.models.lora import attach_lora, init_lora_lm
+    from smmb_tpu_torch.parallel.tp_transformer import lm_forward_tp, shard_lm_tp
+    from smmb_tpu_torch.utils import rng
+
+    dev = mesh.device
+    f32 = torch.float32
+    rank, wave = A4B_LORA
+    cfg = TernaryLMConfig(**PAR_LM, max_len=PAR_PROMPT + 3 * PAR_STEPS)
+    base = pack_lm(_lecun(init_lm(rng.make_generator(26, dev), cfg)), quantize=True)
+    adapters = init_lora_lm(rng.make_generator(30, dev), cfg, rank=rank,
+                            targets=("wq", "wk", "wv", "wo", "w_up", "w_down"))
+
+    def live(a):
+        return a + wave * torch.sin(torch.arange(a.numel(), dtype=f32, device=dev)).reshape(
+            a.shape)
+
+    adapters = [{k: tuple(live(a) for a in v) for k, v in blk.items()} for blk in adapters]
+    model = attach_lora(base, adapters)
+    sharded = shard_lm_tp(model, mesh)
+    toks = torch.randint(0, cfg.vocab, (2, 2 * PAR_PROMPT), generator=rng.make_generator(13, dev),
+                         device=dev)
+    packed_spmm.launches = 0
+    y = lm_forward_tp(sharded, toks, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = packed_spmm.launches
+    ref = lm_forward(model, toks, cfg)
+    moved = float((ref - lm_forward(base, toks, cfg)).abs().max())
+    fwd = {**_lm_rule(torch, y, ref), "b1_launches": launches, "adapters_move": moved}
+    check(moved > 1e-3, f"LoRA under TP: the adapters move the logits by {moved:.3e} only")
+    check(launches == 6 * cfg.n_layers + 1, f"LoRA lm_forward_tp: {launches} B1 launches")
+    check(fwd["beyond"] == 0, f"LoRA lm_forward_tp: {fwd['beyond']} positions beyond the LM "
+          f"rule {fwd['rule']:.3e} (worst {fwd['worst']:.3e})")
+    prompt = toks[:1, :PAR_PROMPT]
+    want = generate(model, prompt, cfg, PAR_STEPS, compute_dtype=f32)
+    tf = _lm_rule(torch, _tp_teacher_forced(torch, cfg, sharded, prompt, want, mesh, f32, False,
+                                            False),
+                  _teacher_forced(torch, cfg, model, prompt, want, f32, True))
+    check(tf["beyond"] == 0, f"LoRA generate_tp teacher-forced: {tf['beyond']} positions beyond "
+          f"the LM rule {tf['rule']:.3e} (worst {tf['worst']:.3e})")
+    _rank_log(world, f"LoRA under TP (rank {rank}, all six targets, LeCun-scale lm widths, "
+              f"f32): lm_forward_tp worst {fwd['worst']:.3e} (rule {fwd['rule']:.3e}; the "
+              f"adapters move the logits by {moved:.3e}), {launches} B1 launches a rank; "
+              f"generate_tp teacher-forced worst {tf['worst']:.3e} (rule {tf['rule']:.3e})",
+              phase=29)
+    return {"forward": fwd, "teacher_forced": tf}
+
+
+def _a4b_rank(torch, world, mesh) -> dict:
+    """Phase 29: the second half of the parallel layer, in phase 28's world."""
+    t = time.time()
+    out = {"ep": _a4b_ep(torch, world, mesh), "tpep_block": _a4b_tpep_block(torch, world, mesh)}
+    cfg, moe_lm = _moe_lecun_lm(torch, mesh.device)
+    out["moe_lm"] = _a4b_moe_lm(torch, world, mesh, cfg, moe_lm)
+    out["pp_moe"] = _a4b_pp_moe(torch, world, mesh, cfg, moe_lm)
+    del moe_lm
+    out["sp"] = _a4b_sp(torch, world, mesh)
+    out["lora"] = _a4b_lora(torch, world, mesh)
+    out["seconds"] = time.time() - t
+    _rank_log(world, f"phase 29's checks took {out['seconds']:.1f}s", phase=29)
+    return out
+
+
 def _parallel_rank(world) -> dict:
-    """Phase 28's 2-rank world on one card: every check above, on the
-    (1 × 2) mesh (DP on (2 × 1)); returns the rank's readings."""
+    """Phase 28's 2-rank world on one card: every check of phases 28 and 29,
+    on the (1 × 2) mesh (DP on (2 × 1)); returns the rank's readings."""
     import torch
 
     from smmb_tpu_torch.parallel import mesh as pm
@@ -4742,6 +5204,7 @@ def _parallel_rank(world) -> dict:
     out.update(_par_mlp_block(torch, world, mesh))
     out.update(_par_lm(torch, world, mesh))
     out["dp"] = _par_dp(torch, world, mesh)
+    out["a4b"] = _a4b_rank(torch, world, mesh)
     out["staged"] = dict(pm.STAGED)
     return out
 
@@ -4749,11 +5212,13 @@ def _parallel_rank(world) -> dict:
 def _nccl_rank(world) -> dict:
     """Phase 28's 1-rank NCCL world: the mesh's collectives through NCCL
     (none staged), the column shard bitwise and the row shard within f32
-    1e-4 of the unsharded B1 call, one TP block against ``block_forward``."""
+    1e-4 of the unsharded B1 call, one TP block against ``block_forward``,
+    and (phase 29) one ``moe_forward_ep`` call bitwise ``moe_forward``."""
     import torch
 
     from smmb_tpu_torch.formats.packed import pack_ternary_device
     from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.moe import TernaryMoEConfig, init_moe, moe_forward, pack_moe
     from smmb_tpu_torch.models.transformer import (
         TernaryBlockConfig,
         block_forward,
@@ -4761,6 +5226,7 @@ def _nccl_rank(world) -> dict:
         pack_block,
     )
     from smmb_tpu_torch.parallel import mesh as pm
+    from smmb_tpu_torch.parallel.ep_moe import moe_forward_ep, shard_moe_ep
     from smmb_tpu_torch.parallel.sharded import (
         shard_packed_columns,
         shard_packed_rows,
@@ -4792,19 +5258,26 @@ def _nccl_rank(world) -> dict:
     refb = block_forward(bp, xb, bcfg)
     errb = float((yb - refb).abs().max())
     check(errb <= max(1e-4, 2e-5 * float(refb.abs().max())), f"NCCL world: TP block {errb:.3e}")
+    n, d, f, e = A4B_EP
+    ecfg = TernaryMoEConfig(d_model=d, d_ff=f, n_experts=e, top_k=2)
+    epacked = pack_moe(init_moe(rng.make_generator(4, dev), ecfg))
+    ex = rng.rand_dense(rng.make_generator(5, dev), (n, d)) * 0.5
+    ey = moe_forward_ep(shard_moe_ep(epacked, mesh), ex, ecfg, mesh=mesh)
+    check(torch.equal(ey, moe_forward(epacked, ex, ecfg)),
+          "NCCL world: moe_forward_ep is not the single-rank moe_forward")
     torch.cuda.synchronize()
     calls = {f"{op} {axis}": c for (op, axis), c in pm.CALLS.items()}
     check(not pm.STAGED and calls.get("all_reduce model", 0) >= 3
           and calls.get("all_gather model", 0) >= 1,
           f"NCCL world: collectives {calls}, staged {dict(pm.STAGED)}")
-    return {"row_err": err, "block_err": errb, "collectives": calls}
+    return {"row_err": err, "block_err": errb, "ep_bitwise": True, "collectives": calls}
 
 
 def run_parallel(torch, dev, card) -> dict:
-    """Phase 28: the parallel layer on one card. NCCL refuses two ranks on
-    one device, so the checks run in a 2-rank gloo world, each rank on the
-    H100, its collectives staged through host memory (mesh.py logs and
-    counts them); a 1-rank NCCL world runs the NCCL path; then
+    """Phases 28 and 29: the parallel layer on one card. NCCL refuses two
+    ranks on one device, so the checks run in a 2-rank gloo world, each rank
+    on the H100, its collectives staged through host memory (mesh.py logs
+    and counts them); a 1-rank NCCL world runs the NCCL path; then
     ``python -m smmb_tpu_torch scaling`` over (1, 1) and (1, 2)."""
     from smmb_tpu_torch.parallel.mesh import run_world
 
@@ -4825,7 +5298,7 @@ def run_parallel(torch, dev, card) -> dict:
     print(cli.stdout, flush=True)
     check(cli.returncode == 0, f"scaling CLI exited {cli.returncode}:\n{cli.stderr[-4000:]}")
     pts = [json.loads(line) for line in cli.stdout.splitlines() if line.startswith("{")]
-    parts = {"column", "row", "overlap", "bcsr_column", "tp_block", "pp_lm"}
+    parts = {"column", "row", "overlap", "bcsr_column", "tp_block", "pp_lm", "ep_moe"}
     check({(q["partitioning"], q["mesh"]) for q in pts}
           == {(q, s) for q in parts for s in ("1x1", "1x2")}, f"scaling points {pts}")
     check(all(q["shared"] == (q["mesh"] == "1x2") for q in pts),
@@ -4837,11 +5310,20 @@ def run_parallel(torch, dev, card) -> dict:
            "block": r0["block"], "block_flash": r0["block_flash"], "lm": r0["lm"],
            "pp": r0["pp"], "dp": r0["dp"], "nccl": nccl, "scaling": pts,
            "ranks": "2 ranks sharing one card (gloo)"}
-    print(json.dumps({"phase28": par}), flush=True)
+    a4b = {"card": card, "ranks": "2 ranks sharing one card (gloo)", **r0["a4b"],
+           "nccl_ep_bitwise": nccl["ep_bitwise"]}
+    par["a4b"] = a4b
+    print(json.dumps({"phase28": {k: v for k, v in par.items() if k != "a4b"}}), flush=True)
     log("phase 28 passed: " + "; ".join(
         f"generate_tp {k} {v['tp_us_per_token']:.1f} us/token (generate "
         f"{v['single_us_per_token']:.1f})" for k, v in r0["lm"].items()
         if "tp_us_per_token" in v))
+    print(json.dumps({"phase29": a4b}), flush=True)
+    sp, moe_plain = a4b["sp"]["lm"], a4b["moe_lm"]["plain"]
+    log(f"phase 29 passed ({a4b['seconds']:.1f}s in the gloo world, {card}, 2 ranks sharing "
+        f"the card): SP prefill {sp['us_per_token']:.3f} us/token (lm_forward alone "
+        f"{sp['single_us_per_token']:.3f}); MoE generate_tp {moe_plain['tp_us_per_token']:.1f} "
+        f"us/token (generate alone {moe_plain['single_us_per_token']:.1f})")
     return par
 
 

@@ -16,7 +16,9 @@ the scaling efficiency ``rate(N) / (N · rate(1))`` for each partitioning:
   (parallel/tp_transformer.py)
 * ``pp_lm`` — the pipeline-parallel LM forward, layers = max(4, stages),
   its rate over every block weight (parallel/pp_lm.py)
-* ``ep_moe`` — expert-parallel MoE: the next slice of the port (raises).
+* ``ep_moe`` — expert-parallel MoE, 8 experts of 1024→4096→1024, top-1,
+  its rate over the nonzeros a routed token touches, (up + down nnz)/E a
+  token (parallel/ep_moe.py)
 
 Each mesh size is one ``run_world`` that runs every asked partitioning;
 each rank times its calls and the slowest rank's mean is the point's time.
@@ -102,13 +104,29 @@ def _workloads(parts, m, k, n, non_zero, max_model, dev) -> dict:
         toks = torch.randint(0, lcfg.vocab, (8, 32), generator=rng.make_generator(5, dev),
                              device=dev)
         out["pp_lm"] = (lcfg, pack_lm(lparams), toks, nnz * toks.numel())
+    if "ep_moe" in parts:
+        from smmb_tpu_torch.models.moe import TernaryMoEConfig, init_moe, pack_moe
+
+        ecfg = TernaryMoEConfig(d_model=1024, d_ff=4096, n_experts=8)
+        eparams = init_moe(rng.make_generator(4, dev), ecfg)
+        nnz = sum(int(torch.count_nonzero(eparams[nm])) for nm in ("w_up", "w_down"))
+        ex = rng.rand_dense(rng.make_generator(5, dev), (m, ecfg.d_model)) * 0.5
+        # a routed token touches one expert's weights: nnz / E of them
+        out["ep_moe"] = (ecfg, pack_moe(eparams), ex, nnz / ecfg.n_experts * m)
     return out
 
 
 def _case(part, wl, mesh, use_kernel):
     """(fn, args, work) of one partitioning on ``mesh``, or None where the
     shapes do not shard over it (JAX's skips)."""
-    from smmb_tpu_torch.parallel import bcsr_sharded, overlap, pp_lm, sharded, tp_transformer
+    from smmb_tpu_torch.parallel import (
+        bcsr_sharded,
+        ep_moe,
+        overlap,
+        pp_lm,
+        sharded,
+        tp_transformer,
+    )
     from smmb_tpu_torch.parallel.mesh import local_cols, local_rows
 
     data, model = mesh.data, mesh.model
@@ -149,6 +167,12 @@ def _case(part, wl, mesh, use_kernel):
             return None
         return (pp_lm.lm_forward_pp, (pp_lm.shard_lm_pp(lpacked, mesh), local_rows(toks, mesh),
                                       lcfg), {**kw, "microbatches": 2}, work)
+    if part == "ep_moe":
+        ecfg, epacked, ex, work = wl["ep_moe"]
+        if ecfg.n_experts % model or ex.shape[0] % data:
+            return None
+        return (ep_moe.moe_forward_ep, (ep_moe.shard_moe_ep(epacked, mesh),
+                                        local_rows(ex, mesh), ecfg), kw, work)
     raise ValueError(part)
 
 
@@ -196,10 +220,6 @@ def run_scaling(m: int = 256, k: int = 4096, n: int = 4096, non_zero: int = 10,
     for part in parts:
         if part not in PARTITIONINGS:
             raise ValueError(f"partitioning must be one of {PARTITIONINGS}")
-        if part == "ep_moe":
-            from smmb_tpu_torch.parallel.mesh import MOE_SLICE
-
-            raise NotImplementedError(MOE_SLICE)
     from smmb_tpu_torch.parallel.mesh import run_world
 
     dev = resolve_device(device)
@@ -235,7 +255,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config", default=None,
                     help="BenchConfig JSON file (mesh_shapes, iters, reps)")
-    ap.add_argument("--partitionings", default="column,row,overlap,bcsr_column,tp_block,pp_lm",
+    ap.add_argument("--partitionings", default=",".join(PARTITIONINGS),
                     help=f"comma-separated subset of {','.join(PARTITIONINGS)}")
     ap.add_argument("--mesh", default=None,
                     help="comma-separated data x model shapes, e.g. 1x1,1x2")

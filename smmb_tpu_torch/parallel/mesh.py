@@ -25,8 +25,9 @@ initialised the world with: nothing here tries one backend and then another.
 
 ``run_world`` starts a world of ranks on one machine (the torch counterpart
 of JAX building a mesh over virtual devices): one ``spawn`` process per
-rank, a TCP rendezvous on a free localhost port, and each rank's result
-returned to the caller.
+rank, a TCP rendezvous store that the caller's process holds on a
+localhost port it bound itself (so worlds started at once never race for
+a port), and each rank's result returned to the caller.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ import dataclasses
 import datetime
 import logging
 import queue as queue_mod
-import socket
 import time
 import traceback
 
@@ -47,11 +47,6 @@ from smmb_tpu_torch.utils.device import resolve_device
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-
-# what the first half of the parallel layer leaves to the second
-MOE_SLICE = ("MoE under the parallel layer (ep_moe, tp_moe, MoE blocks under TP or PP) "
-             "belongs to a later slice of the port")
-LORA_SLICE = "LoRA adapters under TP or SP belong to a later slice of the port"
 
 STAGED = collections.Counter()  # collective calls staged through host memory, by op
 CALLS = collections.Counter()  # collective calls issued, by (op, axis)
@@ -273,12 +268,6 @@ def local_cols(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- launcher
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _rank_main(fn, rank, size, backend, device, port, args, out, timeout_s):
     try:
         torch.set_num_threads(1)  # one rank a core; the ranks share the host
@@ -286,9 +275,10 @@ def _rank_main(fn, rank, size, backend, device, port, args, out, timeout_s):
         if dev.type == "cuda":
             dev = torch.device("cuda", rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
-        dist.init_process_group(
-            backend, init_method=f"tcp://127.0.0.1:{port}", world_size=size,
-            rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+        limit = datetime.timedelta(seconds=timeout_s)
+        store = dist.TCPStore("127.0.0.1", port, None, False, timeout=limit)
+        dist.init_process_group(backend, store=store, world_size=size, rank=rank,
+                                timeout=limit)
         try:
             value = fn(World(rank, size, backend, dev), *args)
             dist.barrier()
@@ -314,9 +304,12 @@ def run_world(fn, world: int, *, backend: str, device=None, args: tuple = (),
     dev = resolve_device(device)
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    port = _free_port()
+    # the rendezvous store lives here, on a port bound by this process, for
+    # the world's whole life; the ranks connect to it as clients
+    store = dist.TCPStore("127.0.0.1", 0, None, True,
+                          timeout=datetime.timedelta(seconds=timeout), wait_for_workers=False)
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, world, backend, dev.type, port, args, out, timeout))
+                         args=(fn, r, world, backend, dev.type, store.port, args, out, timeout))
              for r in range(world)]
     for p in procs:
         p.start()

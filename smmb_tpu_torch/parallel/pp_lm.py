@@ -10,11 +10,12 @@ static program (bubble ticks on zeros), the port's ranks skip the ticks on
 which they hold no microbatch. The last stage collects the outputs, and a
 model-axis ``all_reduce`` of its outputs with the other stages' zeros
 replicates them, as JAX's ``psum`` does. Embedding and head run replicated
-outside the pipe. Each stage's blocks are the port's ``block_forward`` (B1,
-the fused kernels under their gates, B9 under ``use_flash``).
-
-Dense blocks only in this slice; an MoE LM under PP raises
-``NotImplementedError`` (the next slice's).
+outside the pipe. Each stage runs the single-rank config's block function
+on each of its layers (``cfg._blk``): dense blocks are the port's
+``block_forward`` (B1, the fused kernels under their gates, B9 under
+``use_flash``), MoE blocks ``moe_block_forward`` (B1 for the projections
+and each expert's slab). MoE block trees stack like dense ones: the expert
+planes become (L, E, K/4, N) words and the router gains a layer axis.
 
 Constraints: ``n_layers % S == 0`` (equal stages), all blocks identically
 shaped, the rank's batch divisible by U.
@@ -27,7 +28,7 @@ import torch
 from smmb_tpu_torch.formats.packed import TernaryPacked
 from smmb_tpu_torch.models import lm as lm_mod
 from smmb_tpu_torch.models.transformer import rmsnorm
-from smmb_tpu_torch.parallel.mesh import MODEL_AXIS, MOE_SLICE, Mesh, all_reduce, ring_shift
+from smmb_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, all_reduce, ring_shift
 
 
 def _stage_count(mesh: Mesh) -> int:
@@ -37,7 +38,8 @@ def _stage_count(mesh: Mesh) -> int:
 def stack_blocks(blocks: list):
     """Stack L identically shaped packed block trees along a new leading
     axis: every tensor becomes (L, ...), every ``TernaryPacked`` holds
-    (L, K_pad/4, N) words (its meta must agree across layers)."""
+    (L, K_pad/4, N) words, or (L, E, K_pad/4, N) for an MoE block's expert
+    stack (its meta must agree across layers)."""
     first = blocks[0]
     if isinstance(first, dict):
         return {k: stack_blocks([b[k] for b in blocks]) for k in first}
@@ -68,8 +70,6 @@ def shard_lm_pp(packed: dict, mesh: Mesh) -> dict:
     n_layers = len(packed["blocks"])
     if n_layers % s:
         raise ValueError(f"n_layers={n_layers} % stages={s} != 0")
-    if any("moe" in b for b in packed["blocks"]):
-        raise NotImplementedError(MOE_SLICE)
     per = n_layers // s
     k = mesh.index(MODEL_AXIS)
     dev = mesh.device
@@ -94,8 +94,6 @@ def lm_forward_pp(packed: dict, tokens: torch.Tensor, cfg, *, mesh: Mesh,
                   use_kernel: bool = True, use_flash: bool = False) -> torch.Tensor:
     """Pipeline-parallel LM forward: the rank's (B_local, T) tokens →
     (B_local, T, vocab) logits, on every stage."""
-    if cfg.n_experts is not None:
-        raise NotImplementedError(MOE_SLICE)
     s = _stage_count(mesh)
     u = microbatches
     b, t = tokens.shape

@@ -28,8 +28,15 @@ replicated over "model"); a ``batch`` size argument is the global batch, as
 in JAX. The LM head is vocab-sharded and its logits gathered over the model
 axis, so every rank returns whole logits for its rows.
 
-MoE blocks (JAX's ``tp_moe`` route) and LoRA entries under TP belong to
-the next slice of the port and raise ``NotImplementedError`` here.
+LoRA adapters (models/lora.py's ``<name>_lora = (A, B, scale)`` entries)
+ride the shards with no collective of their own: on a column-parallel base
+(wq, wk, wv, w_up) A stays whole and B's columns split with the base's, so
+the rank's residual lands on its own output columns; on a row-parallel base
+(wo, w_down) A's rows split with the base's and B stays whole, and the
+rank's residual joins its partial before the base's all_reduce. MoE blocks
+take parallel/tp_moe.py's TP-EP functions, chosen per block by
+``_tp_block_fns``, so the LM-level entry points serve MoE LMs as they serve
+dense ones.
 
 Sharding constraints (enforced by the partitioners and checks here):
 ``n_heads`` and ``kv_heads`` divisible by model; ``d_model`` and the KV
@@ -53,17 +60,11 @@ from smmb_tpu_torch.models.attention import (
     apply_rope,
     attention_decode_core,
     init_kv_cache,
+    lora_residual,
 )
 from smmb_tpu_torch.models.transformer import TernaryBlockConfig, rmsnorm
-from smmb_tpu_torch.parallel.mesh import (
-    DATA_AXIS,
-    LORA_SLICE,
-    MODEL_AXIS,
-    MOE_SLICE,
-    Mesh,
-    all_gather,
-    all_reduce,
-)
+from smmb_tpu_torch.ops.dense import prelu
+from smmb_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_gather, all_reduce
 from smmb_tpu_torch.parallel.sharded import (
     _bias_cols,
     _local_spmm,
@@ -77,12 +78,48 @@ def _model_size(mesh: Mesh) -> int:
     return mesh.axis_size(MODEL_AXIS)
 
 
-def _reject(packed: dict) -> None:
-    """MoE blocks and LoRA adapters are the next slice's."""
+def _reject_moe(packed: dict) -> None:
+    """MoE blocks are refused from the dense TP path with a pointer."""
     if "moe" in packed:
-        raise NotImplementedError(MOE_SLICE)
-    if any(k.endswith("_lora") for d in (packed, packed.get("attn", {})) for k in d):
-        raise NotImplementedError(LORA_SLICE)
+        raise ValueError(
+            "MoE blocks do not use the dense tensor-parallel path — use "
+            "parallel/tp_moe.py (Megatron attention + expert-parallel FFN: "
+            "forward/prefill/decode), which the LM-level TP entry points "
+            "dispatch to automatically via _tp_block_fns")
+
+
+# LoRA placement by the adapted layer's kind: which axis of (A, B, scale)
+# each rank slices. Column-parallel base: B's output columns follow the
+# base's; row-parallel base: A's input rows follow the base's.
+_LORA_COL = ("wq", "wk", "wv", "w_up")
+_LORA_ROW = ("wo", "w_down")
+
+
+def _lora_spec(name: str) -> tuple:
+    base = name[:-len("_lora")]
+    if base in _LORA_COL:
+        return (None, 1, None)
+    if base not in _LORA_ROW:
+        raise ValueError(f"unknown LoRA target {name!r}")
+    return (0, None, None)
+
+
+def _shard_lora_entries(src: dict, dst: dict, mesh: Mesh) -> None:
+    """Put the rank's slices of ``src``'s ``*_lora`` entries into ``dst``
+    (``_lora_spec``), contiguous, on the mesh's device."""
+    ms, j = _model_size(mesh), mesh.index(MODEL_AXIS)
+    for k, v in src.items():
+        if not k.endswith("_lora"):
+            continue
+        parts = []
+        for arr, axis in zip(v, _lora_spec(k)):
+            if axis is not None:
+                if arr.shape[axis] % ms:
+                    raise ValueError(f"{k}: axis {axis} of {tuple(arr.shape)} % model={ms} != 0")
+                w = arr.shape[axis] // ms
+                arr = arr.narrow(axis, j * w, w)
+            parts.append(arr.to(mesh.device).contiguous())
+        dst[k] = tuple(parts)
 
 
 def _check_heads(attn_cfg, ms: int) -> None:
@@ -119,17 +156,19 @@ def shard_attn_megatron(a: dict, mesh: Mesh) -> dict:
     attn["wo"] = shard_packed_rows(a["wo"], mesh)
     attn["wo_scale"] = a["wo_scale"].to(dev)
     attn["bo"] = a["bo"].to(dev)
+    _shard_lora_entries(a, attn, mesh)
     return attn
 
 
 def shard_block_tp(packed: dict, mesh: Mesh) -> dict:
     """The rank's shard of one packed block (models/transformer.pack_block):
     QKV and MLP-up column-sharded, out-projection and MLP-down row-sharded;
-    column biases sliced, row biases, scales and norm gains whole."""
-    _reject(packed)
+    column biases sliced, row biases, scales and norm gains whole; LoRA
+    entries sliced with their bases (``_lora_spec``)."""
+    _reject_moe(packed)
     dev = mesh.device
     w_up = shard_packed_columns(packed["w_up"], mesh)
-    return {
+    out = {
         "attn": shard_attn_megatron(packed["attn"], mesh),
         "w_up": w_up,
         "s_up": packed["s_up"].to(dev),
@@ -140,12 +179,17 @@ def shard_block_tp(packed: dict, mesh: Mesh) -> dict:
         "norm1": packed["norm1"].to(dev),
         "norm2": packed["norm2"].to(dev),
     }
+    _shard_lora_entries(packed, out, mesh)
+    return out
 
 
-def _row_out(w, scale, inp, bias, mesh, compute_dtype, use_kernel):
+def _row_out(w, scale, inp, bias, mesh, compute_dtype, use_kernel, lora=None):
     """A row-parallel projection: the rank's partial (the scale folded into
-    its input), one model-axis all_reduce, then the whole bias."""
+    its input) plus its slice of an adapter's residual on the raw input,
+    one model-axis all_reduce, then the whole bias."""
     part = _partial(inp * scale, w, compute_dtype, use_kernel)
+    if lora is not None:
+        part = part + lora_residual(inp, lora)
     return all_reduce(part, mesh, MODEL_AXIS) + bias
 
 
@@ -165,18 +209,42 @@ def _attn_half_tp(d, x, cfg, mesh, compute_dtype, use_kernel, use_flash, cache=N
             kc = apply_rope(kc, _positions(pos, t, x.device), lcfg.rope_theta)
         cache = _cache_write(cache, kc, _split_heads(v, lcfg, lcfg.kv_heads), pos, valid)
     att = _attention_math(q, k, v, lcfg, use_flash=use_flash and valid is None, valid=valid)
-    out = _row_out(a["wo"], a["wo_scale"], att, a["bo"], mesh, compute_dtype, use_kernel)
+    out = _row_out(a["wo"], a["wo_scale"], att, a["bo"], mesh, compute_dtype, use_kernel,
+                   a.get("wo_lora"))
     return x + out.to(x.dtype), cache
+
+
+def _attn_decode_half_tp(d, x_t, cache, cfg, mesh, compute_dtype, use_kernel, use_flash):
+    """norm1, the rank's decode-step attention (one B1 call on its fused
+    Q/K/V plane, or one a projection when an adapter rides Q, K or V; the
+    cache read B4 or B8 under ``use_flash`` and the decode gate), then the
+    row out-projection: ``x_t + attention`` and the cache."""
+    lcfg = _local_cfg(cfg.attn, _model_size(mesh))
+    a = d["attn"]
+    h = rmsnorm(x_t, d["norm1"], cfg.eps)
+    out, cache = attention_decode_core(a, h, cache, lcfg, compute_dtype=compute_dtype,
+                                       use_kernel=use_kernel, use_flash=use_flash)
+    att = _row_out(a["wo"], a["wo_scale"], out, a["bo"], mesh, compute_dtype, use_kernel,
+                   a.get("wo_lora"))
+    return x_t + att.to(x_t.dtype), cache
 
 
 def _mlp_half_tp(d, x, cfg, mesh, compute_dtype, use_kernel):
     """norm2, the column MLP-up with its PReLU fused, the row MLP-down and
-    its all_reduce: ``x + mlp``."""
+    its all_reduce: ``x + mlp``. An adapter on MLP-up adds before the
+    activation, so B1 then runs without its PReLU epilogue and the PReLU
+    follows the sum (the single-rank ``_mlp_half``'s route)."""
     h = rmsnorm(x, d["norm2"], cfg.eps)
-    up = _local_spmm(h * d["s_up"], d["w_up"], d["b_up"], cfg.alpha, compute_dtype,
-                     use_kernel)
+    up_lora = d.get("w_up_lora")
+    if up_lora is None:
+        up = _local_spmm(h * d["s_up"], d["w_up"], d["b_up"], cfg.alpha, compute_dtype,
+                         use_kernel)
+    else:
+        pre = _local_spmm(h * d["s_up"], d["w_up"], d["b_up"], None, compute_dtype,
+                          use_kernel)
+        up = prelu(pre + lora_residual(h, up_lora), cfg.alpha)
     down = _row_out(d["w_down"], d["s_down"], up, d["b_down"], mesh, compute_dtype,
-                    use_kernel)
+                    use_kernel, d.get("w_down_lora"))
     return x + down.to(x.dtype)
 
 
@@ -216,13 +284,8 @@ def block_decode_step_tp(packed: dict, x_t: torch.Tensor, cache: dict,
     one B1 call on its fused plane, the cache read is B4 (B8 over an int8
     cache) under ``use_flash`` and the decode gate, and the block's two
     all_reduces are its only collectives. Returns (y_t, cache)."""
-    lcfg = _local_cfg(cfg.attn, _model_size(mesh))
-    a = packed["attn"]
-    h = rmsnorm(x_t, packed["norm1"], cfg.eps)
-    out, cache = attention_decode_core(a, h, cache, lcfg, compute_dtype=compute_dtype,
-                                       use_kernel=use_kernel, use_flash=use_flash)
-    att = _row_out(a["wo"], a["wo_scale"], out, a["bo"], mesh, compute_dtype, use_kernel)
-    x = x_t + att.to(x_t.dtype)
+    x, cache = _attn_decode_half_tp(packed, x_t, cache, cfg, mesh, compute_dtype, use_kernel,
+                                    use_flash)
     return _mlp_half_tp(packed, x, cfg, mesh, compute_dtype, use_kernel), cache
 
 
@@ -238,15 +301,29 @@ def block_prefill_tp(packed: dict, x: torch.Tensor, cache: dict, cfg: TernaryBlo
 
 
 # ------------------------------------------------------------ LM level
+def _tp_block_fns(packed_block: dict) -> dict:
+    """The TP block functions for a packed block's kind: dense (this module,
+    Megatron) or MoE (parallel/tp_moe.py, Megatron attention and
+    expert-parallel FFN), so every LM-level TP entry point serves MoE LMs."""
+    if "moe" in packed_block:
+        from smmb_tpu_torch.parallel import tp_moe as m  # tp_moe imports this module
+
+        return {"shard": m.shard_moe_block_tp, "forward": m.moe_block_forward_tp,
+                "prefill": m.moe_block_prefill_tp, "decode": m.moe_block_decode_step_tp}
+    return {"shard": shard_block_tp, "forward": block_forward_tp,
+            "prefill": block_prefill_tp, "decode": block_decode_step_tp}
+
+
 def shard_lm_tp(packed: dict, mesh: Mesh) -> dict:
     """The rank's shard of a packed LM (models/lm.pack_lm): every block TP-
-    sharded, the head column-sharded (vocab split), embeddings, positions
-    and the final norm whole."""
+    sharded (dense Megatron or TP-EP MoE, by the block's kind), the head
+    column-sharded (vocab split), embeddings, positions and the final norm
+    whole."""
     dev = mesh.device
     return {
         "embed": packed["embed"].to(dev),
         "pos": packed["pos"].to(dev),
-        "blocks": [shard_block_tp(b, mesh) for b in packed["blocks"]],
+        "blocks": [_tp_block_fns(b)["shard"](b, mesh) for b in packed["blocks"]],
         "norm_f": packed["norm_f"].to(dev),
         "head": shard_packed_columns(packed["head"], mesh),
         "head_scale": packed["head_scale"].to(dev),
@@ -265,22 +342,17 @@ def _head_logits_tp(packed, h, cfg, mesh, compute_dtype, use_kernel):
     return all_gather(y, mesh, MODEL_AXIS, dim=-1).reshape(b, t, cfg.vocab)
 
 
-def _dense_only(cfg) -> None:
-    if cfg.n_experts is not None:
-        raise NotImplementedError(MOE_SLICE)
-
-
 def lm_forward_tp(packed: dict, tokens: torch.Tensor, cfg, *, mesh: Mesh,
                   compute_dtype=torch.float32, use_kernel: bool = True,
                   use_flash: bool = False) -> torch.Tensor:
     """Tensor-parallel LM forward: the rank's (B_local, T) tokens →
     (B_local, T, vocab) logits, vocab gathered."""
-    _dense_only(cfg)
     t = tokens.shape[1]
     x = packed["embed"][tokens] + packed["pos"][None, :t]
     for blk in packed["blocks"]:
-        x = block_forward_tp(blk, x, cfg.block, mesh=mesh, compute_dtype=compute_dtype,
-                             use_kernel=use_kernel, use_flash=use_flash)
+        x = _tp_block_fns(blk)["forward"](blk, x, cfg.block, mesh=mesh,
+                                          compute_dtype=compute_dtype, use_kernel=use_kernel,
+                                          use_flash=use_flash)
     h = rmsnorm(x, packed["norm_f"], cfg.eps)
     return _head_logits_tp(packed, h, cfg, mesh, compute_dtype, use_kernel)
 
@@ -288,8 +360,7 @@ def lm_forward_tp(packed: dict, tokens: torch.Tensor, cfg, *, mesh: Mesh,
 def lm_init_cache_tp(cfg, batch: int, mesh: Mesh, dtype=torch.float32,
                      quantized: bool = False, ragged: bool = False) -> list:
     """The rank's head-sharded KV caches for every block of a TP LM
-    (``batch`` global)."""
-    _dense_only(cfg)
+    (``batch`` global); MoE blocks' caches are the dense blocks'."""
     return [init_block_cache_tp(cfg.block, batch, cfg.max_len, mesh, dtype=dtype,
                                 quantized=quantized, ragged=ragged)
             for _ in range(cfg.n_layers)]
@@ -301,8 +372,7 @@ def lm_prefill_tp(packed: dict, tokens: torch.Tensor, cache: list, cfg, *, mesh:
     """TP prompt pass: (last-position logits (B_local, vocab), filled
     caches). ``prompt_mask`` (B_local, T) bool marks the real tokens of a
     left-padded ragged batch (ragged caches): each row's learned position
-    is its logical one, ``clip(cumsum(mask) - 1, 0)``."""
-    _dense_only(cfg)
+    is its logical one, ``clip(cumsum(mask) - 1, 0)``; dense blocks only."""
     t = tokens.shape[1]
     if prompt_mask is None:
         x = packed["embed"][tokens] + packed["pos"][None, :t]
@@ -312,8 +382,12 @@ def lm_prefill_tp(packed: dict, tokens: torch.Tensor, cache: list, cfg, *, mesh:
         x = packed["embed"][tokens] + packed["pos"][pos_ids]
     new_cache = []
     for blk, c in zip(packed["blocks"], cache):
-        x, c = block_prefill_tp(blk, x, c, cfg.block, mesh=mesh, compute_dtype=compute_dtype,
-                                use_kernel=use_kernel, use_flash=use_flash, valid=prompt_mask)
+        kw = {} if prompt_mask is None else {"valid": prompt_mask}
+        if prompt_mask is not None and "moe" in blk:
+            raise ValueError("ragged prompt_mask is supported for dense TP blocks only")
+        x, c = _tp_block_fns(blk)["prefill"](blk, x, c, cfg.block, mesh=mesh,
+                                             compute_dtype=compute_dtype, use_kernel=use_kernel,
+                                             use_flash=use_flash, **kw)
         new_cache.append(c)
     h = rmsnorm(x, packed["norm_f"], cfg.eps)
     return _head_logits_tp(packed, h, cfg, mesh, compute_dtype, use_kernel)[:, -1], new_cache
@@ -325,7 +399,6 @@ def lm_decode_step_tp(packed: dict, token_t: torch.Tensor, cache: list, cfg, *,
     """One TP decode step: (B_local,) tokens → ((B_local, vocab) logits,
     caches). ``pos_ids`` (B_local,) gives each row its own learned-position
     index (ragged batches)."""
-    _dense_only(cfg)
     if pos_ids is None:
         pe = packed["pos"][cache[0]["pos"]][None, None]
     else:
@@ -333,9 +406,9 @@ def lm_decode_step_tp(packed: dict, token_t: torch.Tensor, cache: list, cfg, *,
     x = packed["embed"][token_t][:, None, :] + pe
     new_cache = []
     for blk, c in zip(packed["blocks"], cache):
-        x, c = block_decode_step_tp(blk, x, c, cfg.block, mesh=mesh,
-                                    compute_dtype=compute_dtype, use_kernel=use_kernel,
-                                    use_flash=use_flash)
+        x, c = _tp_block_fns(blk)["decode"](blk, x, c, cfg.block, mesh=mesh,
+                                            compute_dtype=compute_dtype, use_kernel=use_kernel,
+                                            use_flash=use_flash)
         new_cache.append(c)
     h = rmsnorm(x, packed["norm_f"], cfg.eps)
     return _head_logits_tp(packed, h, cfg, mesh, compute_dtype, use_kernel)[:, 0], new_cache

@@ -30,7 +30,10 @@ M, and the combine sums each token's experts in rank order). The sharded
 B1 and B2 paths run in one 2-rank gloo world sharing the card
 (tests/torch_parallel_ranks.py): column shards bitwise the unsharded call,
 row and ring-overlap shards at f32 1e-4, bf16 2**-7 and int8 1e-6 of the
-same calls on the plain bodies.
+same calls on the plain bodies. So do the expert-parallel MoE layer (bitwise
+the single-rank ``moe_forward``: at most two non-zero terms a token across
+the ranks) and the sequence-parallel ring (JAX's 2e-5 of the attention
+math).
 """
 
 import numpy as np
@@ -1001,3 +1004,30 @@ def test_sharded_b2_on_two_ranks(sharded_card, mode, tol):
     bodies, one B2 launch a rank."""
     r = sharded_card[mode]
     assert r["err"] <= tol and r["launches"] == 1, r
+
+
+@pytest.fixture(scope="module")
+def a4b_card():
+    """One 2-rank gloo world on the card: the expert-parallel and ring cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import torch_parallel_ranks
+
+    from smmb_tpu_torch.parallel.mesh import run_world
+
+    return run_world(torch_parallel_ranks.card_a4b, 2, backend="gloo", device="cuda")[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ep_top1_f32", "ep_top1_bf16", "ep_top2_f32", "ep_top2_bf16"])
+def test_ep_moe_on_two_ranks(a4b_card, case):
+    """``moe_forward_ep`` bitwise ``moe_forward`` on the same tokens; B1 on
+    the rank's 4 experts only: 8 launches a rank, against 16 on one."""
+    assert a4b_card[case] == {"bitwise": True, "launches": 8}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ring_causal", "ring_non_causal", "ring_gqa_window"])
+def test_ring_attention_on_two_ranks(a4b_card, case):
+    """The ring (T = 512, hd 128) within JAX's 2e-5 of the attention math."""
+    assert a4b_card[case] <= 2e-5 and a4b_card["ring_worst"] <= 2e-5, a4b_card

@@ -43,8 +43,15 @@ def test_scaling_harness_cpu():
 
 
 def test_scaling_ep_moe_is_the_next_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        run_scaling(partitioning="ep_moe", device="cpu")
+    """``ep_moe`` now runs (JAX's shape: 8 experts of 1024→4096→1024, top-1;
+    its work the nonzeros over E times the tokens), a point a mesh size;
+    an unknown partitioning is still refused."""
+    pts = run_scaling(m=8, mesh_shapes=((1, 1), (1, 2)), partitioning="ep_moe", iters=1,
+                      reps=1, device="cpu")
+    assert [(p.partitioning, p.devices, p.mesh) for p in pts] == [("ep_moe", 1, "1x1"),
+                                                                  ("ep_moe", 2, "1x2")]
+    assert pts[0].efficiency == 1.0
+    assert all(p.nnz_per_s > 0 and p.shared and p.backend == "gloo" for p in pts)
     with pytest.raises(ValueError):
         run_scaling(partitioning="bogus", device="cpu")
 

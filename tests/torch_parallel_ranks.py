@@ -1,5 +1,7 @@
 """Rank bodies of the port's parallel twins (tests/test_torch_parallel.py,
-test_torch_tp.py, test_torch_pp.py, test_torch_dp_train.py).
+test_torch_tp.py, test_torch_pp.py, test_torch_dp_train.py,
+test_torch_ep_moe.py, test_torch_moe_parallel.py, test_torch_ring.py,
+test_torch_lora_parallel.py).
 
 ``run_world`` spawns the ranks, which import this module by name: it must
 not import JAX or the test files (they import JAX). Each suite loads its
@@ -287,6 +289,286 @@ def suite_pp(world, path):
         cases.run(f"pp_{d}x{m}_u{u}", d, m, pp("lm", "toks", u, False))
     cases.run("pp_kernel", 1, 2, pp("lm_k", "toks_k", 2, True))
     cases.run("pp_uneven", 1, 4, lambda mesh: _raises(lambda: shard_lm_pp(inp["lm"], mesh)))
+    cases.run("pp_moe", 1, 2, lambda mesh: _gather(lm_forward_pp(
+        shard_lm_pp(inp["lm_moe"], mesh), pm.local_rows(_t(inp["toks_moe"]), mesh),
+        TernaryLMConfig(**inp["moe_cfg"]), mesh=mesh, microbatches=2, use_kernel=False),
+        mesh).numpy())
+    return cases.out
+
+
+# ------------------------------------------------------------ EP
+def _error(fn):
+    """The message of the ValueError ``fn`` raises (None if it raises none)."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def suite_ep(world, path):
+    from smmb_tpu_torch.models.moe import TernaryMoEConfig, moe_forward
+    from smmb_tpu_torch.parallel.ep_moe import moe_forward_ep, shard_moe_ep
+
+    inp = _load(path)
+    cases = _Cases(world)
+
+    def ep(key, x_key, cfg_key):
+        def fn(mesh):
+            cfg = TernaryMoEConfig(**inp[cfg_key])
+            y = moe_forward_ep(shard_moe_ep(inp[key], mesh), pm.local_rows(_t(inp[x_key]), mesh),
+                               cfg, mesh=mesh, use_kernel=False)
+            return _gather(y, mesh).numpy()
+        return fn
+
+    for d, m in ((1, 2), (1, 4), (2, 2)):
+        cases.run(f"ep_{d}x{m}", d, m, ep("moe", "x", "cfg"))
+    cases.run("ep_top2_2x4", 2, 4, ep("moe_top2", "x_top2", "cfg_top2"))
+    cases.run("ep_uneven", 1, 8, lambda mesh: _error(lambda: shard_moe_ep(inp["moe"], mesh)))
+
+    def bitwise(key, x_key, cfg_key):
+        def fn(mesh):
+            cfg = TernaryMoEConfig(**inp[cfg_key])
+            x = _t(inp[x_key])
+            y = moe_forward_ep(shard_moe_ep(inp[key], mesh), x, cfg, mesh=mesh,
+                               use_kernel=False)
+            return bool(torch.equal(y, moe_forward(inp[key], x, cfg, use_kernel=False)))
+        return fn
+
+    cases.run("ep_bitwise_top1", 1, 4, bitwise("moe", "x", "cfg"))
+    cases.run("ep_bitwise_top2", 1, 8, bitwise("moe_top2", "x_top2", "cfg_top2"))
+    return cases.out
+
+
+# ------------------------------------------------------------ MoE blocks under TP and SP
+def suite_moe_parallel(world, path):
+    from smmb_tpu_torch.models.lm import TernaryLMConfig
+    from smmb_tpu_torch.models.moe import TernaryMoEConfig
+    from smmb_tpu_torch.models.moe_block import TernaryMoEBlockConfig
+    from smmb_tpu_torch.parallel import sp_block
+    from smmb_tpu_torch.parallel import tp_moe
+    from smmb_tpu_torch.parallel import tp_transformer as tp
+    from smmb_tpu_torch.parallel.ep_moe import moe_forward_ep, shard_moe_ep
+    from smmb_tpu_torch.parallel.ring_attention import local_seq, ring_attention
+
+    inp = _load(path)
+    cases = _Cases(world)
+    cfgs = {k: TernaryMoEBlockConfig(**v) for k, v in inp["block_cfgs"].items()}
+    lms = {k: TernaryLMConfig(**v) for k, v in inp["lm_cfgs"].items()}
+
+    cases.run("tp_rejects_moe", 1, 2, lambda mesh: _error(
+        lambda: tp.shard_block_tp(inp["lm_tp"]["blocks"][0], mesh)))
+
+    def sp(key, x_key, cfg):
+        def fn(mesh):
+            y = sp_block.block_forward_sp(inp[key], local_seq(pm.local_rows(_t(inp[x_key]), mesh),
+                                                              mesh),
+                                          cfg, mesh=mesh, use_kernel=False)
+            return _gather(y, mesh, 1).numpy()
+        return fn
+
+    cases.run("sp_block", 2, 4, sp("sp_block", "sp_x", cfgs["sp"]))
+
+    def sp_lm(mesh):
+        y = sp_block.lm_forward_sp(inp["sp_lm"], local_seq(_t(inp["sp_toks"]).long(), mesh),
+                                   lms["sp"], mesh=mesh, use_kernel=False)
+        return _gather(y, mesh, 1).numpy()
+
+    cases.run("sp_lm", 1, 8, sp_lm)
+
+    def tpep(key, x_key, cfg, use_kernel=False):
+        def fn(mesh):
+            y = tp_moe.moe_block_forward_tp(tp_moe.shard_moe_block_tp(inp[key], mesh),
+                                            pm.local_rows(_t(inp[x_key]), mesh), cfg, mesh=mesh,
+                                            use_kernel=use_kernel)
+            return _gather(y, mesh).numpy()
+        return fn
+
+    cases.run("tpep", 2, 2, tpep("tpep", "tpep_x", cfgs["tpep"]))
+    cases.run("tpep_kernel", 1, 2, tpep("tpep_k", "tpep_k_x", cfgs["tpep_k"], use_kernel=True))
+
+    def tpep_decode(mesh):
+        cfg = cfgs["tpep_dec"]
+        sh = tp_moe.shard_moe_block_tp(inp["tpep_dec"], mesh)
+        x = pm.local_rows(_t(inp["tpep_dec_x"]), mesh)
+        cache = tp_moe.init_moe_block_cache_tp(cfg, x.shape[0] * mesh.data, 16, mesh)
+        y, cache = tp_moe.moe_block_prefill_tp(sh, x[:, :6], cache, cfg, mesh=mesh,
+                                               use_kernel=False)
+        ys = [y]
+        for i in range(6, x.shape[1]):
+            y, cache = tp_moe.moe_block_decode_step_tp(sh, x[:, i:i + 1], cache, cfg, mesh=mesh,
+                                                       use_kernel=False)
+            ys.append(y)
+        return _gather(torch.cat(ys, dim=1), mesh).numpy()
+
+    cases.run("tpep_decode", 2, 2, tpep_decode)
+
+    def gen(key, lcfg, toks_key, steps, **kw):
+        def fn(mesh):
+            out = tp.generate_tp(tp.shard_lm_tp(inp[key], mesh),
+                                 pm.local_rows(_t(inp[toks_key]).long(), mesh), lcfg, steps,
+                                 mesh=mesh, use_kernel=False, **kw)
+            return _gather(out, mesh).numpy()
+        return fn
+
+    cases.run("generate_tp", 2, 2, gen("lm_tp", lms["tp"], "tp_toks", 5))
+    cases.run("generate_tp_kv_quant", 1, 2, gen("lm_q", lms["q"], "q_toks", 4, kv_quant=True))
+
+    def ragged(mesh):
+        toks = _t(inp["tp_toks"]).long()
+        return _error(lambda: tp.generate_tp(
+            tp.shard_lm_tp(inp["lm_tp"], mesh), toks, lms["tp"], 2, mesh=mesh,
+            use_kernel=False, prompt_mask=torch.ones(toks.shape, dtype=torch.bool)))
+
+    cases.run("tp_ragged_moe", 1, 2, ragged)
+
+    def lora(mesh):
+        adapted = inp["lora_block"]
+        x = torch.zeros((1, 2, 1024))
+        return (_error(lambda: tp_moe.shard_moe_block_tp(adapted, mesh)),
+                _error(lambda: tp_moe.moe_block_forward_tp(adapted, x, cfgs["lora"], mesh=mesh,
+                                                           use_kernel=False)))
+
+    cases.run("tpep_lora", 1, 2, lora)
+
+    # the collectives a call issues, counted by the mesh
+    def counted(fn):
+        pm.CALLS.clear()
+        fn()
+        return {f"{op} {axis}": c for (op, axis), c in pm.CALLS.items()}
+
+    def counts(mesh):
+        ecfg = TernaryMoEConfig(**inp["ep_cfg"])
+        x = _t(inp["ep_x"])
+        ep_sh = shard_moe_ep(inp["ep_moe"], mesh)
+        tp_sh = tp_moe.shard_moe_block_tp(inp["tpep"], mesh)
+        xb = _t(inp["tpep_x"])
+        q = local_seq(_t(inp["ring_q"]), mesh)
+        k = local_seq(_t(inp["ring_k"]), mesh)
+        return {"ep": counted(lambda: moe_forward_ep(ep_sh, x, ecfg, mesh=mesh, use_kernel=False)),
+                "tpep_block": counted(lambda: tp_moe.moe_block_forward_tp(
+                    tp_sh, xb, cfgs["tpep"], mesh=mesh, use_kernel=False)),
+                "ring": counted(lambda: ring_attention(q, k, k, mesh=mesh))}
+
+    cases.run("counts", 1, 2, counts)
+    cases.run("counts_ring_1x4", 1, 4, lambda mesh: counted(lambda: ring_attention(
+        local_seq(_t(inp["ring_q"]), mesh), local_seq(_t(inp["ring_k"]), mesh),
+        local_seq(_t(inp["ring_k"]), mesh), mesh=mesh)))
+    return cases.out
+
+
+# ------------------------------------------------------------ SP (ring attention)
+def suite_ring(world, path):
+    from smmb_tpu_torch.models.attention import TernaryAttentionConfig
+    from smmb_tpu_torch.models.lm import TernaryLMConfig
+    from smmb_tpu_torch.models.transformer import TernaryBlockConfig
+    from smmb_tpu_torch.parallel import sp_block
+    from smmb_tpu_torch.parallel.ring_attention import (
+        attention_forward_sp,
+        local_seq,
+        ring_attention,
+    )
+
+    inp = _load(path)
+    cases = _Cases(world)
+
+    def seq(a, mesh):
+        return local_seq(pm.local_rows(_t(a), mesh), mesh)
+
+    def ring(key, causal):
+        def fn(mesh):
+            q, k, v = (seq(a, mesh) for a in inp[key])
+            return _gather(ring_attention(q, k, v, mesh=mesh, causal=causal), mesh, 1).numpy()
+        return fn
+
+    for d, m in ((1, 2), (1, 4), (2, 4)):
+        for causal in (True, False):
+            cases.run(f"ring_{d}x{m}_{causal}", d, m, ring("qkv", causal))
+    cases.run("ring_1x1", 1, 1, ring("qkv_1", True))
+    for causal in (True, False):
+        cases.run(f"ring_gqa_{causal}", 1, 4, ring("qkv_gqa", causal))
+
+    def attn(key, x_key, use_kernel=False):
+        def fn(mesh):
+            cfg = TernaryAttentionConfig(**inp["attn_cfgs"][key])
+            y = attention_forward_sp(inp[key], seq(inp[x_key], mesh), cfg, mesh=mesh,
+                                     use_kernel=use_kernel)
+            return _gather(y, mesh, 1).numpy()
+        return fn
+
+    cases.run("attn_gqa", 2, 2, attn("attn_gqa", "attn_gqa_x"))
+    for use_kernel in (False, True):
+        cases.run(f"attn_{use_kernel}", 2, 2, attn("attn", "attn_x", use_kernel))
+
+    def block(key, x_key):
+        def fn(mesh):
+            cfg = TernaryBlockConfig(**inp["block_cfgs"][key])
+            y = sp_block.block_forward_sp(inp[key], seq(inp[x_key], mesh), cfg, mesh=mesh,
+                                          use_kernel=False)
+            return _gather(y, mesh, 1).numpy()
+        return fn
+
+    for key in ("block", "block_rope", "block_window"):
+        cases.run(key, 2, 4, block(key, key + "_x"))
+    cases.run("ragged_t", 1, 8, lambda mesh: _error(lambda: local_seq(_t(inp["ragged_x"]),
+                                                                       mesh)))
+
+    def lm(key, toks_key, use_kernel):
+        def fn(mesh):
+            cfg = TernaryLMConfig(**inp["lm_cfgs"][key])
+            y = sp_block.lm_forward_sp(inp[key], seq(inp[toks_key], mesh).long(), cfg, mesh=mesh,
+                                       use_kernel=use_kernel)
+            return _gather(y, mesh, 1).numpy()
+        return fn
+
+    cases.run("lm", 1, 8, lm("lm", "lm_toks", False))
+    cases.run("lm_kernel", 1, 4, lm("lm_k", "lm_k_toks", True))
+    return cases.out
+
+
+# ------------------------------------------------------------ LoRA under TP
+def suite_lora_parallel(world, path):
+    from smmb_tpu_torch.models.lm import TernaryLMConfig
+    from smmb_tpu_torch.parallel import sp_block
+    from smmb_tpu_torch.parallel import tp_transformer as tp
+
+    inp = _load(path)
+    cases = _Cases(world)
+    lms = {k: TernaryLMConfig(**v) for k, v in inp["lm_cfgs"].items()}
+
+    cases.run("sp_rejects", 1, 2, lambda mesh: _error(lambda: sp_block.block_forward_sp(
+        inp["sp_model"]["blocks"][0], torch.zeros((1, 2, lms["sp"].d_model)), lms["sp"].block,
+        mesh=mesh, use_kernel=False)))
+
+    def fwd(mesh):
+        y = tp.lm_forward_tp(tp.shard_lm_tp(inp["fwd_model"], mesh),
+                             pm.local_rows(_t(inp["fwd_toks"]).long(), mesh), lms["tp"],
+                             mesh=mesh, use_kernel=False)
+        return _gather(y, mesh).numpy()
+
+    cases.run("forward", 2, 2, fwd)
+
+    def gen(key, lcfg, toks_key, steps):
+        def fn(mesh):
+            out = tp.generate_tp(tp.shard_lm_tp(inp[key], mesh),
+                                 pm.local_rows(_t(inp[toks_key]).long(), mesh), lcfg, steps,
+                                 mesh=mesh, use_kernel=False)
+            return _gather(out, mesh).numpy()
+        return fn
+
+    cases.run("generate", 2, 2, gen("gen_model", lms["tp"], "gen_toks", 6))
+    cases.run("rope_generate", 1, 2, gen("rope_lm", lms["rope"], "rope_toks", 6))
+
+    def shard_shapes(mesh):
+        """Each adapter's slices on the rank: (A, B) shapes by target."""
+        blk = tp.shard_lm_tp(inp["fwd_model"], mesh)["blocks"][0]
+        out = {k: tuple(tuple(a.shape) for a in v[:2]) for k, v in blk["attn"].items()
+               if k.endswith("_lora")}
+        out.update({k: tuple(tuple(a.shape) for a in v[:2]) for k, v in blk.items()
+                    if k.endswith("_lora")})
+        return out
+
+    cases.run("shard_shapes", 2, 2, shard_shapes)
     return cases.out
 
 
@@ -421,4 +703,54 @@ def card_sharded(world):
         err = float((y.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
         out[name] = {"err": err, "launches": launches}
     out["staged"] = dict(pm.STAGED)
+    return out
+
+
+def card_a4b(world):
+    """tests/test_torch_cuda.py's expert-parallel and ring cases on a 2-rank
+    gloo world sharing the card (1 × 2 mesh): ``moe_forward_ep`` (8
+    experts, top-1 and top-2, f32 and bf16) bitwise the single-rank
+    ``moe_forward`` with its B1 launches a rank; ``ring_attention`` (causal
+    and not, and GQA 8/2 with a window) against ``_attention_math`` on the
+    card."""
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.models.attention import TernaryAttentionConfig, _attention_math
+    from smmb_tpu_torch.models.moe import TernaryMoEConfig, init_moe, moe_forward, pack_moe
+    from smmb_tpu_torch.parallel.ep_moe import moe_forward_ep, shard_moe_ep
+    from smmb_tpu_torch.parallel.ring_attention import _ring_body, local_seq
+    from smmb_tpu_torch.utils import rng
+
+    dev = world.device
+    mesh = pm.make_mesh(1, 2, device=dev)
+    out = {}
+    for k in (1, 2):
+        cfg = TernaryMoEConfig(d_model=512, d_ff=1024, n_experts=8, top_k=k)
+        packed = pack_moe(init_moe(rng.make_generator(4, dev), cfg))
+        sh = shard_moe_ep(packed, mesh)
+        x = rng.rand_dense(rng.make_generator(5, dev), (64, 512)) * 0.5
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            packed_spmm.launches = 0
+            y = moe_forward_ep(sh, x.to(dt), cfg, mesh=mesh, compute_dtype=dt)
+            torch.cuda.synchronize()
+            launches = packed_spmm.launches
+            ref = moe_forward(packed, x.to(dt), cfg, compute_dtype=dt)
+            out[f"ep_top{k}_{name}"] = {"bitwise": bool(torch.equal(y, ref)),
+                                        "launches": launches}
+    gen = rng.make_generator(6, dev)
+    for name, h, kvh, causal, window in (("causal", 8, 8, True, None),
+                                         ("non_causal", 8, 8, False, None),
+                                         ("gqa_window", 8, 2, True, 100)):
+        t, hd = 512, 128
+        q = rng.rand_dense(gen, (1, t, h, hd)) * 0.5
+        kk, v = (rng.rand_dense(gen, (1, t, kvh, hd)) * 0.5 for _ in range(2))
+        cfg = TernaryAttentionConfig(d_model=h * hd, n_heads=h, n_kv_heads=kvh, causal=causal,
+                                     window=window)
+        y = _ring_body(*(local_seq(a, mesh) for a in (q, kk, v)), mesh, causal, None, window)
+        full = _attention_math(q.reshape(1, t, -1), kk.reshape(1, t, -1), v.reshape(1, t, -1),
+                               cfg)
+        out[f"ring_{name}"] = float((y.reshape(1, t // 2, -1)
+                                     - local_seq(full, mesh)).abs().max())
+    worst = torch.tensor([max(v for k_, v in out.items() if k_.startswith("ring_"))],
+                         dtype=torch.float64, device=dev)
+    out["ring_worst"] = float(pm.all_reduce(worst, mesh, pm.MODEL_AXIS, op="max")[0])
     return out
