@@ -256,7 +256,18 @@ which exits non-zero on failure:
     ``lm_forward``'s; ``lm_forward_pp`` on the MoE LM within the LM rule;
     LoRA under TP (rank 8, all six targets): ``lm_forward_tp`` and
     ``generate_tp``'s teacher-forced logits within the LM rule of the
-    single-rank adapted path; the NCCL world's ``moe_forward_ep`` bitwise.
+    single-rank adapted path; the NCCL world's ``moe_forward_ep`` bitwise;
+30. A5: ``bench/autotune.py::autotune_packed_spmm`` at the headline in bf16
+    and int8 (each candidate tile's µs logged; the pick's output bitwise
+    ``tile_for``'s, its ``measure_device`` time no more than
+    ``A5_TILE_SPREAD`` over ``tile_for``'s, the median of ``A5_PAIRS``
+    in-turn runs each; a second call
+    answered from the cache, the timer disabled), the autotune CLI as a
+    subprocess printing one JSON config, ``bench/trace.py::capture_trace``
+    of a headline B1 call in ``annotate("b1")`` (the Chrome trace holds its
+    kernel events and the ``b1`` ranges), and the four port-owned examples
+    (``examples/torch_*.py`` but the sharded one), each ``main([])`` on the
+    card returning 0 through B1, with its wall time.
 
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
@@ -275,6 +286,7 @@ checkout's port with C1's candidate body (``C1_FOLD``).
 import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -751,6 +763,7 @@ def main() -> int:
     run_lora_lm(torch, dev, card, lm)
     run_runtime(torch, dev, card)
     par = run_parallel(torch, dev, card)
+    run_a5(torch, dev, card)
 
     main_mode = per_mode["bf16"]  # the main path's mode and per-layer shape
     summary = {"kernels": [{
@@ -5325,6 +5338,212 @@ def run_parallel(torch, dev, card) -> dict:
         f"{sp['single_us_per_token']:.3f}); MoE generate_tp {moe_plain['tp_us_per_token']:.1f} "
         f"us/token (generate alone {moe_plain['single_us_per_token']:.1f})")
     return par
+
+
+A5_SHAPE = (256, 4096, 4096, 10)  # M, K, N, non_zero: the headline, ~10% nnz
+# phase 5's spread of one tile's device time at the headline between runs:
+# the widest range of a tile's µs over four recorded runs of this script,
+# relative to its least (int8 16x128, 47.51-49.33 µs; PERF.md §6, A5's
+# entry). The pick's time may exceed tile_for's by at most this share.
+A5_TILE_SPREAD = 0.0384
+# in-turn measure_device pairs of the pick and tile_for's tile, each side's
+# median compared: graph captures of one int8 call read 61.49-65.95 µs late
+# in this script, so the least of two or five a side compared one low
+# outlier with another (PERF.md §6, A5's entry)
+A5_PAIRS = 7
+A5_EXAMPLES = ("torch_lm_generate", "torch_transformer_serving", "torch_train_and_serve",
+               "torch_serving_features")
+
+
+def _a5_autotune(torch, dev, tmp) -> list:
+    """Phase 30a: ``autotune_packed_spmm`` at the headline in bf16 and int8
+    with its cache in ``tmp`` (``_a5_tune_mode``), the module's cache path
+    restored after."""
+    import os
+
+    from smmb_tpu_torch.bench import autotune
+    from smmb_tpu_torch.formats.packed import pack_ternary_device
+    from smmb_tpu_torch.utils import rng
+
+    m, k, n, nz = A5_SHAPE
+    gen = rng.make_generator(30, dev)
+    x = rng.rand_dense(gen, (m, k))
+    p = pack_ternary_device(rng.rand_ternary(gen, (k, n), non_zero=nz))
+    saved, autotune.CACHE_PATH = autotune.CACHE_PATH, os.path.join(tmp, "autotune.json")
+    try:
+        return [_a5_tune_mode(torch, autotune, x, p, cdt) for cdt in (torch.bfloat16, torch.int8)]
+    finally:
+        autotune.CACHE_PATH = saved
+
+
+def _a5_tune_mode(torch, autotune, x, p, cdt) -> dict:
+    """One mode of phase 30a: each candidate's µs logged (the autotuner's
+    verbose lines), the pick bitwise ``tile_for``'s output and, timed again
+    by ``measure_device`` in ``A5_PAIRS`` in-turn pairs (each side's
+    median), no slower than it by more than ``A5_TILE_SPREAD``; a second call answered from the cache with the timer
+    disabled."""
+    import io
+
+    from smmb_tpu_torch.bench.measure import measure_device
+    from smmb_tpu_torch.kernels.packed_spmm import MMA_TILES, packed_spmm, tile_for
+
+    m, k, n, nz = A5_SHAPE
+    mode = str(cdt).split(".")[1]
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cfg = autotune.autotune_packed_spmm(m, k, n, cdt, non_zero=nz, verbose=True)
+    tune_s = time.perf_counter() - t
+    cands = {}
+    for line in buf.getvalue().splitlines():
+        cand, _, us = line.strip().rpartition(": ")
+        c = json.loads(cand)
+        cands[f"{c['block_m']}x{c['block_n']}"] = float(us.split()[0])
+    pick = (cfg["block_m"], cfg["block_n"])
+    check(set(cfg) == {"block_m", "block_n"} and pick in MMA_TILES,
+          f"autotune {mode} picked {cfg}, not one of {MMA_TILES}")
+    check(len(cands) == len(MMA_TILES), f"autotune {mode} timed {cands}")
+
+    def no_timer(*a, **kw):
+        raise AssertionError("autotune measured on a cached key")
+
+    autotune.measure_device = no_timer
+    try:
+        again = autotune.autotune_packed_spmm(m, k, n, cdt, non_zero=nz)
+    finally:
+        autotune.measure_device = measure_device
+    check(again == cfg, f"autotune {mode}: the cache answered {again}, not {cfg}")
+
+    xin = x.to(cdt) if cdt == torch.bfloat16 else x
+    y_pick = packed_spmm(xin, p, compute_dtype=cdt, **cfg)
+    y_rule = packed_spmm(xin, p, compute_dtype=cdt)
+    torch.cuda.synchronize()
+    check(torch.equal(y_pick, y_rule), f"autotune {mode}: the pick {pick}'s output is not "
+          f"bitwise tile_for's")
+    rule = tile_for(m, n, cdt)[:2]
+    t_pick, t_rule = [], []
+    for _ in range(A5_PAIRS):  # in turns
+        t_pick.append(measure_device(lambda: packed_spmm(xin, p, compute_dtype=cdt, **cfg))
+                      .min_s * 1e6)
+        t_rule.append(measure_device(lambda: packed_spmm(xin, p, compute_dtype=cdt)).min_s * 1e6)
+    us_pick, us_rule = statistics.median(t_pick), statistics.median(t_rule)
+    limit = us_rule * (1 + A5_TILE_SPREAD)
+    row = {"a5_autotune": [m, k, n], "mode": mode, "candidates_us": cands, "pick": list(pick),
+           "tile_for": list(rule), "pick_us": us_pick, "tile_for_us": us_rule,
+           "limit_us": limit, "pick_runs_us": t_pick, "tile_for_runs_us": t_rule,
+           "tune_s": tune_s}
+    print(json.dumps(row), flush=True)
+    check(us_pick <= limit, f"autotune {mode}: the pick {pick} {us_pick:.3f} us > tile_for's "
+          f"{rule} {us_rule:.3f} us x (1 + {A5_TILE_SPREAD})")
+    return row
+
+
+def _a5_cli(tmp) -> dict:
+    """Phase 30b: ``python -m smmb_tpu_torch.bench.autotune 256 4096 4096
+    --dtype bf16`` in a subprocess prints one JSON config as its last line."""
+    import os
+
+    from smmb_tpu_torch.kernels.packed_spmm import MMA_TILES
+
+    env = {**os.environ, "SMMB_TORCH_AUTOTUNE_CACHE": os.path.join(tmp, "cli.json")}
+    t = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "smmb_tpu_torch.bench.autotune", "256", "4096",
+                          "4096", "--dtype", "bf16"], cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=300)
+    print(cli.stdout, flush=True)
+    check(cli.returncode == 0, f"autotune CLI exited {cli.returncode}:\n{cli.stderr[-4000:]}")
+    lines = cli.stdout.strip().splitlines()
+    cfg = json.loads(lines[-1])
+    check(isinstance(cfg, dict) and (cfg.get("block_m"), cfg.get("block_n")) in MMA_TILES,
+          f"autotune CLI's last line is not a config: {lines[-1]!r}")
+    return {"config": cfg, "seconds": time.perf_counter() - t}
+
+
+def _a5_trace(torch, dev, tmp) -> dict:
+    """Phase 30c: ``capture_trace`` of one headline B1 call in bf16 inside
+    ``annotate("b1")``: the Chrome trace holds the kernel's events and the
+    ``b1`` range."""
+    import os
+
+    from smmb_tpu_torch.bench.trace import annotate, capture_trace
+    from smmb_tpu_torch.formats.packed import pack_ternary_device
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+    from smmb_tpu_torch.utils import rng
+
+    m, k, n, nz = A5_SHAPE
+    gen = rng.make_generator(31, dev)
+    x = rng.rand_dense(gen, (m, k), dtype=torch.bfloat16)
+    p = pack_ternary_device(rng.rand_ternary(gen, (k, n), non_zero=nz))
+
+    def call(x):
+        with annotate("b1"):
+            return packed_spmm(x, p, compute_dtype=torch.bfloat16)
+
+    d = capture_trace(call, x, trace_dir=os.path.join(tmp, "trace"), n_calls=3)
+    files = [os.path.join(d, f) for f in os.listdir(d) if f.endswith(".json")]
+    check(len(files) == 1, f"capture_trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "packed_spmm" in e.get("name", "")]
+    ranges = [e for e in events if e.get("name") == "b1"]
+    # capture_trace runs a session whose calls show no kernel again with a
+    # longer warm-up; what it writes must hold B1's kernel
+    check(len(kernels) >= 1, "the trace holds no B1 kernel event for 3 calls")
+    check(len(ranges) >= 3, f"the trace holds {len(ranges)} 'b1' ranges for 3 calls")
+    return {"file_bytes": os.path.getsize(files[0]), "events": len(events),
+            "b1_kernel_events": len(kernels), "b1_ranges": len(ranges),
+            "kernel": kernels[0]["name"][:80] if kernels else None,
+            "kernel_us": [e.get("dur") for e in kernels]}
+
+
+def _a5_examples(torch) -> dict:
+    """Phase 30d: the four port-owned examples, each ``main([])`` on the card
+    returning 0, with its wall time and B1 launches."""
+    import importlib
+
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+
+    sys.path.insert(0, str(HERE / "examples"))
+    out = {}
+    for name in A5_EXAMPLES:
+        before = packed_spmm.launches
+        t = time.perf_counter()
+        rc = importlib.import_module(name).main([])
+        torch.cuda.synchronize()
+        out[name] = {"rc": rc, "seconds": time.perf_counter() - t,
+                     "b1_launches": packed_spmm.launches - before}
+        log(f"example {name}: rc {rc} in {out[name]['seconds']:.2f} s, "
+            f"{out[name]['b1_launches']} B1 launches")
+        check(rc == 0, f"example {name} returned {rc}")
+        check(out[name]["b1_launches"] > 0, f"example {name} launched no B1")
+    return out
+
+
+def run_a5(torch, dev, card) -> dict:
+    """Phase 30: A5 on the card: the B1 tile autotuner and its CLI,
+    ``capture_trace``/``annotate``, the four port-owned examples."""
+    import shutil
+    import tempfile
+
+    t0 = time.time()
+    tmp = tempfile.mkdtemp(prefix="smmb_a5_")
+    try:
+        tune = _a5_autotune(torch, dev, tmp)
+        cli = _a5_cli(tmp)
+        trace = _a5_trace(torch, dev, tmp)
+        examples = _a5_examples(torch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"card": card, "autotune": tune, "cli": cli, "trace": trace, "examples": examples,
+           "seconds": time.time() - t0}
+    print(json.dumps({"phase30": out}), flush=True)
+    log(f"phase 30 passed in {out['seconds']:.1f}s ({card}): autotune picks " + ", ".join(
+        f"{r['mode']} {r['pick'][0]}x{r['pick'][1]} {r['pick_us']:.2f} us (tile_for "
+        f"{r['tile_for'][0]}x{r['tile_for'][1]} {r['tile_for_us']:.2f})" for r in tune)
+        + f"; CLI {cli['config']} in {cli['seconds']:.1f}s; trace {trace['b1_kernel_events']} "
+        f"B1 events; examples " + ", ".join(f"{k} {v['seconds']:.2f}s"
+                                            for k, v in examples.items()))
+    return out
 
 
 def _packed_planes(packed) -> list:

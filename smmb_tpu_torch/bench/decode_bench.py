@@ -10,7 +10,9 @@ the prefill time, and the byte-roofline fraction: per step the card must
 read every packed weight plane once and the live KV prefix (pos + 1 cached
 tokens), both at the memory rate. ``--flash`` reads the caches in the
 decode steps through the flash-decode kernel B4 (the prefill is unchanged,
-as in JAX).
+as in JAX). On an explicit ``device="cpu"`` every run is timed by the
+host's clock (``measure_host``, plain versions) and the bound is NaN: a
+smoke of the harness, not a measurement of the card.
 
 CLI: python -m smmb_tpu_torch decode [--layers 4] [--d-model 1024]
      [--d-ff 4096] [--batch 1] [--max-len 1024] [--prompt-len 512]
@@ -23,7 +25,7 @@ import dataclasses
 
 import torch
 
-from smmb_tpu_torch.bench.measure import measure
+from smmb_tpu_torch.bench.measure import HOST_CALLS, measure, measure_host
 from smmb_tpu_torch.bench.roofline import chip_spec
 from smmb_tpu_torch.models.transformer import (
     TernaryBlockConfig,
@@ -34,6 +36,7 @@ from smmb_tpu_torch.models.transformer import (
     pack_block,
 )
 from smmb_tpu_torch.utils import rng
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,13 +106,20 @@ def run_decode_bench(layers=4, d_model=1024, n_heads=8, d_ff=4096, batch=1,
         cache_dtype=cache_dtype, device=device, use_flash=use_flash)
     if prompt_len + 3 * n0 > max_len:
         raise ValueError(f"prompt_len + {3 * n0} steps exceeds max_len={max_len}")
-    pre = measure(prefill, prompt, reps=reps)
-    lo = measure(steps, n0, reps=reps).min_s
-    hi = measure(steps, 3 * n0, reps=reps).min_s
+    on_cpu = prompt.device.type == "cpu"
+
+    def timed(fn, arg):
+        if on_cpu:
+            return measure_host(fn, arg, calls=HOST_CALLS, reps=reps)
+        return measure(fn, arg, reps=reps)
+
+    pre = timed(prefill, prompt)
+    lo = timed(steps, n0).min_s
+    hi = timed(steps, 3 * n0).min_s
     step_s = max((hi - lo) / (2 * n0), 1e-9)
     itemsize = torch.empty((), dtype=cache_dtype).element_size()
-    bound_s = step_bytes(layers, d_model, d_ff, batch, prompt_len, itemsize) / (
-        chip_spec().hbm_gbps * 1e9)
+    bound_s = float("nan") if on_cpu else step_bytes(
+        layers, d_model, d_ff, batch, prompt_len, itemsize) / (chip_spec().hbm_gbps * 1e9)
     return DecodeBenchResult(
         step_s=step_s, tokens_per_s=batch / step_s, frac_roofline=bound_s / step_s,
         bound_s=bound_s, prefill_s=pre.min_s,

@@ -34,6 +34,7 @@ import torch
 DEFAULT_REPS = 10
 MIN_BATCH_S = 0.02
 WARMUP_CALLS = 2
+HOST_CALLS = 2  # calls a batch of the benches' host-timed CPU runs
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,6 +7,10 @@ depth), effective nnz/s, and the fraction of the card's roofline for the
 whole forward (the sparse operations at the compute dtype's peak against
 the bytes: packed weights and biases once, each layer's input and output).
 
+On an explicit ``device="cpu"`` the forward runs the plain versions, timed
+by the host's clock (``measure_host``), with no bound: a smoke of the
+harness, not a measurement of the card.
+
 CLI: python -m smmb_tpu_torch mlp [--depth 4] [--dim 4096] [--batch 256]
 """
 
@@ -16,10 +20,11 @@ import dataclasses
 
 import torch
 
-from smmb_tpu_torch.bench.measure import measure
+from smmb_tpu_torch.bench.measure import HOST_CALLS, measure, measure_host
 from smmb_tpu_torch.bench.roofline import chip_spec, roofline_bound
 from smmb_tpu_torch.models.mlp import TernaryMLPConfig, init_mlp, mlp_forward, pack_mlp
 from smmb_tpu_torch.utils import rng
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,22 +62,26 @@ def run_mlp_bench(
     device=None,
 ) -> MLPBenchResult:
     """Time the bf16 forward (the serving mode) through the kernel, or
-    through the plain path with ``use_kernel=False``."""
+    through the plain path with ``use_kernel=False``; ``device`` None is the
+    card (``device="cpu"``: host-timed plain versions, bound NaN)."""
     cfg, packed, x, total_nnz = build_mlp(depth, dim, batch, non_zero, device)
-    spec = chip_spec()
-    ops = 2.0 * batch * total_nnz + batch * dim * depth
-    bytes_moved = (
-        sum(w.weight_bytes() for w in packed["w"])
-        + 4 * dim * depth  # f32 biases
-        + 2 * depth * batch * dim * x.element_size()  # each layer's in and out
-    )
-    bound_s, bound_by = roofline_bound(ops, bytes_moved, spec, "bf16")
 
     def fn(x):
         return mlp_forward(packed, x, cfg, compute_dtype=torch.bfloat16,
                            use_kernel=use_kernel)
 
-    meas = measure(fn, x, reps=reps)
+    if x.device.type == "cpu":
+        bound_s, bound_by = float("nan"), "not measured"
+        meas = measure_host(fn, x, calls=HOST_CALLS, reps=reps)
+    else:
+        ops = 2.0 * batch * total_nnz + batch * dim * depth
+        bytes_moved = (
+            sum(w.weight_bytes() for w in packed["w"])
+            + 4 * dim * depth  # f32 biases
+            + 2 * depth * batch * dim * x.element_size()  # each layer's in and out
+        )
+        bound_s, bound_by = roofline_bound(ops, bytes_moved, chip_spec(), "bf16")
+        meas = measure(fn, x, reps=reps)
     t = meas.min_s
     return MLPBenchResult(
         label="kernel" if use_kernel else "plain",

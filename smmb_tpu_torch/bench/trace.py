@@ -3,6 +3,10 @@
 with ``--lm`` one decode step of the ternary LM, or with ``--showcase``
 every row of the reference showcase.
 
+``capture_trace`` writes a Chrome trace of a few calls of any function
+(open it in Perfetto or chrome://tracing), and ``annotate`` names a region
+in it, as JAX's ``capture_trace`` and ``annotate`` do for the XLA profiler.
+
 Reports, per call: the device time and launch count of each kernel by
 name, their sum, the call's time between CUDA events (bench/measure.py)
 and the device's busy share (kernel time over call time; the rest is the
@@ -20,7 +24,11 @@ with ``--flash`` its cache reads are the flash-decode kernel B4, with
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+import tempfile
+import time
 
 import torch
 
@@ -35,6 +43,82 @@ WARM_CALLS = (10, 50, 250)
 EDGE_S = 0.02  # idle seconds at each edge of the measured step
 
 
+TRACE_DIR = os.path.join(tempfile.gettempdir(), "smmb_torch_trace")
+
+
+def _session(fn, args, warm: int, n_calls: int, card: bool):
+    """A profiler session of ``fn(*args)``: a warm-up step of ``warm`` calls
+    whose events are discarded, then a step of ``n_calls`` calls with
+    ``EDGE_S`` idle at each edge (CPU activity, and CUDA activity on a
+    card). Returns the profiler, which holds the second step's events."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def sync():
+        if card:
+            torch.cuda.synchronize()
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(warm):
+            fn(*args)
+        sync()
+        prof.step()
+        time.sleep(EDGE_S)
+        for _ in range(n_calls):
+            fn(*args)
+        sync()
+        time.sleep(EDGE_S)
+        prof.step()
+    return prof
+
+
+def _kernel_events(prof) -> list:
+    """The device kernels of a session's measured step (the schedule's step
+    annotation spans the step on the device too, and is left out)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+
+
+def capture_trace(fn, *args, trace_dir: str = TRACE_DIR, n_calls: int = 3) -> str:
+    """Run ``fn(*args)`` once, then ``n_calls`` times under ``torch.profiler``
+    (CPU activity, and CUDA activity when an argument is on a card), and
+    write those calls as a Chrome trace into ``trace_dir``; returns
+    ``trace_dir``. The session opens with a warm-up step, discarded, as
+    ``kernel_breakdown``'s do: on a card a session that follows others
+    loses its first kernel events, so one whose calls show no kernel is run
+    again with the next, longer warm-up (the last is written whatever it
+    holds)."""
+    os.makedirs(trace_dir, exist_ok=True)
+    card = any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+    fn(*args)  # kernel builds and the allocator's first requests, outside the trace
+    if card:
+        torch.cuda.synchronize()
+    for warm in WARM_CALLS:
+        prof = _session(fn, args, warm, n_calls, card)
+        if not card or _kernel_events(prof):
+            break
+    prof.export_chrome_trace(os.path.join(trace_dir,
+                                          f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    return trace_dir
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named region (``with annotate("decode"): ...``): a
+    ``record_function`` range in a profiler trace and, with a card, an NVTX
+    range."""
+    with torch.profiler.record_function(name):
+        if torch.cuda.is_available():
+            with torch.cuda.nvtx.range(name):
+                yield
+        else:
+            yield
+
+
 def kernel_breakdown(fn, *args, n_calls: int = 10) -> list[dict]:
     """[{name, us, launches}] of each device kernel per call of ``fn(*args)``,
     by device time (the CPU-side operators that launched them are left out,
@@ -47,34 +131,14 @@ def kernel_breakdown(fn, *args, n_calls: int = 10) -> list[dict]:
     when the device clock reads some hundred µs off the host's. So each
     session opens with a warm-up step of ``WARM_CALLS`` calls whose events
     are discarded, and leaves ``EDGE_S`` idle at each edge of the measured
-    step. ``fn`` must make the same launches on every call: a session in
-    which some kernel's events are not a whole number a call lost events,
-    and is run again with the next, longer warm-up; after the last this
-    raises."""
-    import time
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
+    step (``_session``). ``fn`` must make the same launches on every call:
+    a session in which some kernel's events are not a whole number a call
+    lost events, and is run again with the next, longer warm-up; after the
+    last this raises."""
     fn(*args)
     torch.cuda.synchronize()
     for warm in WARM_CALLS:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-            for _ in range(warm):
-                fn(*args)
-            torch.cuda.synchronize()
-            prof.step()
-            time.sleep(EDGE_S)
-            for _ in range(n_calls):
-                fn(*args)
-            torch.cuda.synchronize()
-            time.sleep(EDGE_S)
-            prof.step()
-        # the schedule's step annotation spans the step on the device too
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                  and not e.key.startswith("ProfilerStep")]
+        events = _kernel_events(_session(fn, args, warm, n_calls, True))
         if events and all(e.count % n_calls == 0 for e in events):
             break
     else:

@@ -16,9 +16,11 @@ arithmetic, neither with split-K or atomics:
   staged by 16-byte ``cp.async`` as four plane runs a row and loaded by
   ``ldmatrix``; a ring of K chunks of ``K_CHUNK`` packed rows. The tile is
   ``tile_for(m, n)``: BM 16 or 64 by M, BN 64/128 so that the grid fills
-  about one wave of the card's 132 SMs. Each output element sums in one
-  register in the same K order for every tile, so row r of an M-row call
-  equals the M=1 call bitwise.
+  about one wave of the card's 132 SMs, unless ``block_m``/``block_n`` name
+  another of the four (``bench/autotune.py`` times them). Each output
+  element sums in one register in the same K order for every tile, so row
+  r of an M-row call equals the M=1 call bitwise, and every tile gives the
+  same output.
 
 Bound on this card: at the M=256, K=N=4096, ~10% nnz headline the bytes
 (X, packed W, bias and Y moved once) bound every mode; f32 X times the
@@ -45,6 +47,8 @@ DECODES = ("shift", "fold")
 
 K_CHUNK = 32  # packed rows a K chunk of the tensor-core modes (csrc TC_PK)
 F32_TILE = (64, 128, 8)  # the f32 kernel's fixed BM, BN and K chunk
+# the tensor-core modes' (BM, BN) tiles (csrc dispatch_tile instantiates each)
+MMA_TILES = ((16, 64), (16, 128), (64, 64), (64, 128))
 NUM_SMS = 132  # an H100 SXM's SMs: the grid should fill about one wave
 
 
@@ -65,6 +69,26 @@ def tile_for(m: int, n: int, compute_dtype=torch.bfloat16) -> tuple[int, int, in
     rows = -(-m // bm)
     bn = 128 if rows * -(-n // 128) >= NUM_SMS * 3 // 4 else 64
     return bm, bn, K_CHUNK
+
+
+def check_tile(block_m, block_n, compute_dtype) -> tuple[int, int] | None:
+    """(block_m, block_n) checked against the kernel's tiles, or None when
+    both are None (``tile_for`` picks; a None beside a given size stands for
+    ``tile_for``'s size on that side). The bf16 and int8 modes have BM in
+    {16, 64} and BN in {64, 128} (``MMA_TILES``), f32 ``F32_TILE``'s 64×128.
+    Any other size raises ``ValueError`` naming the tiles: never a quiet
+    fall back to another tile."""
+    if block_m is None and block_n is None:
+        return None
+    tiles = (F32_TILE[:2],) if compute_dtype == torch.float32 else MMA_TILES
+    bms = sorted({t[0] for t in tiles})
+    bns = sorted({t[1] for t in tiles})
+    if (block_m is not None and block_m not in bms) or (
+            block_n is not None and block_n not in bns):
+        mode = str(compute_dtype).split(".")[-1]
+        raise ValueError(f"packed_spmm has no {block_m}x{block_n} tile in {mode}: its tiles "
+                         f"(block_m x block_n) are {', '.join(f'{a}x{b}' for a, b in tiles)}")
+    return block_m, block_n
 
 
 def pieces_aligned(k: int, n: int, x_ptr: int, w_ptr: int, compute_dtype) -> bool:
@@ -156,11 +180,18 @@ def packed_spmm(
       compute_dtype: float32 (parity mode, no TF32), bfloat16 (X cast once;
         W decodes exactly, so the error comes only from the cast) or int8
         (W2A8: per-row absmax int8 X, int32 sums, per-row dequant).
-      block_m/n/k, decode: kept for compatibility with the JAX signature.
-        They choose among TPU tilings and decode strategies with identical
-        results; the Hopper kernel picks its tile by ``tile_for`` and has
-        one decode. ``decode`` must be "shift" or "fold" and ``block_k`` a
-        multiple of 512.
+      block_m, block_n: the kernel's output tile, None to let ``tile_for``
+        pick it (a None beside a given size takes ``tile_for``'s size for
+        that side). The bf16 and int8 modes have BM in {16, 64} and BN in
+        {64, 128}, the f32 mode its one 64×128 tile; any other size raises
+        ``ValueError``. Every tile walks K in the same ``K_CHUNK`` chunks,
+        so the output is bitwise the same under every tile
+        (``bench/autotune.py`` picks the fastest). On the CPU the tile is
+        checked, then the plain version runs.
+      block_k, decode: kept for compatibility with the JAX signature, where
+        they choose among TPU K tilings and decode strategies with identical
+        results; the Hopper kernel has one K walk and one decode. ``decode``
+        must be "shift" or "fold" and ``block_k`` a multiple of 512.
     Returns:
       (..., N) in x.dtype.
     """
@@ -168,6 +199,7 @@ def packed_spmm(
         raise ValueError(f"decode={decode!r} is not one of {DECODES}")
     if block_k is not None and block_k % GROUP_ROWS:
         raise ValueError(f"block_k={block_k} must be a multiple of {GROUP_ROWS}")
+    tile = check_tile(block_m, block_n, compute_dtype)
     if x.dim() > 2:
         lead = x.shape[:-1]
         y = packed_spmm(
@@ -193,6 +225,8 @@ def packed_spmm(
     if m == 0:
         return out
     bm, bn, _ = tile_for(m, w.cols, compute_dtype)
+    if tile is not None:
+        bm, bn = tile[0] or bm, tile[1] or bn
     aligned = pieces_aligned(k, w.cols, xq.data_ptr(), w.data.data_ptr(), compute_dtype)
     fn = _build.packed_spmm_lib().smmb_packed_spmm
     with torch.cuda.device(x.device):

@@ -47,7 +47,13 @@ from smmb_tpu_torch.kernels import bcsr_spmm as bk
 from smmb_tpu_torch.kernels import flash_attention as fa
 from smmb_tpu_torch.kernels import flash_decode as fd
 from smmb_tpu_torch.kernels import fused_mlp as fk
-from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, packed_spmm_plain, tile_for
+from smmb_tpu_torch.kernels.packed_spmm import (
+    F32_TILE,
+    MMA_TILES,
+    packed_spmm,
+    packed_spmm_plain,
+    tile_for,
+)
 from smmb_tpu_torch.kernels.packed_vjp import make_packed_linear, pack_with_transpose
 from smmb_tpu_torch.models import attention as tattn
 from smmb_tpu_torch.models import lm as tlm
@@ -133,6 +139,35 @@ def test_kernel_rows_equal_the_m1_call(cuda, cdt, k, n):
         y = packed_spmm(x[:m], p, b, ALPHA, compute_dtype=cdt)
         torch.cuda.synchronize()
         assert torch.equal(y, ones[:m]), f"{cdt} M={m} tile {tile_for(m, n, cdt)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("m,k,n", [(5, 1024, 640), (100, 512, 512), (8, 100, 129),
+                                   (256, 4096, 4096)])
+def test_kernel_tile_override_is_bitwise(cuda, cdt, m, k, n):
+    """Every tile that ``block_m``/``block_n`` name (and one side named, the
+    other ``tile_for``'s) launches once and gives ``tile_for``'s output
+    bitwise; a tile the kernel lacks raises before any launch."""
+    x, p, b = _setup(47 + m, m, k, n, cuda)
+    want = packed_spmm(x, p, b, ALPHA, compute_dtype=cdt)
+    kws = [dict(block_m=bm, block_n=bn) for bm, bn in MMA_TILES]
+    kws += [dict(block_m=16), dict(block_n=128)]
+    for kw in kws:
+        before = packed_spmm.launches
+        y = packed_spmm(x, p, b, ALPHA, compute_dtype=cdt, **kw)
+        assert packed_spmm.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(y, want), f"{cdt} {m}x{k}x{n} {kw}"
+    before = packed_spmm.launches
+    with pytest.raises(ValueError, match="16x64"):
+        packed_spmm(x, p, b, ALPHA, compute_dtype=cdt, block_m=32, block_n=256)
+    with pytest.raises(ValueError, match="64x128"):
+        packed_spmm(x, p, b, ALPHA, block_m=16, block_n=64)
+    assert packed_spmm.launches == before
+    f32 = packed_spmm(x, p, b, ALPHA, block_m=F32_TILE[0], block_n=F32_TILE[1])
+    torch.cuda.synchronize()
+    assert torch.equal(f32, packed_spmm(x, p, b, ALPHA))
 
 
 @pytest.mark.cuda

@@ -15,7 +15,7 @@ import torch
 
 from smmb_tpu_torch import convert
 from smmb_tpu_torch import io as tio
-from smmb_tpu_torch.bench import mlp_bench
+from smmb_tpu_torch.bench import autotune, mlp_bench
 from smmb_tpu_torch.bench import sweep as tsweep
 from smmb_tpu_torch.formats import bcsr as tbcsr
 from smmb_tpu_torch.formats import packed as tpacked
@@ -102,10 +102,11 @@ def test_resolve_device(no_cuda):
                                                        8, 128, device="cpu")),
         lambda: tsweep.run_case(1, 128, 128, 2, reps=1),
         lambda: tio.load("no_such_file.npz"),
+        lambda: autotune.autotune_packed_spmm(4, 512, 256, use_cache=False),
     ],
     ids=["make_generator", "pack_ternary", "PackedTernaryDense",
          "mlp_params_from_jax", "run_mlp_bench", "tcsc_from_dense", "bcsr_prepare",
-         "run_case", "io_load"],
+         "run_case", "io_load", "autotune_packed_spmm"],
 )
 def test_entry_points_default_to_the_card(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
