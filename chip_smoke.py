@@ -11,6 +11,7 @@ which exits non-zero on failure:
    the HMMA in ``flash_attention.cu``'s SASS (B9's and B9p's bf16 body)
    and in ``bcsr_spmm.cu``'s (B2's mma body), with the registers and spills
    ``ptxas -v`` gives their mma kernels, each ``bcsr_spmm_mma`` instance,
+   each instance of B1's f32 body ``packed_spmm_float``,
    ``flash_decode.cu``'s kernels (B4 and B8), B5's and B6's
    ``mlp_items_kernel`` and B3's and B7's ``qkv_items_kernel``;
 3. each kernel against its plain PyTorch version on the card, in every
@@ -35,7 +36,12 @@ which exits non-zero on failure:
    ``torch.matmul`` on the dense bf16 W, per call and on the device (the
    profiler); B1's device time in bf16 and
    int8 under each of its four tiles at the paths' shapes, every tile's
-   output bitwise equal; the full-width MLP forward;
+   output bitwise equal; B1's f32 body under each of its four tiles at
+   those shapes, ``entry()``'s three layers, 32×1024×1024 and two ragged
+   K, every tile's output bitwise ``packed_spmm_f32_chain``, device µs by
+   tile beside ``torch.matmul`` f32 (TF32 off); its K order
+   (``_b1_order_rows``: the chain, and rows bitwise the M = 1 calls, gated);
+   the full-width MLP forward;
 6. the fused LM kernels (B3 fused_norm_qkv, B5 fused_block_tail, B6
    fused_mlp) against their plain versions in f32 and bf16 compute at the
    shapes of the LM path (and B3 at a GQA width, N = 1536, and at M = 5),
@@ -274,13 +280,15 @@ before that the per-kernel JSON summary, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 1 and
 prints no result.
 
-``python3 chip_smoke.py --fused-ab DIR`` instead holds B3, B7, B5 and B6 of
-this checkout against those of DIR, an earlier tree of the port: every
-output bitwise, and both sides' device µs a call (``fused_ab``). It also
+``python3 chip_smoke.py --fused-ab DIR`` instead holds B3, B7, B5, B6 and
+B1's f32 body of this checkout against those of DIR, an earlier tree of the
+port: every output bitwise, and both sides' device µs a call
+(``fused_ab``). It also
 reads C1's same-token A/B of DIR's B1 f32 body against this one on the f32
 paths of phases 8 and 18 over ``LM_AB_PAIRS`` (``c1_side``, ``c1_verdict``).
 ``python3 chip_smoke.py --c1-candidate DIR`` writes such a DIR: this
-checkout's port with C1's candidate body (``C1_FOLD``).
+checkout's port with C1's candidate body (``C1_FOLD``, a compile-time
+switch of ``packed_spmm.cu``).
 """
 
 import contextlib
@@ -441,6 +449,76 @@ def time_b1_tiles(torch, dev) -> None:
         f"{m}x{k}x{n} {str(c).split('.')[1]} {v:.2f} us" for (m, k, n, c), v in picked.items()))
 
 
+# B1's f32 body timed under each tile (phase 5): time_b1_tiles's shapes,
+# entry()'s three layers, the LM prefill's projections and two ragged K
+B1_F32_SHAPES = ((256, 4096, 4096), (1, 4096, 4096), (1, 1024, 8192), (32, 1024, 3072),
+                 (5, 1024, 8192), (64, 1024, 2048), (64, 2048, 2048), (64, 2048, 1024),
+                 (32, 1024, 1024), (5, 100, 256), (17, 1000, 300))
+
+
+def time_b1_f32(torch, dev) -> list:
+    """Phase 5: B1's f32 body under every tile of ``F32_TILES`` through its
+    C entry at ``B1_F32_SHAPES``, every tile's output bitwise
+    ``packed_spmm_f32_chain`` (so every other tile's), and each tile's
+    device µs beside ``torch.matmul`` f32 (TF32 off) on the dense W, all in
+    one profiler session a shape. Returns a JSON row a shape."""
+    import re
+
+    from smmb_tpu_torch.bench.trace import kernel_breakdown
+    from smmb_tpu_torch.formats.packed import pack_ternary_device, unpack_ternary
+    from smmb_tpu_torch.kernels import _build
+    from smmb_tpu_torch.kernels.packed_spmm import (
+        F32_TILES,
+        packed_spmm_f32_chain,
+        pieces_aligned,
+        tile_for,
+    )
+    from smmb_tpu_torch.utils import rng
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "phase 5 times torch.matmul f32 with TF32 on")
+    fn = _build.packed_spmm_lib().smmb_packed_spmm
+    gen = rng.make_generator(8, dev)
+    rows = []
+    for (m, k, n) in B1_F32_SHAPES:
+        p = pack_ternary_device(rng.rand_ternary(gen, (k, n), non_zero=10 if k == 4096 else 2))
+        x, b = rng.rand_dense(gen, (m, k)), rng.rand_dense(gen, (n,))
+        aligned = pieces_aligned(k, n, x.data_ptr(), p.data.data_ptr(), torch.float32)
+        outs = {t: torch.empty((m, n), device=dev) for t in F32_TILES}
+
+        def call(tile):
+            rc = fn(x.data_ptr(), p.data.data_ptr(), b.data_ptr(), None, outs[tile].data_ptr(),
+                    m, k, n, p.data.shape[0], 0, 0, *tile, int(aligned), 1, ALPHA,
+                    torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"B1 f32 launch at tile {tile}: CUDA error {rc}")
+
+        for tile in F32_TILES:
+            call(tile)
+        chain = packed_spmm_f32_chain(x, p, b, ALPHA)
+        torch.cuda.synchronize()
+        check(all(torch.equal(o, chain) for o in outs.values()),
+              f"B1 f32 tiles differ from packed_spmm_f32_chain at {m}x{k}x{n}")
+        wd = unpack_ternary(p)
+
+        def every():
+            for tile in F32_TILES:
+                call(tile)
+            torch.matmul(x, wd)
+
+        us = {}
+        for r in kernel_breakdown(every, n_calls=30):
+            hit = re.search(r"packed_spmm_float<(\d+), (\d+)", r["name"])
+            key = f"{hit[1]}x{hit[2]}" if hit else "matmul_f32"
+            us[key] = us.get(key, 0.0) + r["us"]
+        pick = tile_for(m, n, torch.float32)[:2]
+        row = {"b1_f32_device_us": [m, k, n], "aligned": aligned, "tile_for": list(pick),
+               "tile_for_us": us[f"{pick[0]}x{pick[1]}"], "matmul_f32_us": us["matmul_f32"],
+               "by_tile": {f"{a}x{c}": us[f"{a}x{c}"] for a, c in F32_TILES},
+               "tiles_bitwise_chain": True}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -493,6 +571,16 @@ def main() -> int:
                 print(f"    {src}: {line.strip()}")
     # B1's bf16 and W2A8 modes run on the tensor cores: the built library's
     # SASS holds HMMA (bf16 mma.sync) and IMMA (int8 mma.sync) instructions
+    if "packed_spmm.cu" in build_logs:
+        for (bm, bn, aligned, ot), regs, stores, loads in _ptxas_kernels(
+                build_logs["packed_spmm.cu"],
+                r"packed_spmm_floatILi(\d+)ELi(\d+)ELb([01])E(f|13__nv_bfloat16)E"):
+            log(f"B1 packed_spmm_float<{bm}x{bn}, "
+                f"{'16-byte pieces' if aligned == '1' else 'element loads'}, "
+                f"{'f32' if ot == 'f' else 'bf16'} out>: {regs} registers, {stores} bytes "
+                f"spill stores, {loads} bytes spill loads")
+    else:
+        log("packed_spmm.cu was up to date: no ptxas report this run")
     sass = _sass(_build.library_path("packed_spmm.cu"))
     hmma, imma = sass.count("HMMA"), sass.count("IMMA")
     log(f"packed_spmm.cu SASS: {hmma} HMMA, {imma} IMMA")
@@ -723,6 +811,17 @@ def main() -> int:
                           "library_device_us": _device_us(lambda: torch.matmul(x1b, w1))}
         print(json.dumps(m1_rows[label]), flush=True)
     time_b1_tiles(torch, dev)
+    f32_tiles = time_b1_f32(torch, dev)
+    order = _b1_order_rows(torch, dev)
+    for r in order:
+        print(json.dumps({"b1_f32_order": r}), flush=True)
+    check(all(r["chain"] and r["rows_bitwise_m1"] for r in order),
+          f"B1 f32 left its K order or its rows differ from the M=1 calls: {order}")
+    log("B1 f32 bitwise packed_spmm_f32_chain and the M=1 calls at "
+        + ", ".join("x".join(map(str, r["shape"])) for r in order) + "; device us by the "
+        "tile tile_for picks / torch.matmul f32: " + ", ".join(
+            f"{'x'.join(map(str, r['b1_f32_device_us']))} {r['tile_for_us']:.2f} / "
+            f"{r['matmul_f32_us']:.2f}" for r in f32_tiles))
     log("B1 at the headline, ms now / the CUDA-core kernel's: " + ", ".join(
         f"{name} {r['ms']:.4f} / {r['cuda_core_ms']}" for name, r in per_mode.items())
         + f"; torch.matmul bf16 {per_mode['bf16']['library_ms']:.4f}; LM head M=1 "
@@ -909,7 +1008,9 @@ QKV_DESIGN = ("one launch of one 32-column item a block, weight pieces issued be
 # LM path's shapes, the rows of a chunk and of a speculative verify, a GQA
 # width, a wider head, B3 at the tail gate's most rows (four row tiles) and
 # a wider block: (kernel, M, d, N or H, compute dtype[, B7's head_dim, 128
-# if absent])
+# if absent]); and B1's f32 body (bias and PReLU, the tile each side's
+# wrapper picks) at the headline, entry()'s three layers, the LM prefill's
+# projections and the LM head: (``packed_spmm``, M, K, N, "f32")
 FUSED_AB_CASES = [
     ("fused_norm_qkv", 1, 1024, 3072, "bf16"), ("fused_norm_qkv_quant", 1, 1024, 3072, "bf16"),
     ("fused_norm_qkv", 5, 1024, 3072, "bf16"), ("fused_norm_qkv", 5, 1024, 3072, "f32"),
@@ -921,7 +1022,23 @@ FUSED_AB_CASES = [
     ("fused_block_tail", 1, 2048, 8192, "bf16"), ("fused_block_tail", 32, 1024, 4096, "bf16"),
     ("fused_mlp", 32, 1024, 4096, "bf16"), ("fused_mlp", 32, 1024, 4096, "f32"),
     ("fused_mlp", 1, 1024, 4096, "bf16"), ("fused_mlp", 9, 2048, 8192, "bf16"),
+    ("packed_spmm", 256, 4096, 4096, "f32"), ("packed_spmm", 64, 1024, 2048, "f32"),
+    ("packed_spmm", 64, 2048, 2048, "f32"), ("packed_spmm", 64, 2048, 1024, "f32"),
+    ("packed_spmm", 32, 1024, 1024, "f32"), ("packed_spmm", 1, 1024, 8192, "f32"),
 ]
+
+
+def _own_module(rel: str):
+    """A module of this checkout's package loaded from its file
+    (``smmb_tpu_torch/<rel>``), whatever package ``sys.path`` puts first: a
+    side of ``--fused-ab`` runs DIR's package with this checkout's script."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"_smoke_{Path(rel).stem}", HERE / "smmb_tpu_torch" / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def fused_side(out, c1_tokens=None, c1_out=None) -> int:
@@ -931,29 +1048,30 @@ def fused_side(out, c1_tokens=None, c1_out=None) -> int:
     profiler breakdown (bench/trace.py). With ``c1_tokens`` (the plain
     path's tokens of every pair of ``LM_AB_PAIRS``) it also reads C1's
     case on this side (``c1_side``) into the JSON file ``c1_out``."""
-    import importlib.util
-
     import torch
 
+    from smmb_tpu_torch.formats.packed import pack_ternary_device
     from smmb_tpu_torch.kernels import fused_mlp as fk
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
     from smmb_tpu_torch.utils import rng
 
-    spec = importlib.util.spec_from_file_location(
-        "_smoke_trace", HERE / "smmb_tpu_torch" / "bench" / "trace.py")
-    trace = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(trace)
+    trace = _own_module("bench/trace.py")
     dev = torch.device("cuda")
     outs = []
     for i, (name, m, d, n, cdt, *hd) in enumerate(FUSED_AB_CASES):
         gen = rng.make_generator(100 + i, dev)
         cdt = torch.bfloat16 if cdt == "bf16" else torch.float32
-        if name == "fused_norm_qkv_quant":
+        fn = packed_spmm if name == "packed_spmm" else getattr(fk, name)
+        if name == "packed_spmm":
+            w = pack_ternary_device(rng.rand_ternary(gen, (d, n), non_zero=10 if d == 4096 else 2))
+            args = (rng.rand_dense(gen, (m, d)), w, rng.rand_dense(gen, (n,)), ALPHA)
+            kw = {"compute_dtype": cdt}
+        elif name == "fused_norm_qkv_quant":
             hd = hd[0] if hd else 128
             args, kw = _b7_inputs(torch, gen, m, d, (n - d) // (2 * hd), hd, dev)
             kw["compute_dtype"] = cdt
         else:
             args, kw = _fused_inputs(torch, gen, name, m, d, n, dev), _kernel_kwargs(name, cdt)
-        fn = getattr(fk, name)
         y = fn(*args, **kw)
         outs.append([t.cpu() for t in (y if isinstance(y, tuple) else (y,))])
         rows = trace.kernel_breakdown(lambda: fn(*args, **kw), n_calls=50)
@@ -1029,37 +1147,23 @@ LM_AB_PATHS = {"float": (False, False), "int8_flash": (True, True), "int8": (Fal
 # start the int8 codes that differ
 LM_AB_SPLITS = {"l0_cache_kv": (0, 1), "l0_qkvo": (2, 3, 4, 5), "l1_cache_kv": (6, 7),
                 "l1_qkvo": (8, 9, 10, 11)}
-# C1's candidate B1 f32 body (``--c1-candidate``): each 32-row K chunk
-# summed from zero in registers and folded into the running sum with
-# __fadd_rn, chunks in the kernel's K order
-C1_FOLD = [
-    ("    __syncthreads();\n\n#pragma unroll\n    for (int j = 0; j < BK; ++j) {",
-     "    __syncthreads();\n\n    float part[TM][TN];\n#pragma unroll\n"
-     "    for (int r = 0; r < TM; ++r)\n#pragma unroll\n"
-     "      for (int c = 0; c < TN; ++c) part[r][c] = 0.f;\n"
-     "#pragma unroll\n    for (int j = 0; j < BK; ++j) {"),
-    ("        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);\n"
-     "    }\n    __syncthreads();",
-     "        for (int c = 0; c < TN; ++c) part[r][c] = fmaf(av[r], bv[c], part[r][c]);\n"
-     "    }\n#pragma unroll\n    for (int r = 0; r < TM; ++r)\n#pragma unroll\n"
-     "      for (int c = 0; c < TN; ++c) acc[r][c] = __fadd_rn(acc[r][c], part[r][c]);\n"
-     "    __syncthreads();"),
-]
-
-
+# C1's candidate B1 f32 body (``--c1-candidate``): packed_spmm.cu built with
+# SMMB_C1_FOLD, each 32-row K chunk summed from zero in registers and folded
+# into the running sum with __fadd_rn, chunks in the kernel's K order
+C1_FOLD = "#define SMMB_C1_FOLD 1\n"
 def c1_candidate(out) -> int:
     """``--c1-candidate DIR``: DIR gets a copy of this checkout's port with
-    C1's candidate B1 f32 body (``C1_FOLD``) in ``packed_spmm.cu``."""
+    C1's candidate B1 f32 body: ``C1_FOLD`` switches it on at the top of
+    ``packed_spmm.cu`` (a new library name: the build hashes the source)."""
     import shutil
 
     shutil.copytree(HERE / "smmb_tpu_torch", out / "smmb_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     src = out / "smmb_tpu_torch" / "kernels" / "csrc" / "packed_spmm.cu"
     text = src.read_text()
-    for old, new in C1_FOLD:
-        check(text.count(old) == 1, f"C1 candidate: {old!r} is not in packed_spmm.cu once")
-        text = text.replace(old, new)
-    src.write_text(text)
+    check(text.count("#ifdef SMMB_C1_FOLD") == 1,
+          "C1 candidate: packed_spmm.cu has no SMMB_C1_FOLD switch")
+    src.write_text(C1_FOLD + text)
     log(f"C1's candidate B1 f32 body written to {src}")
     return 0
 
@@ -1181,23 +1285,22 @@ def _ab_path(torch, cfg, packed, prompt, ids, flash, quant) -> dict:
     return out
 
 
-def _b1_f32_order(torch, x, w, b, alpha, fold):
-    """B1's f32 body replayed in plain f32 adds. With a ternary W each FMA
-    adds ±x or 0 exactly, so ``acc + x[:, c]·w[c]`` over the kernel's K
-    order (a chunk: 8 packed rows of each of the 4 planes, plane by plane)
-    is its result bit for bit; ``fold`` sums each chunk from zero and adds
-    it to the running sum (C1's candidate). Then bias and PReLU in f32."""
+def _b1_f32_fold(torch, x, w, b, alpha):
+    """C1's candidate B1 f32 body (``C1_FOLD``) replayed in plain f32 adds:
+    ``packed_spmm_f32_chain``'s K order, each chunk (8 packed rows of each
+    of the 4 planes, plane by plane) summed from zero and added to the
+    running sum. Then bias and PReLU in f32."""
     from smmb_tpu_torch.formats.packed import GROUP_ROWS, SUB, unpack_ternary
 
     wd, k = unpack_ternary(w), x.shape[1]
     acc = torch.zeros(x.shape[0], w.cols, device=x.device)
     for pr0 in range(0, w.data.shape[0], 8):
-        part = torch.zeros_like(acc) if fold else acc
+        part = torch.zeros_like(acc)
         for i in range(4):
             col0 = (pr0 // SUB) * GROUP_ROWS + i * SUB + pr0 % SUB
             for col in range(col0, min(col0 + 8, k)):
                 part = part + x[:, col:col + 1] * wd[col]
-        acc = acc + part if fold else part
+        acc = acc + part
     if b is not None:
         acc = acc + b
     return acc if alpha is None else torch.where(acc > 0, acc, alpha * acc)
@@ -1206,12 +1309,15 @@ def _b1_f32_order(torch, x, w, b, alpha, fold):
 def _b1_order_rows(torch, dev) -> list:
     """Which K order this side's B1 f32 body takes, bitwise, at the LM's
     shapes (the prefill's 32×1024×1024, the head's 1×1024×8192), the
-    headline and two ragged K, and whether rows of an M-row call are
-    bitwise the M = 1 calls."""
+    headline and two ragged K: ``chain``, this checkout's
+    ``packed_spmm_f32_chain`` (the body's order), or ``fold`` (C1's
+    candidate); and whether rows of an M-row call are bitwise the M = 1
+    calls."""
     from smmb_tpu_torch.formats.packed import pack_ternary_device
     from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
     from smmb_tpu_torch.utils import rng
 
+    chain = _own_module("kernels/packed_spmm.py").packed_spmm_f32_chain
     gen = rng.make_generator(31, dev)
     rows = []
     for m, k, n in ((32, 1024, 1024), (1, 1024, 8192), (256, 4096, 4096), (5, 100, 256),
@@ -1221,8 +1327,8 @@ def _b1_order_rows(torch, dev) -> list:
         y = packed_spmm(x, w, b, ALPHA)
         ones = torch.cat([packed_spmm(x[r:r + 1], w, b, ALPHA) for r in range(m)])
         rows.append({"shape": [m, k, n], "rows_bitwise_m1": bool(torch.equal(y, ones)),
-                     **{name: bool(torch.equal(y, _b1_f32_order(torch, x, w, b, ALPHA, fold)))
-                        for name, fold in (("chain", False), ("fold", True))}})
+                     "chain": bool(torch.equal(y, chain(x, w, b, ALPHA))),
+                     "fold": bool(torch.equal(y, _b1_f32_fold(torch, x, w, b, ALPHA)))})
     return rows
 
 

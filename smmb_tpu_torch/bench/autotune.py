@@ -1,10 +1,10 @@
 """Offline tile autotuner for B1, the packed SpMM kernel (counterpart of
 smmb_tpu/bench/autotune.py).
 
-B1's tensor-core modes (bf16, int8) have four output tiles, BM 16|64 by BN
-64|128 (kernels/packed_spmm.py::MMA_TILES), and every tile gives the same
-output bitwise; ``tile_for`` picks one by a rule of M and N. This utility
-times each candidate for one (M, K, N, dtype) on the card with
+B1 has four output tiles in each mode, BM 16|64 by BN 64|128
+(kernels/packed_spmm.py::MMA_TILES for bf16 and int8, ``F32_TILES`` for
+f32), and every tile of a mode gives the same output bitwise; ``tile_for``
+picks one by a rule of M and N. This utility times each candidate for one (M, K, N, dtype) on the card with
 ``bench/measure.py::measure_device`` and caches the fastest in a JSON file,
 so that a deployment can pin it:
 
@@ -12,10 +12,9 @@ so that a deployment can pin it:
     cfg = autotune_packed_spmm(256, 4096, 4096)   # {'block_m': .., 'block_n': ..}
     y = packed_spmm(x, w, b, compute_dtype=torch.bfloat16, **cfg)
 
-The f32 mode has one tile, so one candidate. JAX's TPU tiles and its
-``decode: "fold"`` candidates have no counterpart: the kernel has one
-decode. A candidate that the wrapper refuses is skipped, as JAX skips a
-config that fails to compile. On ``device="cpu"`` each candidate runs the
+JAX's TPU tiles and its ``decode: "fold"`` candidates have no
+counterpart: the kernel has one decode. A candidate that the wrapper
+refuses is skipped, as JAX skips a config that fails to compile. On ``device="cpu"`` each candidate runs the
 plain version, timed by the host's clock (``measure_host``): that exercises
 the selection and the cache, not the card.
 
@@ -35,7 +34,7 @@ import torch
 
 from smmb_tpu_torch.bench.measure import HOST_CALLS, measure_device, measure_host
 from smmb_tpu_torch.formats.packed import pack_ternary_device
-from smmb_tpu_torch.kernels.packed_spmm import F32_TILE, MMA_TILES, packed_spmm
+from smmb_tpu_torch.kernels.packed_spmm import F32_TILES, MMA_TILES, packed_spmm
 from smmb_tpu_torch.utils import rng
 from smmb_tpu_torch.utils.device import resolve_device
 
@@ -48,7 +47,7 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
 def default_candidates(m: int, dtype) -> list:
     """The kernel's tiles for ``dtype`` (every M takes the same four: the
     tile changes the grid, not the sums)."""
-    tiles = (F32_TILE[:2],) if dtype == torch.float32 else MMA_TILES
+    tiles = F32_TILES if dtype == torch.float32 else MMA_TILES
     return [{"block_m": bm, "block_n": bn} for bm, bn in tiles]
 
 

@@ -7,26 +7,34 @@ Replaces the Pallas TPU kernel ``smmb_tpu/kernels/packed_spmm.py::packed_spmm``
 (``_build.py``) and called through ctypes. Two designs, one per kind of
 arithmetic, neither with split-K or atomics:
 
-- f32 mode (the parity mode, never TF32): CUDA cores, one block per 64×128
-  output tile, K in chunks of 8 packed rows, the chunk's X and decoded W
-  staged in shared memory, a 4×8 register micro-tile per thread.
+- f32 mode (the parity mode, never TF32): CUDA cores, one f32 FMA chain an
+  output in one K order (``packed_spmm_f32_chain`` states it in plain
+  adds: chunks of ``F32_K_CHUNK`` packed rows), K through a ``cp.async``
+  ring of four chunks a stage, W decoded once a stage into shared memory
+  (exact bf16 pairs) for all of a block's rows; where rows copy in 16-byte
+  pieces, four copy warps stage and decode the next stage while the four
+  FMA warps compute. The tile is one of ``F32_TILES`` (BM 16 or 64 by BN 64
+  or 128; an 8×8 register micro-tile at 64×128, the lanes on columns at BM
+  16), picked by ``tile_for`` to fill about a wave.
 - bf16 and W2A8 modes: tensor cores through the warp MMA (``mma.sync``
   m16n8k16 bf16 → f32, m16n8k32 s8 → s32). W crosses shared memory as raw
   packed bytes and is decoded in registers into the B fragments; X is
   staged by 16-byte ``cp.async`` as four plane runs a row and loaded by
   ``ldmatrix``; a ring of K chunks of ``K_CHUNK`` packed rows. The tile is
   ``tile_for(m, n)``: BM 16 or 64 by M, BN 64/128 so that the grid fills
-  about one wave of the card's 132 SMs, unless ``block_m``/``block_n`` name
-  another of the four (``bench/autotune.py`` times them). Each output
-  element sums in one register in the same K order for every tile, so row
-  r of an M-row call equals the M=1 call bitwise, and every tile gives the
-  same output.
+  about one wave of the card's 132 SMs.
+
+In every mode ``block_m``/``block_n`` may name another tile of the mode
+(``bench/autotune.py`` times them). Each output element sums in one register
+in the same K order for every tile, so row r of an M-row call equals the
+M=1 call bitwise, and every tile gives the same output.
 
 Bound on this card: at the M=256, K=N=4096, ~10% nnz headline the bytes
 (X, packed W, bias and Y moved once) bound every mode; f32 X times the
 ternary W is counted at ``bench/roofline.py``'s ``"f32_ternary"`` rate (three
-exact bf16 passes, as B2 runs them), which this f32 mode, on CUDA cores,
-does not take. Its times are in PERF.md (measured by chip_smoke.py).
+exact bf16 passes, as B2 runs them), which this f32 mode does not take: the
+passes would change its sums. On the CUDA cores its own ceiling is the f32
+rate. Its times are in PERF.md (measured by chip_smoke.py).
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``packed_spmm_plain``. There is no fallback from one to the other.
@@ -36,7 +44,13 @@ from __future__ import annotations
 
 import torch
 
-from smmb_tpu_torch.formats.packed import GROUP_ROWS, TernaryPacked, decode_words
+from smmb_tpu_torch.formats.packed import (
+    GROUP_ROWS,
+    SUB,
+    TernaryPacked,
+    decode_words,
+    unpack_ternary,
+)
 from smmb_tpu_torch.kernels import _build
 from smmb_tpu_torch.ops.dense import prelu
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
@@ -46,9 +60,11 @@ _OUT_DTYPES = (torch.float32, torch.bfloat16)
 DECODES = ("shift", "fold")
 
 K_CHUNK = 32  # packed rows a K chunk of the tensor-core modes (csrc TC_PK)
-F32_TILE = (64, 128, 8)  # the f32 kernel's fixed BM, BN and K chunk
+F32_K_CHUNK = 8  # packed rows a K chunk of the f32 mode (csrc PK)
 # the tensor-core modes' (BM, BN) tiles (csrc dispatch_tile instantiates each)
 MMA_TILES = ((16, 64), (16, 128), (64, 64), (64, 128))
+# the f32 mode's (BM, BN) tiles (csrc dispatch_float), largest micro-tile first
+F32_TILES = ((64, 128), (64, 64), (16, 128), (16, 64))
 NUM_SMS = 132  # an H100 SXM's SMs: the grid should fill about one wave
 
 
@@ -59,12 +75,18 @@ def tile_for(m: int, n: int, compute_dtype=torch.bfloat16) -> tuple[int, int, in
     fragment; at M = 32 two 16-row blocks of 8 warps were faster on an H100
     than one 32-row block, so there is no 32-row tile) and BM = 64 above,
     and BN = 128 when that grid has at least 3/4 of a wave of blocks, else
-    64. The K chunk is ``K_CHUNK`` whatever the tile: the K
-    walk, and so every row's result, does not depend on M. The f32 mode has
-    one tile.
+    64. The f32 mode takes the first of ``F32_TILES`` (the largest
+    micro-tile first; BM = 64 only above M = 32, where it leaves fewer than
+    half its rows idle) whose grid has at least 3/4 of a wave, else 16×64,
+    the most blocks. The K chunk (``K_CHUNK``, f32 ``F32_K_CHUNK``) does not
+    depend on the tile: the K walk, and so every row's result, does not
+    depend on M.
     """
     if compute_dtype == torch.float32:
-        return F32_TILE
+        for bm, bn in F32_TILES:
+            if (bm == 16 or m > 32) and -(-m // bm) * -(-n // bn) >= NUM_SMS * 3 // 4:
+                break
+        return bm, bn, F32_K_CHUNK
     bm = 16 if m <= 32 else 64
     rows = -(-m // bm)
     bn = 128 if rows * -(-n // 128) >= NUM_SMS * 3 // 4 else 64
@@ -74,13 +96,13 @@ def tile_for(m: int, n: int, compute_dtype=torch.bfloat16) -> tuple[int, int, in
 def check_tile(block_m, block_n, compute_dtype) -> tuple[int, int] | None:
     """(block_m, block_n) checked against the kernel's tiles, or None when
     both are None (``tile_for`` picks; a None beside a given size stands for
-    ``tile_for``'s size on that side). The bf16 and int8 modes have BM in
-    {16, 64} and BN in {64, 128} (``MMA_TILES``), f32 ``F32_TILE``'s 64×128.
-    Any other size raises ``ValueError`` naming the tiles: never a quiet
-    fall back to another tile."""
+    ``tile_for``'s size on that side). Every mode has BM in {16, 64} and BN
+    in {64, 128} (``MMA_TILES``, f32 ``F32_TILES``). Any other size raises
+    ``ValueError`` naming the mode's tiles: never a quiet fall back to
+    another tile."""
     if block_m is None and block_n is None:
         return None
-    tiles = (F32_TILE[:2],) if compute_dtype == torch.float32 else MMA_TILES
+    tiles = F32_TILES if compute_dtype == torch.float32 else MMA_TILES
     bms = sorted({t[0] for t in tiles})
     bns = sorted({t[1] for t in tiles})
     if (block_m is not None and block_m not in bms) or (
@@ -92,10 +114,10 @@ def check_tile(block_m, block_n, compute_dtype) -> tuple[int, int] | None:
 
 
 def pieces_aligned(k: int, n: int, x_ptr: int, w_ptr: int, compute_dtype) -> bool:
-    """Whether the tensor-core kernel may copy X and W rows in 16-byte
-    pieces: K a multiple of the piece's elements (8 bf16, 16 int8 codes), N
-    of 16 bytes, and both pointers 16-byte aligned. Else it loads elements."""
-    per_piece = 16 if compute_dtype == torch.int8 else 8
+    """Whether the kernel may copy X and W rows in 16-byte pieces: K a
+    multiple of the piece's elements (4 f32, 8 bf16, 16 int8 codes), N of 16
+    bytes, and both pointers 16-byte aligned. Else it loads elements."""
+    per_piece = 16 // compute_dtype.itemsize
     return k % per_piece == 0 and n % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0
 
 
@@ -140,6 +162,34 @@ def packed_spmm_plain(
     return r.to(x.dtype)
 
 
+def packed_spmm_f32_chain(
+    x: torch.Tensor,
+    w: TernaryPacked,
+    b: torch.Tensor | None = None,
+    alpha: float | None = None,
+) -> torch.Tensor:
+    """The f32 kernel's sums stated in plain f32 adds, for 2-D f32 ``x``.
+
+    The kernel takes ``fmaf(x, w, acc)`` into one register an output in one
+    K order: chunks of ``F32_K_CHUNK`` packed rows, in a chunk plane 0's
+    rows, then plane 1's, 2's and 3's. With a ternary W each product is
+    exact, so ``acc + x[:, c] * w[c]`` over that order (columns past K add
+    nothing) is the kernel's result bit for bit under every tile; then the
+    bias and PReLU in f32, as its epilogue. One add a column: for tests and
+    checks, never a main path.
+    """
+    wd, k = unpack_ternary(w).to(x.device), x.shape[1]
+    acc = torch.zeros(x.shape[0], w.cols, dtype=torch.float32, device=x.device)
+    for pr0 in range(0, w.data.shape[0], F32_K_CHUNK):
+        for i in range(4):
+            col0 = (pr0 // SUB) * GROUP_ROWS + i * SUB + pr0 % SUB
+            for col in range(col0, min(col0 + F32_K_CHUNK, k)):
+                acc = acc + x[:, col:col + 1] * wd[col]
+    if b is not None:
+        acc = acc + b
+    return acc if alpha is None else torch.where(acc > 0, acc, alpha * acc)
+
+
 def _check_cuda_args(x, w, b, compute_dtype):
     dev = x.device
     if x.dtype not in _OUT_DTYPES:
@@ -182,10 +232,9 @@ def packed_spmm(
         (W2A8: per-row absmax int8 X, int32 sums, per-row dequant).
       block_m, block_n: the kernel's output tile, None to let ``tile_for``
         pick it (a None beside a given size takes ``tile_for``'s size for
-        that side). The bf16 and int8 modes have BM in {16, 64} and BN in
-        {64, 128}, the f32 mode its one 64×128 tile; any other size raises
-        ``ValueError``. Every tile walks K in the same ``K_CHUNK`` chunks,
-        so the output is bitwise the same under every tile
+        that side). Every mode has BM in {16, 64} and BN in {64, 128}; any
+        other size raises ``ValueError``. Every tile of a mode walks K in
+        the same chunks, so the output is bitwise the same under every tile
         (``bench/autotune.py`` picks the fastest). On the CPU the tile is
         checked, then the plain version runs.
       block_k, decode: kept for compatibility with the JAX signature, where

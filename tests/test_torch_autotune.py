@@ -22,7 +22,7 @@ from smmb_tpu.formats.packed import pack_ternary as jpack
 from smmb_tpu.kernels import packed_spmm as jspmm
 from smmb_tpu_torch.bench import autotune
 from smmb_tpu_torch.formats.packed import pack_ternary
-from smmb_tpu_torch.kernels.packed_spmm import F32_TILE, MMA_TILES, packed_spmm
+from smmb_tpu_torch.kernels.packed_spmm import F32_TILES, MMA_TILES, packed_spmm
 from smmb_tpu_torch.utils.compare import TOL_DENSE, assert_close
 
 torch.set_num_threads(2)
@@ -58,11 +58,14 @@ def test_every_tile_gives_the_same_output(mode, m, k, n):
 
 
 def test_f32_takes_its_one_tile():
+    """The f32 mode takes every tile of ``F32_TILES`` (and one side named,
+    the other ``tile_for``'s), each bitwise the default output on the CPU
+    route: the f32 body has four tiles and one K walk."""
     x, w, b = _setup(9, 8, 512, 256)
     tx, tp, tb = torch.from_numpy(x), pack_ternary(w, device="cpu"), torch.from_numpy(b)
     want = packed_spmm(tx, tp, tb, ALPHA)
-    for kw in (dict(block_m=F32_TILE[0], block_n=F32_TILE[1]), dict(block_m=64),
-               dict(block_n=128)):
+    kws = [dict(block_m=bm, block_n=bn) for bm, bn in F32_TILES]
+    for kw in kws + [dict(block_m=64), dict(block_n=128), dict(block_m=16)]:
         assert torch.equal(packed_spmm(tx, tp, tb, ALPHA, **kw), want), kw
 
 
@@ -71,21 +74,22 @@ def test_f32_takes_its_one_tile():
     ("bf16", dict(block_m=16, block_n=256)),
     ("int8", dict(block_m=128)),
     ("int8", dict(block_n=32)),
-    ("f32", dict(block_m=16, block_n=64)),
-    ("f32", dict(block_m=64, block_n=64)),
-    ("f32", dict(block_m=16)),
+    ("f32", dict(block_m=32, block_n=256)),  # JAX's TPU tile
+    ("f32", dict(block_m=128)),
+    ("f32", dict(block_n=32)),
 ])
 def test_a_tile_the_kernel_lacks_raises(mode, kw):
     x, w, _ = _setup(10, 4, 512, 256)
     tx, tp = torch.from_numpy(x), pack_ternary(w, device="cpu")
-    tiles = "64x128" if mode == "f32" else "16x64, 16x128, 64x64, 64x128"
+    tiles = ("64x128, 64x64, 16x128, 16x64" if mode == "f32"
+             else "16x64, 16x128, 64x64, 64x128")
     with pytest.raises(ValueError, match=tiles):
         packed_spmm(tx, tp, compute_dtype=MODES[mode], **kw)
     with pytest.raises(ValueError):  # 3-D x is checked the same way
         packed_spmm(tx.reshape(2, 2, 512), tp, compute_dtype=MODES[mode], **kw)
 
 
-@pytest.mark.parametrize("mode,count", [("bf16", 4), ("int8", 4), ("f32", 1)])
+@pytest.mark.parametrize("mode,count", [("bf16", 4), ("int8", 4), ("f32", 4)])
 def test_default_candidates(mode, count):
     cands = autotune.default_candidates(256, MODES[mode])
     assert len(cands) == count

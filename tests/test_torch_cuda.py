@@ -48,9 +48,10 @@ from smmb_tpu_torch.kernels import flash_attention as fa
 from smmb_tpu_torch.kernels import flash_decode as fd
 from smmb_tpu_torch.kernels import fused_mlp as fk
 from smmb_tpu_torch.kernels.packed_spmm import (
-    F32_TILE,
+    F32_TILES,
     MMA_TILES,
     packed_spmm,
+    packed_spmm_f32_chain,
     packed_spmm_plain,
     tile_for,
 )
@@ -163,11 +164,57 @@ def test_kernel_tile_override_is_bitwise(cuda, cdt, m, k, n):
     with pytest.raises(ValueError, match="16x64"):
         packed_spmm(x, p, b, ALPHA, compute_dtype=cdt, block_m=32, block_n=256)
     with pytest.raises(ValueError, match="64x128"):
-        packed_spmm(x, p, b, ALPHA, block_m=16, block_n=64)
+        packed_spmm(x, p, b, ALPHA, block_m=32, block_n=256)
     assert packed_spmm.launches == before
-    f32 = packed_spmm(x, p, b, ALPHA, block_m=F32_TILE[0], block_n=F32_TILE[1])
-    torch.cuda.synchronize()
-    assert torch.equal(f32, packed_spmm(x, p, b, ALPHA))
+    f32 = packed_spmm(x, p, b, ALPHA)
+    for bm, bn in F32_TILES:
+        y = packed_spmm(x, p, b, ALPHA, block_m=bm, block_n=bn)
+        torch.cuda.synchronize()
+        assert torch.equal(y, f32), f"f32 {m}x{k}x{n} {bm}x{bn}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(256, 4096, 4096), (64, 1024, 2048), (32, 1024, 1024),
+                                   (1, 1024, 8192), (5, 100, 256), (17, 1000, 300),
+                                   (65, 2048, 129)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_f32_tiles_are_the_chain(cuda, m, k, n, out_dtype):
+    """Every f32 tile's output, and the wrapper's pick, is bitwise
+    ``packed_spmm_f32_chain`` (the kernel's FMA chains in plain adds; for a
+    bf16 x rounded once to bf16), and so every other tile's: aligned pieces,
+    ragged K and N (element loads at 1000x300 and 2048x129), and an f32 X
+    one float past a 16-byte boundary (element loads; a bf16 x is cast to a
+    new f32 tensor)."""
+    x, p, b = _setup(61 + m, m, k, n, cuda)
+    if out_dtype == torch.bfloat16:
+        xins = [x.to(torch.bfloat16)]
+    else:
+        shifted = torch.empty(x.numel() + 1, device=cuda)[1:].view(m, k)
+        shifted.copy_(x)
+        assert shifted.data_ptr() % 16 != 0
+        xins = [x, shifted]
+    for xin in xins:
+        want = packed_spmm_f32_chain(xin.float(), p, b, ALPHA).to(out_dtype)
+        for kw in [dict(block_m=bm, block_n=bn) for bm, bn in F32_TILES] + [{}]:
+            before = packed_spmm.launches
+            y = packed_spmm(xin, p, b, ALPHA, **kw)
+            assert packed_spmm.launches == before + 1
+            torch.cuda.synchronize()
+            assert y.dtype == out_dtype
+            assert torch.equal(y, want), f"{m}x{k}x{n} {kw} {out_dtype}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(1024, 8192), (4096, 4096), (1000, 300)])
+def test_kernel_f32_rows_equal_the_m1_call(cuda, k, n):
+    """In f32, row r of an M-row call is bitwise the M=1 call of row r,
+    whatever tile the wrapper picks for M (one K walk for every tile)."""
+    x, p, b = _setup(43, 256, k, n, cuda)
+    ones = torch.cat([packed_spmm(x[r:r + 1], p, b, ALPHA) for r in range(256)])
+    for m in (2, 5, 16, 17, 33, 64, 256):
+        y = packed_spmm(x[:m], p, b, ALPHA)
+        torch.cuda.synchronize()
+        assert torch.equal(y, ones[:m]), f"f32 M={m} tile {tile_for(m, n, torch.float32)}"
 
 
 @pytest.mark.cuda

@@ -22,7 +22,8 @@ from smmb_tpu.kernels import packed_spmm as jspmm
 from smmb_tpu.ops.spmm import packed_spmm_jnp
 from smmb_tpu_torch.formats.packed import pack_ternary
 from smmb_tpu_torch.kernels.packed_spmm import (
-    F32_TILE,
+    F32_K_CHUNK,
+    F32_TILES,
     K_CHUNK,
     NUM_SMS,
     packed_spmm,
@@ -207,7 +208,11 @@ def test_tile_for_fills_about_a_wave():
         bm, bn, _ = tile_for(m, n)
         assert (bm, bn) == tile
     assert -(-256 // 64) * -(-4096 // 128) <= NUM_SMS
-    assert all(tile_for(m, 4096, torch.float32) == F32_TILE for m in (1, 17, 256))
+    # f32: its own four tiles, one K chunk for every M, 64x128 at the headline
+    # and 16x64 (128 blocks) at the LM head
+    f32 = {m: tile_for(m, 4096, torch.float32) for m in (1, 17, 256)}
+    assert all(t[:2] in F32_TILES and t[2] == F32_K_CHUNK for t in f32.values())
+    assert f32[256][:2] == (64, 128) and tile_for(1, 8192, torch.float32)[:2] == (16, 64)
 
 
 @pytest.mark.parametrize("cdt,k,n,ptrs,want", [
@@ -218,6 +223,10 @@ def test_tile_for_fills_about_a_wave():
     (torch.int8, 1000, 640, (0, 0), False),  # K not a multiple of 16
     (torch.int8, 1024, 640, (0, 48), True),
     (torch.int8, 1024, 640, (0, 8), False),  # W 8 bytes past a boundary
+    (torch.float32, 100, 256, (0, 0), True),  # f32: K a multiple of 4
+    (torch.float32, 1000, 300, (0, 0), False),  # N not a multiple of 16
+    (torch.float32, 1022, 640, (0, 0), False),  # K not a multiple of 4
+    (torch.float32, 512, 640, (4, 0), False),  # X 4 bytes past a boundary
 ])
 def test_pieces_aligned(cdt, k, n, ptrs, want):
     assert pieces_aligned(k, n, *ptrs, cdt) is want
