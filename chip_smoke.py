@@ -8,9 +8,11 @@ which exits non-zero on failure:
 2. build every CUDA kernel of the path from the sources in the checkout,
    and count the HMMA and IMMA instructions in B1's SASS (``cuobjdump``):
    its bf16 and W2A8 modes run on ``mma.sync``, so both must be there; and
-   the HMMA in ``flash_attention.cu``'s SASS (B9's and B9p's bf16 body)
-   and in ``bcsr_spmm.cu``'s (B2's mma body), with the registers and spills
-   ``ptxas -v`` gives their mma kernels, each ``bcsr_spmm_mma`` instance,
+   the HMMA in ``flash_attention.cu``'s SASS (B9's and B9p's bf16 body;
+   as many as the first port's, ``B9_PARENT_HMMA``: the CUDA-core body has
+   none) and in ``bcsr_spmm.cu``'s (B2's mma body), with the registers and
+   spills ``ptxas -v`` gives their mma kernels, each CUDA-core flash
+   instance (none may spill), each ``bcsr_spmm_mma`` instance,
    each instance of B1's f32 body ``packed_spmm_float``,
    ``flash_decode.cu``'s kernels (B4 and B8), B5's and B6's
    ``mlp_items_kernel`` and B3's and B7's ``qkv_items_kernel``;
@@ -85,12 +87,14 @@ which exits non-zero on failure:
     µs/token and the decode bench with and without flash, and the
     ``bench/trace.py --lm`` step with and without flash (B4's device time
     in it, and B5's and B3's device time and launches);
-13. times of B4 and B9 at the path shapes and at one long shape each, and
-    B9 at T = 4096 bf16 non-causal too (each long bf16 B9 row held against
-    its plain version): kernel, plain version, bound, and
-    ``scaled_dot_product_attention``, beside the recorded times of B9's
-    earlier CUDA-core bf16 body and of B4's unsplit kernel at pos 8191; B4's
-    blocks, and its and SDPA's device time alone (the profiler);
+13. times of B4 and B9 at the path shapes and at one long shape each, B9
+    in f32 (the CUDA-core body) at T = 32, 512 and 4096 causal and in bf16
+    (the mma body) at T = 4096 causal and not (each B9 row past T = 32
+    held against its plain version): kernel, plain version, bound, and
+    ``scaled_dot_product_attention`` (f32 with TF32 off), beside the
+    recorded times of B9's earlier CUDA-core bodies (``B9_CUDA_CORE_MS``,
+    ``B9_PARENT_US``) and of B4's unsplit kernel at pos 8191; each row's
+    and SDPA's device time alone (the profiler), B4's blocks;
 14. B2 (BCSR block SpMM) against its plain version in f32 and bf16, with
     the route ``bcsr_route`` picks logged at each shape (the mma body for
     r % 64 == 0, the CUDA-core body for the 4- and 8-row blocks): the
@@ -154,9 +158,10 @@ which exits non-zero on failure:
     best beside beam 1's);
     ``fork_cache`` to 4 rows and a decode step against the plain routing;
 22. times of B9p against the serial kernel, its plain version, its bound and
-    ``scaled_dot_product_attention`` at the LM prefill and at T = 4096 bf16
-    (beside the earlier CUDA-core body's recorded times), and the three
-    rows of ``python -m smmb_tpu_torch spec``;
+    ``scaled_dot_product_attention`` at the LM prefill, at T = 512 and 4096
+    f32 and at T = 4096 bf16, each with the device times of both kernels
+    and of SDPA (beside the earlier CUDA-core bodies' recorded times), and
+    the three rows of ``python -m smmb_tpu_torch spec``;
 23. the training surface at BASELINE config 5's widths (depth 4, dim 4096,
     batch 256, ~10% nnz): ``make_packed_linear`` (B1 forward on W, backward
     on the packed Wᵀ) in f32 and bf16, its y, dx and db of one backward
@@ -280,10 +285,10 @@ before that the per-kernel JSON summary, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 1 and
 prints no result.
 
-``python3 chip_smoke.py --fused-ab DIR`` instead holds B3, B7, B5, B6 and
-B1's f32 body of this checkout against those of DIR, an earlier tree of the
-port: every output bitwise, and both sides' device µs a call
-(``fused_ab``). It also
+``python3 chip_smoke.py --fused-ab DIR`` instead holds B3, B7, B5, B6,
+B1's f32 body and B9's and B9p's CUDA-core body of this checkout against
+those of DIR, an earlier tree of the port: every output bitwise, and both
+sides' device µs a call (``fused_ab``). It also
 reads C1's same-token A/B of DIR's B1 f32 body against this one on the f32
 paths of phases 8 and 18 over ``LM_AB_PAIRS`` (``c1_side``, ``c1_verdict``).
 ``python3 chip_smoke.py --c1-candidate DIR`` writes such a DIR: this
@@ -313,6 +318,16 @@ B1_CUDA_CORE_HEAD_DEVICE_MS = 0.065
 # their tensor-core redesign: the CUDA-core body, measured by this script on
 # an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's B9 and B9p rows)
 B9_CUDA_CORE_MS = {"serial": 6.506, "pipe": 8.105}
+# the device µs a call of the first port's CUDA-core body (B9, and B9p under
+# "B9p ...") in f32 at B=1, H=8, hd 128, causal, T = 32, 512 and 4096 (the
+# shapes of phases 13 and 22) before its redesign: the median of that
+# tree's four runs of ``--fused-ab`` on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md's B9 and B9p rows); logged beside this run's own device times
+# the HMMA instructions in the SASS of the first port's flash_attention.cu,
+# all in the mma body (scripts/torch_b9_core_probe.py on the same card)
+B9_PARENT_HMMA = 384
+B9_PARENT_US = {"lm prefill": 51.14, "T=512 f32": 321.59, "long f32": 6494.73,
+                "B9p lm prefill": 54.89, "B9p T=512 f32": 381.88, "B9p long f32": 7870.56}
 # B4's and B8's times at pos 8191 of S=8192 (B=1, H=KVH=8, hd 128, bf16)
 # before the split of the cache across blocks: one block per (KV head,
 # batch row), measured by this script on an NVIDIA H100 80GB HBM3 at 700 W
@@ -588,8 +603,10 @@ def main() -> int:
     check(imma > 0, "B1's W2A8 mode has no IMMA in its SASS")
     # B9's and B9p's bf16 body runs on mma.sync: HMMA in flash_attention.cu
     fa_hmma = _sass(_build.library_path("flash_attention.cu")).count("HMMA")
-    log(f"flash_attention.cu SASS: {fa_hmma} HMMA")
+    log(f"flash_attention.cu SASS: {fa_hmma} HMMA (the first port's CUDA-core body beside "
+        f"the mma body: {B9_PARENT_HMMA})")
     check(fa_hmma > 0, "B9's bf16 body has no HMMA in its SASS")
+    check(fa_hmma == B9_PARENT_HMMA, "the CUDA-core flash body uses the tensor cores")
     # B2's mma body (128x128 blocks, f32 in three bf16 passes) runs on mma.sync
     b2_hmma = _sass(_build.library_path("bcsr_spmm.cu")).count("HMMA")
     log(f"bcsr_spmm.cu SASS: {b2_hmma} HMMA")
@@ -606,6 +623,14 @@ def main() -> int:
                 build_logs["flash_attention.cu"], r"flash_prefill_mma_kernelILi(\d+)ELb([01])E"):
             log(f"B9{'p' if pipe == '1' else ''} mma body hd {hd}: {regs} registers, "
                 f"{stores} bytes spill stores, {loads} bytes spill loads")
+        core = _ptxas_kernels(build_logs["flash_attention.cu"],
+                              r"flash_prefill_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)"
+                              r"ELb([01])E")
+        log(f"B9/B9p CUDA-core body, {len(core)} instantiations (dtype, kv tile, rows a "
+            "thread, d vectors a thread, pipelined: registers, spill bytes): " + "; ".join(
+                f"{'f32' if t == 'f' else 'bf16'} {bt} {sr} {dv} {p}: {regs}, {st + ld}"
+                for (t, bt, sr, dv, p), regs, st, ld in core))
+        check(all(st + ld == 0 for *_, st, ld in core), "the CUDA-core flash body spills")
     else:
         log("flash_attention.cu was up to date: no ptxas report this run")
     if "fused_mlp.cu" in build_logs:
@@ -1026,6 +1051,30 @@ FUSED_AB_CASES = [
     ("packed_spmm", 64, 2048, 2048, "f32"), ("packed_spmm", 64, 2048, 1024, "f32"),
     ("packed_spmm", 32, 1024, 1024, "f32"), ("packed_spmm", 1, 1024, 8192, "f32"),
 ]
+# B9's and B9p's CUDA-core body (``flash_attention`` through each side's
+# wrapper, its own row tile): (``flash_attention``, B, H, KVH, T, hd,
+# dtype, causal, window, pipeline_p); the LM prefill, the decode bench's
+# prompt, the long prefill causal and not, GQA 8/2 with a window over a
+# ragged last tile, hd 64, the bf16 widths off the tensor cores, B9p at
+# phase 22's f32 shapes and hd 256, and hd 200, where serial and pipelined
+# calls take different kv tiles
+FLASH_AB_CASES = [
+    ("flash_attention", 1, 8, 8, 32, 128, "f32", True, None, False),
+    ("flash_attention", 1, 8, 8, 512, 128, "f32", True, None, False),
+    ("flash_attention", 1, 8, 8, 4096, 128, "f32", True, None, False),
+    ("flash_attention", 1, 8, 8, 4096, 128, "f32", False, None, False),
+    ("flash_attention", 1, 8, 2, 200, 128, "f32", True, 100, False),
+    ("flash_attention", 1, 8, 8, 512, 64, "f32", True, None, False),
+    ("flash_attention", 1, 4, 4, 512, 256, "bf16", True, None, False),
+    ("flash_attention", 1, 2, 2, 256, 512, "bf16", True, None, False),
+    ("flash_attention", 1, 8, 8, 32, 128, "f32", True, None, True),
+    ("flash_attention", 1, 8, 8, 512, 128, "f32", True, None, True),
+    ("flash_attention", 1, 8, 8, 4096, 128, "f32", True, None, True),
+    ("flash_attention", 1, 4, 4, 512, 256, "bf16", True, None, True),
+    ("flash_attention", 1, 4, 4, 512, 200, "f32", True, None, False),
+    ("flash_attention", 1, 4, 4, 512, 200, "f32", True, None, True),
+]
+AB_CASES = FUSED_AB_CASES + FLASH_AB_CASES
 
 
 def _own_module(rel: str):
@@ -1051,6 +1100,7 @@ def fused_side(out, c1_tokens=None, c1_out=None) -> int:
     import torch
 
     from smmb_tpu_torch.formats.packed import pack_ternary_device
+    from smmb_tpu_torch.kernels import flash_attention as fa
     from smmb_tpu_torch.kernels import fused_mlp as fk
     from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
     from smmb_tpu_torch.utils import rng
@@ -1058,6 +1108,12 @@ def fused_side(out, c1_tokens=None, c1_out=None) -> int:
     trace = _own_module("bench/trace.py")
     dev = torch.device("cuda")
     outs = []
+
+    def emit(i, rows):
+        print(json.dumps({"case": AB_CASES[i], "device_us": sum(r["us"] for r in rows),
+                          "launches": sum(r["launches"] for r in rows),
+                          "kernels": [r["name"][:60] for r in rows]}), flush=True)
+
     for i, (name, m, d, n, cdt, *hd) in enumerate(FUSED_AB_CASES):
         gen = rng.make_generator(100 + i, dev)
         cdt = torch.bfloat16 if cdt == "bf16" else torch.float32
@@ -1074,10 +1130,18 @@ def fused_side(out, c1_tokens=None, c1_out=None) -> int:
             args, kw = _fused_inputs(torch, gen, name, m, d, n, dev), _kernel_kwargs(name, cdt)
         y = fn(*args, **kw)
         outs.append([t.cpu() for t in (y if isinstance(y, tuple) else (y,))])
-        rows = trace.kernel_breakdown(lambda: fn(*args, **kw), n_calls=50)
-        print(json.dumps({"case": FUSED_AB_CASES[i], "device_us": sum(r["us"] for r in rows),
-                          "launches": sum(r["launches"] for r in rows),
-                          "kernels": [r["name"][:60] for r in rows]}), flush=True)
+        emit(i, trace.kernel_breakdown(lambda: fn(*args, **kw), n_calls=50))
+    for i, (_, b, h, kvh, t, hd, cdt, causal, window, pipe) in enumerate(
+            FLASH_AB_CASES, len(FUSED_AB_CASES)):
+        gen = rng.make_generator(100 + i, dev)
+        dt = torch.bfloat16 if cdt == "bf16" else torch.float32
+        q = (rng.rand_dense(gen, (b, t, h, hd)) * 4.0).to(dt).permute(0, 2, 1, 3)
+        k = rng.rand_dense(gen, (b, kvh, t, hd), dtype=dt)
+        v = rng.rand_dense(gen, (b, kvh, t, hd), dtype=dt)
+        kw = dict(causal=causal, window=window, pipeline_p=pipe)
+        outs.append([fa.flash_attention(q, k, v, **kw).cpu()])
+        emit(i, trace.kernel_breakdown(lambda: fa.flash_attention(q, k, v, **kw),
+                                       n_calls=10 if t * hd >= 4096 * 128 else 50))
     torch.save(outs, out)
     if c1_tokens is not None:
         Path(c1_out).write_text(json.dumps(c1_side(torch, dev, torch.load(c1_tokens))))
@@ -1085,11 +1149,11 @@ def fused_side(out, c1_tokens=None, c1_out=None) -> int:
 
 
 def fused_ab(other) -> int:
-    """``--fused-ab DIR``: every case of ``FUSED_AB_CASES`` through DIR's
-    kernels and this checkout's, each side in a process of its own, in
-    turns (DIR, this, this, DIR, twice); one JSON line a case with each
-    side's device µs in every run and whether this side's outputs equal
-    DIR's bitwise. The first run of each side also reads C1's case
+    """``--fused-ab DIR``: every case of ``FUSED_AB_CASES`` and
+    ``FLASH_AB_CASES`` through DIR's kernels and this checkout's, each
+    side in a process of its own, in turns (DIR, this, this, DIR, twice);
+    one JSON line a case with each side's device µs in every run and
+    whether this side's outputs equal DIR's bitwise. The first run of each side also reads C1's case
     (``c1_side``) on the plain path's tokens, computed here once, and the
     verdict of the A/B is printed (``c1_verdict``). Exits 1 if any output
     differs."""
@@ -1120,7 +1184,7 @@ def fused_ab(other) -> int:
                 c1[side] = json.loads(Path(c1_args[1]).read_text())
     c1_verdict(c1["this"], c1["other"])
     same_all = True
-    for j, case in enumerate(FUSED_AB_CASES):
+    for j, case in enumerate(AB_CASES):
         same = all(torch.equal(a, b) for a, b in zip(runs["other"][0][1][j],
                                                       runs["this"][0][1][j]))
         same_all &= same
@@ -2121,32 +2185,47 @@ def time_flash_kernels(torch, dev, spec, errs, flash) -> list:
                      "library_ms": t_l.min_s * 1e3, "library_device_us": dev_l})
         if label == "long":
             rows[-1]["unsplit_ms"] = FLASH_DECODE_UNSPLIT_MS["B4"]
-    # B9: the path's prefill in f32 (its projections are f32), the long in
-    # bf16, causal (the triangular walk) and not (every kv tile)
+    # B9: the path's prefill in f32 (its projections are f32), the decode
+    # bench's prompt and the long in f32 (the CUDA-core body) and the long in
+    # bf16 (the mma body), causal (the triangular walk) and not (every kv
+    # tile); SDPA in f32 with TF32 off
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     for label, b, h, t, dt, causal in (("lm prefill", 1, 8, 32, f32, True),
+                                       ("T=512 f32", 1, 8, 512, f32, True),
+                                       ("long f32", 1, 8, 4096, f32, True),
                                        ("long", 1, 8, 4096, bf16, True),
                                        ("long non-causal", 1, 8, 4096, bf16, False)):
         q = (rng.rand_dense(gen, (b, h, t, 128)) * 4.0).to(dt)
         k = rng.rand_dense(gen, (b, h, t, 128), dtype=dt)
         v = rng.rand_dense(gen, (b, h, t, 128), dtype=dt)
         route = fa.kernel_route(dt, 128)
-        if dt == bf16:  # the long rows are the mma body's: hold them too
+        if t > 32:  # hold the long rows too: f32 1e-4, bf16 2**-7 of max(1, max|Y|)
             _held(torch, "B9", fa.flash_attention(q, k, v, causal=causal),
-                  fa.flash_attention_plain(q, k, v, causal=causal), 2.0 ** -7, label)
+                  fa.flash_attention_plain(q, k, v, causal=causal),
+                  2.0 ** -7 if dt == bf16 else 1e-4, label)
         t_k = measure(lambda: fa.flash_attention(q, k, v, causal=causal))
         t_p = measure(lambda: fa.flash_attention_plain(q, k, v, causal=causal))
         t_l = measure(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        n = 10 if t == 4096 else 30
+        dev_k = _device_us(lambda: fa.flash_attention(q, k, v, causal=causal), n)
+        dev_l = _device_us(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), n)
         n_bytes = 2 * nbytes(q) + nbytes(k, v)
         ops = 4.0 * b * h * 128 * t * ((t + 1) / 2 if causal else t)
         bound, by = roofline_bound(ops, n_bytes, spec, "f32" if dt == f32 else "bf16")
         rows.append({"kernel": "B9 flash_attention", "shape": label, "B": b, "H": h,
                      "T": t, "dtype": str(dt), "causal": causal, "body": route.body,
                      "tile": route.tile, "ms": t_k.min_s * 1e3,
-                     "mean_ms": t_k.mean_s * 1e3, "plain_ms": t_p.min_s * 1e3,
-                     "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes,
-                     "ops": ops, "library_ms": t_l.min_s * 1e3})
+                     "mean_ms": t_k.mean_s * 1e3, "device_us": dev_k,
+                     "plain_ms": t_p.min_s * 1e3, "bound_ms": bound * 1e3, "bound_by": by,
+                     "bytes": n_bytes, "ops": ops, "library_ms": t_l.min_s * 1e3,
+                     "library_device_us": dev_l})
+        if route.body == "cuda_core":
+            rows[-1]["row_tile"] = fa.row_tile(dt, 128, b, h, h, t, sms=fa._sms(dev.index or 0))
+            rows[-1]["parent_device_us"] = B9_PARENT_US[label]
         if label == "long":
             rows[-1]["cuda_core_ms"] = B9_CUDA_CORE_MS["serial"]
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     for r in rows:
         print(json.dumps({**r, "library": "torch.nn.functional.scaled_dot_product_attention"}),
               flush=True)
@@ -2157,6 +2236,11 @@ def time_flash_kernels(torch, dev, spec, errs, flash) -> list:
         f"{r['library_device_us']:.2f} us; bound {r['bound_ms'] * 1e3:.2f} us)"
         for k, r in b4.items()) + f"; unsplit at pos 8191: {FLASH_DECODE_UNSPLIT_MS['B4']} ms")
     b9 = {r["shape"]: r for r in rows if r["kernel"].startswith("B9")}
+    log("B9 f32 (CUDA-core body; B=1, H=8, hd 128, causal): " + "; ".join(
+        f"T={r['T']}: {r['ms']:.4f} ms a call, {r['device_us']:.2f} us on the device "
+        f"({r['row_tile']}-row blocks; the earlier body's {r['parent_device_us']} us; SDPA f32 "
+        f"{r['library_device_us']:.2f} us; bound {r['bound_ms'] * 1e3:.2f} us)"
+        for r in b9.values() if r["body"] == "cuda_core"))
     log(f"B9 at T=4096 bf16 ({b9['long']['body']} body): causal {b9['long']['ms']:.4f} ms "
         f"(the CUDA-core body's: {B9_CUDA_CORE_MS['serial']} ms; SDPA "
         f"{b9['long']['library_ms']:.4f}, bound {b9['long']['bound_ms']:.4f}), non-causal "
@@ -2177,7 +2261,11 @@ def time_flash_kernels(torch, dev, spec, errs, flash) -> list:
         })
     summary[0].update(design=FLASH_DECODE_DESIGN, device_us=b4["lm path"]["device_us"],
                       long_ms=b4["long"]["ms"], long_device_us=b4["long"]["device_us"])
-    summary[-1].update(design="mma.sync (bf16, hd 64 and 128); CUDA cores (f32, others)",
+    summary[-1].update(design="mma.sync (bf16, hd 64 and 128); CUDA cores (f32, others): "
+                              "register micro-tiles, the first port's outputs bitwise",
+                       device_us=b9["lm prefill"]["device_us"],
+                       long_f32_ms=b9["long f32"]["ms"],
+                       long_f32_device_us=b9["long f32"]["device_us"],
                        long_bf16_ms=b9["long"]["ms"])
     log("phase 13 passed: B4 and B9 timed at the path and long shapes")
     return summary
@@ -3144,7 +3232,10 @@ def time_serving_controls(torch, dev, spec, pipe) -> list:
     gen = rng.make_generator(22, dev)
     f32, bf16 = torch.float32, torch.bfloat16
     rows = []
-    for label, b, h, t, dt in (("lm prefill", 1, 8, 32, f32), ("long", 1, 8, 4096, bf16)):
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for label, b, h, t, dt in (("lm prefill", 1, 8, 32, f32), ("T=512 f32", 1, 8, 512, f32),
+                               ("long f32", 1, 8, 4096, f32), ("long", 1, 8, 4096, bf16)):
         q = (rng.rand_dense(gen, (b, h, t, 128)) * 4.0).to(dt)
         k = rng.rand_dense(gen, (b, h, t, 128), dtype=dt)
         v = rng.rand_dense(gen, (b, h, t, 128), dtype=dt)
@@ -3154,6 +3245,10 @@ def time_serving_controls(torch, dev, spec, pipe) -> list:
                 measure(lambda: fa.flash_attention(q, k, v, pipeline_p=pipe_p)).min_s * 1e3)
         t_p = measure(lambda: fa.flash_attention_plain(q, k, v, pipeline_p=True))
         t_l = measure(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        n = 10 if t == 4096 else 30
+        dev_us = {pipe_p: _device_us(lambda: fa.flash_attention(q, k, v, pipeline_p=pipe_p), n)
+                  for pipe_p in (True, False)}
+        dev_l = _device_us(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), n)
         n_bytes = sum(x.numel() * x.element_size() for x in (q, q, k, v))  # q, out, k, v
         ops = 4.0 * b * h * 128 * t * (t + 1) / 2
         bound, by = roofline_bound(ops, n_bytes, spec, "f32" if dt == f32 else "bf16")
@@ -3164,15 +3259,26 @@ def time_serving_controls(torch, dev, spec, pipe) -> list:
                      "bound_ms": bound * 1e3, "bound_by": by, "bytes": n_bytes, "ops": ops,
                      "library_ms": t_l.min_s * 1e3,
                      "library": "torch.nn.functional.scaled_dot_product_attention "
-                                "(is_causal)", "body": fa.kernel_route(dt, 128, True).body})
+                                "(is_causal)", "body": fa.kernel_route(dt, 128, True).body,
+                     "device_us": dev_us[True], "serial_device_us": dev_us[False],
+                     "library_device_us": dev_l})
+        if dt == f32:
+            rows[-1]["parent_device_us"] = B9_PARENT_US[f"B9p {label}"]
         if label == "long":
             rows[-1]["cuda_core_ms"] = B9_CUDA_CORE_MS["pipe"]
             rows[-1]["cuda_core_serial_ms"] = B9_CUDA_CORE_MS["serial"]
         print(json.dumps(rows[-1]), flush=True)
-    log(f"B9p at T=4096 bf16 ({rows[1]['body']} body): {rows[1]['ms']:.4f} ms vs serial "
-        f"{rows[1]['serial_ms']:.4f} ms (the CUDA-core body's: B9p "
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    log("B9p f32 (CUDA-core body; B=1, H=8, hd 128): " + "; ".join(
+        f"T={r['T']}: {r['ms']:.4f} ms a call, {r['device_us']:.2f} us on the "
+        f"device (serial {r['serial_device_us']:.2f} us; the earlier body's "
+        f"{r['parent_device_us']} us; SDPA f32 {r['library_device_us']:.2f} us; bound "
+        f"{r['bound_ms'] * 1e3:.2f} us)" for r in rows if r["dtype"] == str(f32)))
+    long = rows[-1]
+    log(f"B9p at T=4096 bf16 ({long['body']} body): {long['ms']:.4f} ms vs serial "
+        f"{long['serial_ms']:.4f} ms (the CUDA-core body's: B9p "
         f"{B9_CUDA_CORE_MS['pipe']} ms, serial {B9_CUDA_CORE_MS['serial']} ms; bound "
-        f"{rows[1]['bound_ms']:.4f} ms, SDPA {rows[1]['library_ms']:.4f} ms)")
+        f"{long['bound_ms']:.4f} ms, SDPA {long['library_ms']:.4f} ms)")
 
     t = time.time()
     bench = spec_bench.main([])

@@ -4,8 +4,11 @@ Each source under ``csrc/`` becomes its own shared library with a plain C
 interface, compiled by ``nvcc`` for Hopper (``sm_90a``) into ``_build/``
 beside the package (listed in ``.gitignore``). The library name carries a
 hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
-an edited source or header is rebuilt and a stale library is never loaded. Builds of several sources run in parallel.
-Nothing here runs at import time: the CPU tests import every module.
+an edited source or header is rebuilt and a stale library is never loaded.
+Builds of several sources run in parallel, and a source listed in ``PARTS``
+is compiled as that many objects in parallel (``-DSMMB_PART=i``, each
+instantiating a share of its kernels) linked into its one library. Nothing
+here runs at import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ SOURCES = (
     "packed_spmm.cu", "fused_mlp.cu", "flash_decode.cu", "flash_attention.cu",
     "bcsr_spmm.cu",
 )
+PARTS = {"flash_attention.cu": 5}  # objects a source is compiled as
 
 
 def nvcc_path() -> str:
@@ -47,6 +51,7 @@ def library_path(source: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(str(PARTS.get(source, 1)).encode())
     return BUILD_DIR / f"lib{Path(source).stem}_{digest.hexdigest()[:16]}.so"
 
 
@@ -66,17 +71,30 @@ def build_all(sources=SOURCES) -> dict[str, str]:
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        procs[src] = (proc, tmp, lib)
+        if src in PARTS:  # objects first, linked below
+            flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            objs = [lib.with_name(f"{lib.stem}.{os.getpid()}.part{i}.o")
+                    for i in range(PARTS[src])]
+            cmds = [[nvcc, *flags, f"-DSMMB_PART={i}", "-c", "-o", str(o), str(CSRC / src)]
+                    for i, o in enumerate(objs)]
+        else:
+            objs, cmds = [], [[nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]]
+        procs[src] = ([subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True) for cmd in cmds], objs, tmp, lib)
     logs, failed = {}, []
-    for src, (proc, tmp, lib) in procs.items():
-        out, _ = proc.communicate()
-        logs[src] = out
-        if proc.returncode != 0:
-            failed.append(f"{src} (exit {proc.returncode}):\n{out}")
+    for src, (running, objs, tmp, lib) in procs.items():
+        outs = [proc.communicate()[0] for proc in running]
+        codes = [proc.returncode for proc in running]
+        if objs and not any(codes):
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            outs.append(link.stdout + link.stderr)
+            codes.append(link.returncode)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        logs[src] = "".join(outs)
+        if any(codes):
+            failed.append(f"{src} (exit {max(codes)}):\n{logs[src]}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, lib)
@@ -185,7 +203,7 @@ def flash_attention_lib() -> ctypes.CDLL:
     args = [
         _P, strides, _P, strides, _P, strides, _P, strides,  # q, k, v, out
         _I, _I, _I, _I, _I, _I, _I,  # bf16, b, t, s, h, kvh, hd
-        _I, _I, _F, _I, _I,  # causal, window, qscale, body, tile
+        _I, _I, _F, _I, _I, _I,  # causal, window, qscale, body, tile, rows
         _P,  # stream
     ]
     return _load("flash_attention.cu", {"smmb_flash_attention": args,

@@ -17,11 +17,18 @@ takes, with its tile (the one place that decides):
   accumulator stay in registers. Rounding points: q·qscale to bf16, the
   scores and P·V as the MMA's f32 sums, p to bf16 from the f32 exp2, the
   output acc / l to bf16.
-* **cuda_core** (f32 at any hd, bf16 at other widths): the first port's
-  body, f32 FMAs on CUDA cores (no TF32), 256 threads, tile 64 rows and
-  columns, or 32 / 16 where a wide head would not fit a block's shared
-  memory (``kernel_tile``). Rounding points: q·qscale to q's dtype, the
-  scores and P·V as fmaf chains in f32, p to v's dtype, acc / l to q's
+* **cuda_core** (f32 at any hd, bf16 at other widths): f32 FMAs on CUDA
+  cores (no TF32), 256 threads. Its outputs are bitwise the first port's
+  CUDA-core body's: each score and each P·V an fmaf chain in the first
+  port's order, the row sums in its lane order, and its kv tile of 64
+  columns, or 32 / 16 where a wide head did not fit that body's shared
+  memory (``kernel_tile``, frozen: the tile sets where the online softmax
+  rescales). A block owns ``row_tile`` query rows (16 to 128, the wrapper's
+  pick: fewer where a call has few rows, so more blocks fill the card); Q,
+  scores, softmax state, P·V and the accumulator in registers but for Q
+  and P's round trip through shared memory, K through a two-slot
+  ``cp.async`` ring, V one slot. Rounding points: q·qscale to q's dtype,
+  the scores and P·V as fmaf chains in f32, p to v's dtype, acc / l to q's
   dtype.
 
 Both bodies share the plain version ``flash_attention_plain`` as their
@@ -47,6 +54,7 @@ passes it, as in JAX.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -59,6 +67,8 @@ KV_TILE = 64  # the widest tile of both bodies
 TILES = (64, 32, 16)
 MMA_HEAD_DIMS = (64, 128)  # the head widths the mma body is built for
 MMA_TILE = 64  # its query rows and kv columns
+CORE_ROWS = (128, 64, 32, 16)  # query rows a CUDA-core block may own
+SMS = 132  # the H100's streaming multiprocessors: row_tile's default
 
 
 class Route(NamedTuple):
@@ -69,14 +79,18 @@ class Route(NamedTuple):
 
 
 def shared_bytes(bt: int, hd: int) -> int:
-    """Shared memory of one CUDA-core block with ``bt`` query rows and kv
-    columns (``smem_bytes`` in csrc/flash_attention.cu)."""
+    """Shared memory of the first port's CUDA-core block with ``bt`` query
+    rows and kv columns (q and k padded to hd + 1 floats a row, v, p padded
+    to bt + 1, the accumulator, m, l and the rescale). It fixes the kv tile
+    (``kernel_tile``) of today's body, whose outputs keep that body's bits;
+    today's block is ``core_shared_bytes``."""
     return 4 * (2 * bt * (hd + 1) + 2 * bt * hd + bt * (bt + 1) + 3 * bt)
 
 
 def shared_bytes_pipe(bt: int, hd: int) -> int:
-    """Shared memory of one pipelined (B9p) CUDA-core block: the serial
-    block and a second (bt, bt + 1) p buffer."""
+    """Shared memory of the first port's pipelined (B9p) CUDA-core block:
+    the serial block and a second (bt, bt + 1) p buffer (``kernel_tile``'s
+    rule under ``pipeline_p``)."""
     return shared_bytes(bt, hd) + 4 * bt * (bt + 1)
 
 
@@ -87,8 +101,10 @@ def shared_bytes_mma(hd: int) -> int:
 
 
 def kernel_tile(hd: int, pipeline_p: bool = False) -> int:
-    """The widest of the CUDA-core body's tiles whose block fits shared
-    memory (the pipelined block's under ``pipeline_p``)."""
+    """The CUDA-core body's kv tile: the widest whose first-port block fits
+    shared memory (the pipelined block's under ``pipeline_p``). Frozen
+    apart from today's layout: 64 up to hd 193 (pipelined) or 209, 32 up to
+    436 or 444, 16 up to 898 or 902, else refused."""
     size = shared_bytes_pipe if pipeline_p else shared_bytes
     for bt in TILES:
         if size(bt, hd) <= MAX_SHARED_BYTES:
@@ -104,6 +120,77 @@ def kernel_route(dtype: torch.dtype, hd: int, pipeline_p: bool = False) -> Route
     if dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS:
         return Route("mma", MMA_TILE)
     return Route("cuda_core", kernel_tile(hd, pipeline_p))
+
+
+def _core_vectors(dtype: torch.dtype, hd: int) -> int:
+    """16-byte vectors of a row of hd elements of ``dtype``."""
+    return -(-hd * dtype.itemsize // 16)
+
+
+def core_shared_bytes(dtype: torch.dtype, hd: int, rows: int, tile: int,
+                      k_slots: int = 2) -> int:
+    """Shared memory of one CUDA-core block (``core_smem`` in
+    csrc/flash_attention.cu): Q as f32 rows of an odd number of 16-byte
+    vectors and 16 vectors of skew, ``k_slots`` K slots of ``tile`` rows of
+    an odd number of vectors and one V slot in the storage type, and p, f32
+    (rows, tile) and 16 vectors of skew."""
+    nv = _core_vectors(dtype, hd)
+    lq = 4 * ((nv * 16 // dtype.itemsize // 4) | 1)
+    return 4 * (rows * lq + 64) + 16 * (k_slots * tile * (nv | 1) + tile * nv) \
+        + 4 * (rows * tile + 64)
+
+
+def core_k_slots(dtype: torch.dtype, hd: int, rows: int, tile: int,
+                 pipeline_p: bool = False) -> int | None:
+    """K slots of a CUDA-core block (2, or 1 where two do not fit, serial
+    only), None where it does not fit at all: the C entry's choice."""
+    for k_slots in ((2,) if pipeline_p else (2, 1)):
+        if core_shared_bytes(dtype, hd, rows, tile, k_slots) <= MAX_SHARED_BYTES:
+            return k_slots
+    return None
+
+
+def core_rows(dtype: torch.dtype, hd: int, pipeline_p: bool = False) -> tuple:
+    """The row tiles of ``CORE_ROWS`` the CUDA-core body takes at this
+    width, widest first: 16 * SR rows, SR (rows a thread) at most
+    64 / (DV * VE) so the accumulator stays in 64 registers (DV: the d
+    vectors of a thread, ceil(ceil(hd / VE) / 16) up to a power of two; VE:
+    elements of a 16-byte vector), whose block fits shared memory."""
+    tile = kernel_tile(hd, pipeline_p)
+    need, dv = -(-_core_vectors(dtype, hd) // 16), 1
+    while dv < need:
+        dv *= 2
+    sr_max = 64 // (dv * (16 // dtype.itemsize))
+    return tuple(rows for rows in CORE_ROWS if rows // 16 <= sr_max
+                 and core_k_slots(dtype, hd, rows, tile, pipeline_p) is not None)
+
+
+def _largest_divisor_at_most(g: int, cap: int) -> int:
+    return next(d for d in range(min(cap, g), 0, -1) if g % d == 0)
+
+
+def core_blocks(rows: int, b: int, h: int, kvh: int, t: int) -> int:
+    """Blocks of a CUDA-core launch with ``rows`` query rows a block: (B,
+    KVH, head groups) x q tiles of rows / gb tokens (gb the largest divisor
+    of H / KVH that is <= rows)."""
+    g = h // kvh
+    gb = _largest_divisor_at_most(g, rows)
+    return b * kvh * (g // gb) * -(-t // (rows // gb))
+
+
+def row_tile(dtype: torch.dtype, hd: int, b: int, h: int, kvh: int, t: int,
+             pipeline_p: bool = False, sms: int = SMS) -> int:
+    """Query rows a CUDA-core block owns for this call: the widest of
+    ``core_rows`` whose launch has at least ``sms`` blocks, else the
+    narrowest (the most blocks). The kv tile stays ``kernel_tile``'s, and
+    every row tile gives the same outputs bitwise."""
+    rows = core_rows(dtype, hd, pipeline_p)
+    return next((r for r in rows if core_blocks(r, b, h, kvh, t) >= sms), rows[-1])
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _aligned(x):
@@ -206,7 +293,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None, block_q: int | None = None,
                     block_kv: int | None = None,
-                    pipeline_p: bool = False) -> torch.Tensor:
+                    pipeline_p: bool = False, _rows: int | None = None) -> torch.Tensor:
     """Scaled dot-product attention without a (T, S) score tensor.
 
     q: (B, H, T, hd); k, v: (B, KVH, S, hd), H % KVH == 0 (query head h
@@ -216,7 +303,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     1/sqrt(hd). ``block_q`` / ``block_kv`` are the TPU kernel's tiles,
     honoured by the plain version (``block_kv``); the CUDA kernel's body
     and tile follow dtype and hd (``kernel_route``). ``pipeline_p``
-    (causal only) runs B9p, the pipelined kernel.
+    (causal only) runs B9p, the pipelined kernel. ``_rows`` forces the
+    CUDA-core body's row tile (one of ``core_rows``; checks only).
     Returns (B, H, T, hd) in q's dtype (a head view of a (B, T, H, hd)
     tensor on the card).
     """
@@ -235,6 +323,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, t, hd = q.shape
     kvh, s_len = k.shape[1], k.shape[2]
     route = kernel_route(q.dtype, hd, pipeline_p)
+    if route.body == "mma":
+        rows = MMA_TILE
+    elif _rows is None:
+        rows = row_tile(q.dtype, hd, b, h, kvh, t, pipeline_p, _sms(q.get_device()))
+    elif _rows in core_rows(q.dtype, hd, pipeline_p):
+        rows = _rows
+    else:
+        raise ValueError(f"row tile {_rows} not among {core_rows(q.dtype, hd, pipeline_p)}")
     q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
     if route.body == "mma":
         q, k, v = (_aligned(x) for x in (q, k, v))
@@ -250,7 +346,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), strides[0], k.data_ptr(), strides[1], v.data_ptr(),
             strides[2], out.data_ptr(), strides[3], int(q.dtype == torch.bfloat16),
             b, t, s_len, h, kvh, hd, int(causal), window if window is not None else 0,
-            qscale, int(route.body == "mma"), route.tile,
+            qscale, int(route.body == "mma"), route.tile, rows,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")

@@ -578,6 +578,73 @@ def test_flash_attention_matches_plain(cuda, dt, b, h, kvh, t, hd, causal, windo
                  FUSED_TOL[dt] * max(1.0, float(ref.float().abs().max())), "B9")
 
 
+# B9's CUDA-core body at the widths and lengths the first port's card tests
+# did not reach: f32 at T=4096 causal, bf16 at hd 256 and 512
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,b,h,kvh,t,hd", [
+    (torch.float32, 1, 8, 8, 4096, 128), (torch.bfloat16, 1, 4, 4, 1024, 256),
+    (torch.bfloat16, 1, 2, 2, 512, 512),
+])
+def test_flash_attention_cuda_core_matches_plain(cuda, dt, b, h, kvh, t, hd):
+    assert fa.kernel_route(dt, hd).body == "cuda_core"
+    rs = np.random.default_rng(t + hd + 11)
+    q = _normal(rs, (b, t, h, hd), dt, cuda, 4.0).permute(0, 2, 1, 3)
+    k = _normal(rs, (b, kvh, t, hd), dt, cuda)
+    v = _normal(rs, (b, kvh, t, hd), dt, cuda)
+    before = fa.flash_attention.launches
+    y = fa.flash_attention(q, k, v)
+    assert fa.flash_attention.launches == before + 1
+    ref = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape and y.dtype == dt
+    assert_close(y.float(), ref.float(),
+                 FUSED_TOL[dt] * max(1.0, float(ref.float().abs().max())), "B9 cuda core")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,hd", [(torch.float32, 128), (torch.bfloat16, 256)])
+@pytest.mark.parametrize("pipeline_p", [False, True])
+def test_flash_attention_prefix_rows_bitwise(cuda, dt, hd, pipeline_p):
+    """Causal rows 0..511 of a T=1536 call equal the call on the first 512
+    tokens bitwise: the kv tile and a row's walk do not depend on T (the
+    two calls take other row tiles and blocks)."""
+    rs = np.random.default_rng(hd + 5)
+    q = _normal(rs, (1, 4, 1536, hd), dt, cuda, 4.0)
+    k = _normal(rs, (1, 4, 1536, hd), dt, cuda)
+    v = _normal(rs, (1, 4, 1536, hd), dt, cuda)
+    y = fa.flash_attention(q, k, v, pipeline_p=pipeline_p)
+    head = fa.flash_attention(q[:, :, :512], k[:, :, :512], v[:, :, :512],
+                              pipeline_p=pipeline_p)
+    torch.cuda.synchronize()
+    assert torch.equal(y[:, :, :512], head)
+
+
+# every row tile the CUDA-core body takes at these widths: T=300 causal
+# with a window (ragged q tiles, masked tiles before and after a row's live
+# ones), T=100 over S=160 (T < S), GQA 8/2, both schedules
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt,hd", [(torch.float32, 128), (torch.float32, 64),
+                                   (torch.float32, 200), (torch.bfloat16, 256),
+                                   (torch.bfloat16, 512), (torch.float32, 902)])
+@pytest.mark.parametrize("b,h,kvh,t,s,window", [(1, 8, 2, 300, 300, 100),
+                                                (2, 4, 4, 100, 160, None)])
+def test_flash_attention_every_row_tile_bitwise(cuda, dt, hd, b, h, kvh, t, s, window):
+    rs = np.random.default_rng(t + hd)
+    q = _normal(rs, (b, h, t, hd), dt, cuda, 4.0)
+    k = _normal(rs, (b, kvh, s, hd), dt, cuda)
+    v = _normal(rs, (b, kvh, s, hd), dt, cuda)
+    for pipe in (False, True):
+        if hd > 898 and pipe:
+            continue
+        y = fa.flash_attention(q, k, v, window=window, pipeline_p=pipe)
+        for rows in fa.core_rows(dt, hd, pipe):
+            got = fa.flash_attention(q, k, v, window=window, pipeline_p=pipe, _rows=rows)
+            torch.cuda.synchronize()
+            assert torch.equal(got, y), (pipe, rows)
+    with pytest.raises(ValueError, match="row tile"):
+        fa.flash_attention(q, k, v, _rows=48)
+
+
 # B9's tensor-core body: hd 64 and 128, GQA 8/2, a window, a ragged last
 # tile (T=200), non-causal, and g = 3 (64-row blocks of 21 tokens)
 MMA_SHAPES = [
@@ -642,7 +709,7 @@ def test_generate_flash_launch_counts_and_tokens(cuda):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,kvh,t,hd,window", [
     (1, 8, 8, 32, 128, None), (2, 8, 2, 200, 128, None), (1, 4, 4, 300, 64, 64),
-    (1, 2, 2, 70, 256, None),
+    (1, 2, 2, 70, 256, None), (1, 8, 8, 512, 128, None), (1, 4, 4, 512, 256, None),
     *((b, h, kvh, t, hd, window) for b, h, kvh, t, hd, causal, window in MMA_SHAPES if causal),
 ])
 def test_flash_pipeline_p_bitwise_serial(cuda, dt, b, h, kvh, t, hd, window):
