@@ -6,6 +6,8 @@ every row of the reference showcase.
 ``capture_trace`` writes a Chrome trace of a few calls of any function
 (open it in Perfetto or chrome://tracing), and ``annotate`` names a region
 in it, as JAX's ``capture_trace`` and ``annotate`` do for the XLA profiler.
+``annotate`` is the port's span primitive (``utils/spans.py::span``), the
+one the models and kernel wrappers open at their layer boundaries.
 
 Reports, per call: the device time and launch count of each kernel by
 name, their sum, the call's time between CUDA events (bench/measure.py)
@@ -24,7 +26,6 @@ with ``--flash`` its cache reads are the flash-decode kernel B4, with
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import tempfile
@@ -35,6 +36,7 @@ import torch
 from smmb_tpu_torch.bench.measure import measure
 from smmb_tpu_torch.bench.mlp_bench import build_mlp
 from smmb_tpu_torch.models.mlp import mlp_forward
+from smmb_tpu_torch.utils.spans import span
 
 
 # calls of a profiler session's warm-up step, one entry a session: a
@@ -106,17 +108,11 @@ def capture_trace(fn, *args, trace_dir: str = TRACE_DIR, n_calls: int = 3) -> st
     return trace_dir
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named region (``with annotate("decode"): ...``): a
-    ``record_function`` range in a profiler trace and, with a card, an NVTX
-    range."""
-    with torch.profiler.record_function(name):
-        if torch.cuda.is_available():
-            with torch.cuda.nvtx.range(name):
-                yield
-        else:
-            yield
+# A named region (``with annotate("decode"): ...``): a ``record_function``
+# range while a profiler session records, nothing otherwise. Under
+# ``torch.autograd.profiler.emit_nvtx()`` the range is an NVTX range, which
+# gives ``nsys`` its ranges; no NVTX range is pushed without it.
+annotate = span
 
 
 def kernel_breakdown(fn, *args, n_calls: int = 10) -> list[dict]:

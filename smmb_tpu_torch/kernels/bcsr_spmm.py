@@ -69,6 +69,7 @@ from smmb_tpu_torch.formats.tcsc import _host
 from smmb_tpu_torch.kernels import _build
 from smmb_tpu_torch.ops.dense import full_f32_matmul, prelu
 from smmb_tpu_torch.utils.device import resolve_device
+from smmb_tpu_torch.utils.spans import KERNEL_B2, span
 
 LANE = 128  # block-column alignment: the CUDA-core body's tile width (csrc BN)
 _X_DTYPES = (torch.float32, torch.bfloat16)
@@ -290,35 +291,36 @@ def bcsr_spmm_kernel(
     Returns:
       (M, N) in x.dtype.
     """
-    _check(x, w)
-    if block_m <= 0:
-        raise ValueError(f"block_m={block_m} must be positive")
-    if x.device.type == "cpu":
-        return bcsr_spmm_kernel_plain(x, w, b, alpha)
-    if x.device.type != "cuda":
-        raise ValueError(f"bcsr_spmm_kernel runs on cuda or cpu, not {x.device}")
-    if x.dtype not in _X_DTYPES:
-        raise TypeError(f"bcsr_spmm kernel takes f32 or bf16 x, got {x.dtype}")
-    m = x.shape[0]
-    if w.k == 0:  # no block: the seeded bias, no launch
-        return _seed(x, w, b, alpha).expand(m, w.cols).to(x.dtype)
-    if m == 0:  # no row: no launch
-        return torch.empty((0, w.cols), dtype=x.dtype, device=x.device)
-    dev = x.device
-    for name in ("values", "blk_row", "col_start"):
-        t = getattr(w, name)
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"w.{name} must be contiguous on x's device")
-    if w.values.data_ptr() % 16:
-        raise ValueError("w.values must be 16-byte aligned")
-    if b is not None and (b.device != dev or b.shape != (w.cols,)):
-        raise ValueError(f"bias must be ({w.cols},) on x's device")
-    mma = bcsr_route(w.r, w.c) == "mma"
-    tile = bcsr_tile(m, w.cols, w.c, _sm_count(dev.index)) if mma else (0, 0)
-    bias = None if b is None else b.to(torch.float32).contiguous()
-    out = _launch(x, w, bias, alpha, tile)
-    bcsr_spmm_kernel.launches += 1
-    return out
+    with span(KERNEL_B2):
+        _check(x, w)
+        if block_m <= 0:
+            raise ValueError(f"block_m={block_m} must be positive")
+        if x.device.type == "cpu":
+            return bcsr_spmm_kernel_plain(x, w, b, alpha)
+        if x.device.type != "cuda":
+            raise ValueError(f"bcsr_spmm_kernel runs on cuda or cpu, not {x.device}")
+        if x.dtype not in _X_DTYPES:
+            raise TypeError(f"bcsr_spmm kernel takes f32 or bf16 x, got {x.dtype}")
+        m = x.shape[0]
+        if w.k == 0:  # no block: the seeded bias, no launch
+            return _seed(x, w, b, alpha).expand(m, w.cols).to(x.dtype)
+        if m == 0:  # no row: no launch
+            return torch.empty((0, w.cols), dtype=x.dtype, device=x.device)
+        dev = x.device
+        for name in ("values", "blk_row", "col_start"):
+            t = getattr(w, name)
+            if t.device != dev or not t.is_contiguous():
+                raise ValueError(f"w.{name} must be contiguous on x's device")
+        if w.values.data_ptr() % 16:
+            raise ValueError("w.values must be 16-byte aligned")
+        if b is not None and (b.device != dev or b.shape != (w.cols,)):
+            raise ValueError(f"bias must be ({w.cols},) on x's device")
+        mma = bcsr_route(w.r, w.c) == "mma"
+        tile = bcsr_tile(m, w.cols, w.c, _sm_count(dev.index)) if mma else (0, 0)
+        bias = None if b is None else b.to(torch.float32).contiguous()
+        out = _launch(x, w, bias, alpha, tile)
+        bcsr_spmm_kernel.launches += 1
+        return out
 
 
 def _launch(x, w: BCSRPrepared, bias, alpha, tile: tuple[int, int]) -> torch.Tensor:

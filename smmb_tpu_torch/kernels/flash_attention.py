@@ -62,6 +62,7 @@ import torch
 
 from smmb_tpu_torch.kernels import _build
 from smmb_tpu_torch.kernels.flash_decode import LOG2E, MAX_SHARED_BYTES, NEG, _exp2
+from smmb_tpu_torch.utils.spans import KERNEL_B9, KERNEL_B9P, span
 
 KV_TILE = 64  # the widest tile of both bodies
 TILES = (64, 32, 16)
@@ -308,53 +309,54 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Returns (B, H, T, hd) in q's dtype (a head view of a (B, T, H, hd)
     tensor on the card).
     """
-    _check(q, k, v, causal, window, pipeline_p)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, block_kv=block_kv,
-                                     pipeline_p=pipeline_p)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}, "
-                         f"{k.device}, {v.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"q, k, v must all be f32 or all bf16, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    b, h, t, hd = q.shape
-    kvh, s_len = k.shape[1], k.shape[2]
-    route = kernel_route(q.dtype, hd, pipeline_p)
-    if route.body == "mma":
-        rows = MMA_TILE
-    elif _rows is None:
-        rows = row_tile(q.dtype, hd, b, h, kvh, t, pipeline_p, _sms(q.get_device()))
-    elif _rows in core_rows(q.dtype, hd, pipeline_p):
-        rows = _rows
-    else:
-        raise ValueError(f"row tile {_rows} not among {core_rows(q.dtype, hd, pipeline_p)}")
-    q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
-    if route.body == "mma":
-        q, k, v = (_aligned(x) for x in (q, k, v))
-    if scale is None:
-        scale = 1.0 / math.sqrt(hd)
-    qscale = torch.tensor(scale * LOG2E, dtype=q.dtype).item()
-    out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
-    strides = [(ctypes.c_longlong * 3)(*x.stride()[:3]) for x in (q, k, v, out)]
-    lib = _build.flash_attention_lib()
-    entry = lib.smmb_flash_attention_pipe if pipeline_p else lib.smmb_flash_attention
-    with torch.cuda.device(q.device):
-        rc = entry(
-            q.data_ptr(), strides[0], k.data_ptr(), strides[1], v.data_ptr(),
-            strides[2], out.data_ptr(), strides[3], int(q.dtype == torch.bfloat16),
-            b, t, s_len, h, kvh, hd, int(causal), window if window is not None else 0,
-            qscale, int(route.body == "mma"), route.tile, rows,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
-    if pipeline_p:
-        flash_attention.pipe_launches += 1
-    else:
-        flash_attention.launches += 1
-    return out
+    with span(KERNEL_B9P if pipeline_p else KERNEL_B9):
+        _check(q, k, v, causal, window, pipeline_p)
+        if q.device.type == "cpu":
+            return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         scale=scale, block_kv=block_kv,
+                                         pipeline_p=pipeline_p)
+        if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+            raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}, "
+                             f"{k.device}, {v.device}")
+        if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+                or v.dtype != q.dtype:
+            raise TypeError(f"q, k, v must all be f32 or all bf16, got {q.dtype}, "
+                            f"{k.dtype}, {v.dtype}")
+        b, h, t, hd = q.shape
+        kvh, s_len = k.shape[1], k.shape[2]
+        route = kernel_route(q.dtype, hd, pipeline_p)
+        if route.body == "mma":
+            rows = MMA_TILE
+        elif _rows is None:
+            rows = row_tile(q.dtype, hd, b, h, kvh, t, pipeline_p, _sms(q.get_device()))
+        elif _rows in core_rows(q.dtype, hd, pipeline_p):
+            rows = _rows
+        else:
+            raise ValueError(f"row tile {_rows} not among {core_rows(q.dtype, hd, pipeline_p)}")
+        q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+        if route.body == "mma":
+            q, k, v = (_aligned(x) for x in (q, k, v))
+        if scale is None:
+            scale = 1.0 / math.sqrt(hd)
+        qscale = torch.tensor(scale * LOG2E, dtype=q.dtype).item()
+        out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+        strides = [(ctypes.c_longlong * 3)(*x.stride()[:3]) for x in (q, k, v, out)]
+        lib = _build.flash_attention_lib()
+        entry = lib.smmb_flash_attention_pipe if pipeline_p else lib.smmb_flash_attention
+        with torch.cuda.device(q.device):
+            rc = entry(
+                q.data_ptr(), strides[0], k.data_ptr(), strides[1], v.data_ptr(),
+                strides[2], out.data_ptr(), strides[3], int(q.dtype == torch.bfloat16),
+                b, t, s_len, h, kvh, hd, int(causal), window if window is not None else 0,
+                qscale, int(route.body == "mma"), route.tile, rows,
+                torch.cuda.current_stream(q.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+        if pipeline_p:
+            flash_attention.pipe_launches += 1
+        else:
+            flash_attention.launches += 1
+        return out
 
 
 flash_attention.launches = 0

@@ -43,6 +43,7 @@ import math
 import torch
 
 from smmb_tpu_torch.kernels import _build
+from smmb_tpu_torch.utils.spans import KERNEL_B4, KERNEL_B8, span
 
 NEG = -1e30  # a masked score: exp2(NEG - m) underflows to 0
 LOG2E = 1.4426950408889634  # the softmax runs in base 2
@@ -282,49 +283,50 @@ def _cache_attention(q4, kc, vc, pos, window, sm_scale, block_kv, compute_dtype,
     CUDA tensors (the float kernel B4, or B8 given ``kv_scale``)."""
     pos = int(pos)
     quant = kv_scale is not None
-    if q4.device.type == "cpu":
-        return _cache_attention_plain(q4, kc, vc, pos, window, sm_scale, block_kv,
-                                      compute_dtype, kv_scale)
-    bufs = (kc, kv_scale) if quant else (kc, vc)
-    if q4.device.type != "cuda" or any(t.device != q4.device for t in bufs):
-        raise ValueError(f"flash attention runs on cuda or cpu, got q on {q4.device} "
-                         f"and the cache on {kc.device}")
-    kvh, cdt = _check(q4, kc, vc, compute_dtype, kv_scale)
-    b, nq, h, hd = q4.shape
-    s_len = kc.shape[1]
-    if cdt not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the kernel computes in f32 or bf16, not {cdt}")
-    for name, t in (("q", q4),) if quant else (("q", q4), ("kc", kc), ("vc", vc)):
-        if t.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"{name} must be f32 or bf16, got {t.dtype}")
-    if quant and kv_scale.dtype != torch.float32:
-        raise TypeError(f"kv_scale must be f32, got {kv_scale.dtype}")
-    if not quant and kc.dtype != vc.dtype:
-        raise TypeError(f"kc {kc.dtype} and vc {vc.dtype} differ")
-    if not all(t.is_contiguous() for t in bufs):
-        raise ValueError("the flat caches are read in place and must be contiguous")
-    if any(t.data_ptr() % 16 for t in bufs):
-        raise ValueError("the caches must be 16-byte aligned")
-    if pos < 0 or pos + nq > s_len:
-        raise ValueError(f"rows at {pos}..{pos + nq - 1} outside the cache of {s_len}")
-    rows = nq * (h // kvh)
-    if shared_bytes(rows, hd, quant) > MAX_SHARED_BYTES:
-        raise ValueError(f"chunk rows {rows} (C={nq}, H={h}) need "
-                         f"{shared_bytes(rows, hd, quant)} bytes of shared memory — too "
-                         "large for the flash cache kernel; use the chunk math")
-    need = kernel_shared_bytes(rows, hd, kc.element_size(), quant)
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(f"chunk rows {rows} (C={nq}, H={h}) need {need} bytes of shared "
-                         "memory in the split kernel's block")
-    if q4.stride(3) != 1 or q4.stride(2) != hd:
-        q4 = q4.contiguous()
-    scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(hd)
-    out = _launch(q4, kc, vc, kv_scale, pos, window, scale, cdt, kvh, split_cols(s_len))
-    if quant:
-        flash_attention_decode_quant.launches += 1
-    else:
-        flash_attention_decode.launches += 1
-    return out
+    with span(KERNEL_B8 if quant else KERNEL_B4):
+        if q4.device.type == "cpu":
+            return _cache_attention_plain(q4, kc, vc, pos, window, sm_scale, block_kv,
+                                          compute_dtype, kv_scale)
+        bufs = (kc, kv_scale) if quant else (kc, vc)
+        if q4.device.type != "cuda" or any(t.device != q4.device for t in bufs):
+            raise ValueError(f"flash attention runs on cuda or cpu, got q on {q4.device} "
+                             f"and the cache on {kc.device}")
+        kvh, cdt = _check(q4, kc, vc, compute_dtype, kv_scale)
+        b, nq, h, hd = q4.shape
+        s_len = kc.shape[1]
+        if cdt not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"the kernel computes in f32 or bf16, not {cdt}")
+        for name, t in (("q", q4),) if quant else (("q", q4), ("kc", kc), ("vc", vc)):
+            if t.dtype not in (torch.float32, torch.bfloat16):
+                raise TypeError(f"{name} must be f32 or bf16, got {t.dtype}")
+        if quant and kv_scale.dtype != torch.float32:
+            raise TypeError(f"kv_scale must be f32, got {kv_scale.dtype}")
+        if not quant and kc.dtype != vc.dtype:
+            raise TypeError(f"kc {kc.dtype} and vc {vc.dtype} differ")
+        if not all(t.is_contiguous() for t in bufs):
+            raise ValueError("the flat caches are read in place and must be contiguous")
+        if any(t.data_ptr() % 16 for t in bufs):
+            raise ValueError("the caches must be 16-byte aligned")
+        if pos < 0 or pos + nq > s_len:
+            raise ValueError(f"rows at {pos}..{pos + nq - 1} outside the cache of {s_len}")
+        rows = nq * (h // kvh)
+        if shared_bytes(rows, hd, quant) > MAX_SHARED_BYTES:
+            raise ValueError(f"chunk rows {rows} (C={nq}, H={h}) need "
+                             f"{shared_bytes(rows, hd, quant)} bytes of shared memory — too "
+                             "large for the flash cache kernel; use the chunk math")
+        need = kernel_shared_bytes(rows, hd, kc.element_size(), quant)
+        if need > MAX_SHARED_BYTES:
+            raise ValueError(f"chunk rows {rows} (C={nq}, H={h}) need {need} bytes of shared "
+                             "memory in the split kernel's block")
+        if q4.stride(3) != 1 or q4.stride(2) != hd:
+            q4 = q4.contiguous()
+        scale = float(sm_scale) if sm_scale is not None else 1.0 / math.sqrt(hd)
+        out = _launch(q4, kc, vc, kv_scale, pos, window, scale, cdt, kvh, split_cols(s_len))
+        if quant:
+            flash_attention_decode_quant.launches += 1
+        else:
+            flash_attention_decode.launches += 1
+        return out
 
 
 def _launch(q4, kc, vc, kv_scale, pos, window, scale, cdt, kvh, span):

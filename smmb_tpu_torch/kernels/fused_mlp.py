@@ -40,6 +40,7 @@ import torch
 from smmb_tpu_torch.formats.packed import GROUP_ROWS, TernaryPacked, decode_words
 from smmb_tpu_torch.kernels import _build
 from smmb_tpu_torch.ops.dense import prelu
+from smmb_tpu_torch.utils.spans import KERNEL_B3, KERNEL_B5, KERNEL_B6, KERNEL_B7, span
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 HIDDEN_TILE = 128  # hidden units per block of the CUDA kernels
@@ -325,35 +326,36 @@ def fused_norm_qkv(
     ``block_n`` is the TPU kernel's column tile, checked as JAX checks it;
     the CUDA kernel's items are fixed and give the same result.
     """
-    _check_float("fused_norm_qkv", compute_dtype)
-    m, d = x.shape
-    kd, n = wqkv.shape
-    if kd != d or tuple(norm_g.shape) != (d,):
-        raise ValueError(f"x {tuple(x.shape)} / wqkv {wqkv.shape} / g {tuple(norm_g.shape)}")
-    if d % GROUP_ROWS:
-        raise ValueError(f"D={d} must be a multiple of {GROUP_ROWS}")
-    if n % 128 or tuple(qkv_scale.shape) != (n,) or tuple(bqkv.shape) != (n,):
-        raise ValueError(f"bad N={n} or scale/bias shapes")
-    if block_n <= 0:
-        raise ValueError(f"block_n={block_n} must be positive")
-    if x.device.type == "cpu":
-        return fused_norm_qkv_plain(x, norm_g, wqkv, qkv_scale, bqkv, eps=eps,
-                                    compute_dtype=compute_dtype)
-    if x.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"fused_norm_qkv takes f32 or bf16 x, got {x.dtype}")
-    dev = x.device
-    xc, g = _aligned(x), _aligned(_vec(norm_g, dev))
-    sc, b = _vec(qkv_scale, dev), _vec(bqkv, dev)
-    w = _items_words(wqkv, dev)
-    out = torch.empty((m, n), dtype=x.dtype, device=dev)
-    if m == 0:
+    with span(KERNEL_B3):
+        _check_float("fused_norm_qkv", compute_dtype)
+        m, d = x.shape
+        kd, n = wqkv.shape
+        if kd != d or tuple(norm_g.shape) != (d,):
+            raise ValueError(f"x {tuple(x.shape)} / wqkv {wqkv.shape} / g {tuple(norm_g.shape)}")
+        if d % GROUP_ROWS:
+            raise ValueError(f"D={d} must be a multiple of {GROUP_ROWS}")
+        if n % 128 or tuple(qkv_scale.shape) != (n,) or tuple(bqkv.shape) != (n,):
+            raise ValueError(f"bad N={n} or scale/bias shapes")
+        if block_n <= 0:
+            raise ValueError(f"block_n={block_n} must be positive")
+        if x.device.type == "cpu":
+            return fused_norm_qkv_plain(x, norm_g, wqkv, qkv_scale, bqkv, eps=eps,
+                                        compute_dtype=compute_dtype)
+        if x.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"fused_norm_qkv takes f32 or bf16 x, got {x.dtype}")
+        dev = x.device
+        xc, g = _aligned(x), _aligned(_vec(norm_g, dev))
+        sc, b = _vec(qkv_scale, dev), _vec(bqkv, dev)
+        w = _items_words(wqkv, dev)
+        out = torch.empty((m, n), dtype=x.dtype, device=dev)
+        if m == 0:
+            return out
+        _cuda_call("fused_norm_qkv", xc, xc.data_ptr(), int(x.dtype == torch.bfloat16),
+                   g.data_ptr(), w.data_ptr(), sc.data_ptr(), b.data_ptr(),
+                   out.data_ptr(), m, d, n, float(eps),
+                   int(compute_dtype == torch.bfloat16))
+        fused_norm_qkv.launches += 1
         return out
-    _cuda_call("fused_norm_qkv", xc, xc.data_ptr(), int(x.dtype == torch.bfloat16),
-               g.data_ptr(), w.data_ptr(), sc.data_ptr(), b.data_ptr(),
-               out.data_ptr(), m, d, n, float(eps),
-               int(compute_dtype == torch.bfloat16))
-    fused_norm_qkv.launches += 1
-    return out
 
 
 fused_norm_qkv.launches = 0
@@ -418,40 +420,41 @@ def fused_norm_qkv_quant(
     interleave and scales (M, 2·KVH) f32, the K/V quantized from the f32 y
     (``quantize_heads``). A row's result does not depend on the other rows.
     """
-    if compute_dtype not in FLOAT_DTYPES:
-        raise ValueError(f"fused_norm_qkv_quant is float-only, got {compute_dtype}")
-    m, d = x.shape
-    kd, n = wqkv.shape
-    kvd = kv_heads * head_dim
-    if kd != d or d != d_model or tuple(norm_g.shape) != (d,):
-        raise ValueError(f"x {tuple(x.shape)} / wqkv {wqkv.shape} / g {tuple(norm_g.shape)}")
-    if n != d + 2 * kvd:
-        raise ValueError(f"N={n} != d_model + 2·kv_dim = {d + 2 * kvd}")
-    if d % GROUP_ROWS or head_dim % HEAD_COLS:
-        raise ValueError(f"D={d} % {GROUP_ROWS} or head_dim={head_dim} % {HEAD_COLS} != 0")
-    if tuple(qkv_scale.shape) != (n,) or tuple(bqkv.shape) != (n,):
-        raise ValueError(f"bad scale/bias shapes for N={n}")
-    kw = dict(eps=eps, d_model=d_model, kv_heads=kv_heads, head_dim=head_dim,
-              compute_dtype=compute_dtype)
-    if x.device.type == "cpu":
-        return fused_norm_qkv_quant_plain(x, norm_g, wqkv, qkv_scale, bqkv, **kw)
-    if x.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"fused_norm_qkv_quant takes f32 or bf16 x, got {x.dtype}")
-    dev = x.device
-    xc, g = _aligned(x), _aligned(_vec(norm_g, dev))
-    sc, b = _vec(qkv_scale, dev), _vec(bqkv, dev)
-    w = _items_words(wqkv, dev)
-    q = torch.empty((m, d), dtype=x.dtype, device=dev)
-    codes = torch.empty((m, 2 * kvd), dtype=torch.int8, device=dev)
-    scales = torch.empty((m, 2 * kv_heads), dtype=torch.float32, device=dev)
-    if m == 0:
+    with span(KERNEL_B7):
+        if compute_dtype not in FLOAT_DTYPES:
+            raise ValueError(f"fused_norm_qkv_quant is float-only, got {compute_dtype}")
+        m, d = x.shape
+        kd, n = wqkv.shape
+        kvd = kv_heads * head_dim
+        if kd != d or d != d_model or tuple(norm_g.shape) != (d,):
+            raise ValueError(f"x {tuple(x.shape)} / wqkv {wqkv.shape} / g {tuple(norm_g.shape)}")
+        if n != d + 2 * kvd:
+            raise ValueError(f"N={n} != d_model + 2·kv_dim = {d + 2 * kvd}")
+        if d % GROUP_ROWS or head_dim % HEAD_COLS:
+            raise ValueError(f"D={d} % {GROUP_ROWS} or head_dim={head_dim} % {HEAD_COLS} != 0")
+        if tuple(qkv_scale.shape) != (n,) or tuple(bqkv.shape) != (n,):
+            raise ValueError(f"bad scale/bias shapes for N={n}")
+        kw = dict(eps=eps, d_model=d_model, kv_heads=kv_heads, head_dim=head_dim,
+                  compute_dtype=compute_dtype)
+        if x.device.type == "cpu":
+            return fused_norm_qkv_quant_plain(x, norm_g, wqkv, qkv_scale, bqkv, **kw)
+        if x.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"fused_norm_qkv_quant takes f32 or bf16 x, got {x.dtype}")
+        dev = x.device
+        xc, g = _aligned(x), _aligned(_vec(norm_g, dev))
+        sc, b = _vec(qkv_scale, dev), _vec(bqkv, dev)
+        w = _items_words(wqkv, dev)
+        q = torch.empty((m, d), dtype=x.dtype, device=dev)
+        codes = torch.empty((m, 2 * kvd), dtype=torch.int8, device=dev)
+        scales = torch.empty((m, 2 * kv_heads), dtype=torch.float32, device=dev)
+        if m == 0:
+            return q, codes, scales
+        _cuda_call("fused_norm_qkv_quant", xc, xc.data_ptr(), int(x.dtype == torch.bfloat16),
+                   g.data_ptr(), w.data_ptr(), sc.data_ptr(), b.data_ptr(), q.data_ptr(),
+                   codes.data_ptr(), scales.data_ptr(), m, d, n, kv_heads, head_dim,
+                   float(eps), int(compute_dtype == torch.bfloat16))
+        fused_norm_qkv_quant.launches += 1
         return q, codes, scales
-    _cuda_call("fused_norm_qkv_quant", xc, xc.data_ptr(), int(x.dtype == torch.bfloat16),
-               g.data_ptr(), w.data_ptr(), sc.data_ptr(), b.data_ptr(), q.data_ptr(),
-               codes.data_ptr(), scales.data_ptr(), m, d, n, kv_heads, head_dim,
-               float(eps), int(compute_dtype == torch.bfloat16))
-    fused_norm_qkv_quant.launches += 1
-    return q, codes, scales
 
 
 fused_norm_qkv_quant.launches = 0
@@ -509,38 +512,39 @@ def fused_mlp(
     ``_grid`` forces the launch's block count (0: ``items_grid``), for the
     checks that the result does not depend on it.
     """
-    _check_float("fused_mlp", compute_dtype)
-    m, k = x.shape
-    kh, h = w_up.shape
-    hd, kout = w_down.shape
-    if kh != k or hd != h:
-        raise ValueError(f"shape chain {tuple(x.shape)} @ {w_up.shape} @ {w_down.shape}")
-    if k % GROUP_ROWS or h % GROUP_ROWS:
-        raise ValueError(f"K={k} and H={h} must be multiples of {GROUP_ROWS} "
-                         "(use two packed_spmm calls otherwise)")
-    _check_block_h(block_h, h)
-    if x.device.type == "cpu":
-        return fused_mlp_plain(x, w_up, s_up, b_up, w_down, s_down, b_down,
-                               alpha=alpha, compute_dtype=compute_dtype)
-    if x.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"fused_mlp takes f32 or bf16 x, got {x.dtype}")
-    dev = x.device
-    xc = _aligned(x)
-    su, sd = _scalar(s_up, dev), _scalar(s_down, dev)
-    bu, bd = _vec(b_up, dev), _vec(b_down, dev)
-    wu, wd = _items_words(w_up, dev), _items_words(w_down, dev)
-    out = torch.empty((m, kout), dtype=x.dtype, device=dev)
-    if m == 0:
+    with span(KERNEL_B6):
+        _check_float("fused_mlp", compute_dtype)
+        m, k = x.shape
+        kh, h = w_up.shape
+        hd, kout = w_down.shape
+        if kh != k or hd != h:
+            raise ValueError(f"shape chain {tuple(x.shape)} @ {w_up.shape} @ {w_down.shape}")
+        if k % GROUP_ROWS or h % GROUP_ROWS:
+            raise ValueError(f"K={k} and H={h} must be multiples of {GROUP_ROWS} "
+                             "(use two packed_spmm calls otherwise)")
+        _check_block_h(block_h, h)
+        if x.device.type == "cpu":
+            return fused_mlp_plain(x, w_up, s_up, b_up, w_down, s_down, b_down,
+                                   alpha=alpha, compute_dtype=compute_dtype)
+        if x.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"fused_mlp takes f32 or bf16 x, got {x.dtype}")
+        dev = x.device
+        xc = _aligned(x)
+        su, sd = _scalar(s_up, dev), _scalar(s_down, dev)
+        bu, bd = _vec(b_up, dev), _vec(b_down, dev)
+        wu, wd = _items_words(w_up, dev), _items_words(w_down, dev)
+        out = torch.empty((m, kout), dtype=x.dtype, device=dev)
+        if m == 0:
+            return out
+        _check_items_shared("fused_mlp", k, m)
+        buf, ws = _workspace(m, h, kout, False, dev)
+        _cuda_call("fused_mlp", xc, xc.data_ptr(), int(x.dtype == torch.bfloat16),
+                   wu.data_ptr(), su.data_ptr(), bu.data_ptr(), wd.data_ptr(), wd.shape[1],
+                   sd.data_ptr(), bd.data_ptr(), ws["up"], ws["ws"], out.data_ptr(),
+                   m, k, h, kout, float(alpha), int(compute_dtype == torch.bfloat16),
+                   _grid or items_grid(m, k, h, kout, None, dev))
+        fused_mlp.launches += 1
         return out
-    _check_items_shared("fused_mlp", k, m)
-    buf, ws = _workspace(m, h, kout, False, dev)
-    _cuda_call("fused_mlp", xc, xc.data_ptr(), int(x.dtype == torch.bfloat16),
-               wu.data_ptr(), su.data_ptr(), bu.data_ptr(), wd.data_ptr(), wd.shape[1],
-               sd.data_ptr(), bd.data_ptr(), ws["up"], ws["ws"], out.data_ptr(),
-               m, k, h, kout, float(alpha), int(compute_dtype == torch.bfloat16),
-               _grid or items_grid(m, k, h, kout, None, dev))
-    fused_mlp.launches += 1
-    return out
 
 
 fused_mlp.launches = 0
@@ -592,44 +596,45 @@ def fused_block_tail(
     (M, D) in x.dtype. ``_grid`` forces the launch's block count (0:
     ``items_grid``), for the checks that the result does not depend on it.
     """
-    _check_float("fused_block_tail", compute_dtype)
-    m, a = att.shape
-    mx, dm = x.shape
-    if mx != m or wo.shape != (a, dm):
-        raise ValueError(f"att {tuple(att.shape)} / x {tuple(x.shape)} / wo {wo.shape}")
-    kd, h = w_up.shape
-    if kd != dm or w_down.shape != (h, dm):
-        raise ValueError(f"MLP chain {w_up.shape} @ {w_down.shape} vs d_model {dm}")
-    if a % GROUP_ROWS or dm % GROUP_ROWS or h % GROUP_ROWS:
-        raise ValueError(f"A={a}, D={dm}, H={h} must be multiples of {GROUP_ROWS}")
-    _check_block_h(block_h, h)
-    if x.device.type == "cpu":
-        return fused_block_tail_plain(
-            att, x, wo, s_wo, b_wo, norm2, w_up, s_up, b_up, w_down, s_down,
-            b_down, alpha=alpha, eps=eps, compute_dtype=compute_dtype)
-    if x.dtype not in FLOAT_DTYPES or att.dtype not in FLOAT_DTYPES:
-        raise TypeError(f"fused_block_tail takes f32 or bf16 att and x, got "
-                        f"{att.dtype} and {x.dtype}")
-    dev = x.device
-    attc, xc = _aligned(att), _aligned(x)
-    if attc.device != dev:
-        raise ValueError("att must be on x's device")
-    swo, su, sd = _scalar(s_wo, dev), _scalar(s_up, dev), _scalar(s_down, dev)
-    bwo, g2 = _vec(b_wo, dev), _aligned(_vec(norm2, dev))
-    bu, bd = _vec(b_up, dev), _vec(b_down, dev)
-    wod, wu, wd = (_items_words(w, dev) for w in (wo, w_up, w_down))
-    out = torch.empty((m, dm), dtype=x.dtype, device=dev)
-    if m == 0:
+    with span(KERNEL_B5):
+        _check_float("fused_block_tail", compute_dtype)
+        m, a = att.shape
+        mx, dm = x.shape
+        if mx != m or wo.shape != (a, dm):
+            raise ValueError(f"att {tuple(att.shape)} / x {tuple(x.shape)} / wo {wo.shape}")
+        kd, h = w_up.shape
+        if kd != dm or w_down.shape != (h, dm):
+            raise ValueError(f"MLP chain {w_up.shape} @ {w_down.shape} vs d_model {dm}")
+        if a % GROUP_ROWS or dm % GROUP_ROWS or h % GROUP_ROWS:
+            raise ValueError(f"A={a}, D={dm}, H={h} must be multiples of {GROUP_ROWS}")
+        _check_block_h(block_h, h)
+        if x.device.type == "cpu":
+            return fused_block_tail_plain(
+                att, x, wo, s_wo, b_wo, norm2, w_up, s_up, b_up, w_down, s_down,
+                b_down, alpha=alpha, eps=eps, compute_dtype=compute_dtype)
+        if x.dtype not in FLOAT_DTYPES or att.dtype not in FLOAT_DTYPES:
+            raise TypeError(f"fused_block_tail takes f32 or bf16 att and x, got "
+                            f"{att.dtype} and {x.dtype}")
+        dev = x.device
+        attc, xc = _aligned(att), _aligned(x)
+        if attc.device != dev:
+            raise ValueError("att must be on x's device")
+        swo, su, sd = _scalar(s_wo, dev), _scalar(s_up, dev), _scalar(s_down, dev)
+        bwo, g2 = _vec(b_wo, dev), _aligned(_vec(norm2, dev))
+        bu, bd = _vec(b_up, dev), _vec(b_down, dev)
+        wod, wu, wd = (_items_words(w, dev) for w in (wo, w_up, w_down))
+        out = torch.empty((m, dm), dtype=x.dtype, device=dev)
+        if m == 0:
+            return out
+        _check_items_shared("fused_block_tail", max(a, dm), m)
+        buf, ws = _workspace(m, h, dm, True, dev)
+        ptrs = [t.data_ptr() for t in (wod, swo, bwo, g2, wu, su, bu, wd, sd, bd)]
+        _cuda_call("fused_block_tail", xc, attc.data_ptr(), int(att.dtype == torch.bfloat16),
+                   xc.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, ws["resid"], ws["up"],
+                   ws["ws"], out.data_ptr(), m, a, dm, h, float(alpha), float(eps),
+                   int(compute_dtype == torch.bfloat16), _grid or items_grid(m, dm, h, dm, a, dev))
+        fused_block_tail.launches += 1
         return out
-    _check_items_shared("fused_block_tail", max(a, dm), m)
-    buf, ws = _workspace(m, h, dm, True, dev)
-    ptrs = [t.data_ptr() for t in (wod, swo, bwo, g2, wu, su, bu, wd, sd, bd)]
-    _cuda_call("fused_block_tail", xc, attc.data_ptr(), int(att.dtype == torch.bfloat16),
-               xc.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs, ws["resid"], ws["up"],
-               ws["ws"], out.data_ptr(), m, a, dm, h, float(alpha), float(eps),
-               int(compute_dtype == torch.bfloat16), _grid or items_grid(m, dm, h, dm, a, dev))
-    fused_block_tail.launches += 1
-    return out
 
 
 fused_block_tail.launches = 0

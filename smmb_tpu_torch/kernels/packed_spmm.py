@@ -54,6 +54,7 @@ from smmb_tpu_torch.formats.packed import (
 from smmb_tpu_torch.kernels import _build
 from smmb_tpu_torch.ops.dense import prelu
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
+from smmb_tpu_torch.utils.spans import KERNEL_B1, span
 
 _X_MODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -257,43 +258,44 @@ def packed_spmm(
             block_k=block_k, decode=decode,
         )
         return y.reshape(*lead, y.shape[-1])
-    m, k = x.shape
-    if k != w.rows:
-        raise ValueError(f"x K dim {k} != weight rows {w.rows}")
-    if x.device.type == "cpu":
-        return packed_spmm_plain(x, w, b, alpha, compute_dtype=compute_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"packed_spmm runs on cuda or cpu, not {x.device}")
-    _check_cuda_args(x, w, b, compute_dtype)
-    if compute_dtype == torch.int8:
-        xq, scale = quantize_rows(x)
-    else:
-        xq, scale = x.to(compute_dtype).contiguous(), None
-    bias = None if b is None else b.to(torch.float32).contiguous()
-    out = torch.empty((m, w.cols), dtype=x.dtype, device=x.device)
-    if m == 0:
+    with span(KERNEL_B1):
+        m, k = x.shape
+        if k != w.rows:
+            raise ValueError(f"x K dim {k} != weight rows {w.rows}")
+        if x.device.type == "cpu":
+            return packed_spmm_plain(x, w, b, alpha, compute_dtype=compute_dtype)
+        if x.device.type != "cuda":
+            raise ValueError(f"packed_spmm runs on cuda or cpu, not {x.device}")
+        _check_cuda_args(x, w, b, compute_dtype)
+        if compute_dtype == torch.int8:
+            xq, scale = quantize_rows(x)
+        else:
+            xq, scale = x.to(compute_dtype).contiguous(), None
+        bias = None if b is None else b.to(torch.float32).contiguous()
+        out = torch.empty((m, w.cols), dtype=x.dtype, device=x.device)
+        if m == 0:
+            return out
+        bm, bn, _ = tile_for(m, w.cols, compute_dtype)
+        if tile is not None:
+            bm, bn = tile[0] or bm, tile[1] or bn
+        aligned = pieces_aligned(k, w.cols, xq.data_ptr(), w.data.data_ptr(), compute_dtype)
+        fn = _build.packed_spmm_lib().smmb_packed_spmm
+        with torch.cuda.device(x.device):
+            rc = fn(
+                xq.data_ptr(), w.data.data_ptr(),
+                None if bias is None else bias.data_ptr(),
+                None if scale is None else scale.data_ptr(),
+                out.data_ptr(),
+                m, k, w.cols, w.data.shape[0],
+                _X_MODE[compute_dtype], int(x.dtype == torch.bfloat16),
+                bm, bn, int(aligned),
+                int(alpha is not None), 0.0 if alpha is None else float(alpha),
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"packed_spmm kernel launch failed: CUDA error {rc}")
+        packed_spmm.launches += 1
         return out
-    bm, bn, _ = tile_for(m, w.cols, compute_dtype)
-    if tile is not None:
-        bm, bn = tile[0] or bm, tile[1] or bn
-    aligned = pieces_aligned(k, w.cols, xq.data_ptr(), w.data.data_ptr(), compute_dtype)
-    fn = _build.packed_spmm_lib().smmb_packed_spmm
-    with torch.cuda.device(x.device):
-        rc = fn(
-            xq.data_ptr(), w.data.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            None if scale is None else scale.data_ptr(),
-            out.data_ptr(),
-            m, k, w.cols, w.data.shape[0],
-            _X_MODE[compute_dtype], int(x.dtype == torch.bfloat16),
-            bm, bn, int(aligned),
-            int(alpha is not None), 0.0 if alpha is None else float(alpha),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"packed_spmm kernel launch failed: CUDA error {rc}")
-    packed_spmm.launches += 1
-    return out
 
 
 packed_spmm.launches = 0

@@ -54,6 +54,17 @@ from smmb_tpu_torch.models.train import absmean_scale, qat_linear, ternarize_ste
 from smmb_tpu_torch.ops.dense import full_f32_matmul
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
+from smmb_tpu_torch.utils.spans import (
+    ATTN_DECODE,
+    ATTN_EXTEND,
+    ATTN_KV_FILL,
+    ATTN_PREFILL_B9,
+    ATTN_PREFILL_PLAIN,
+    ATTN_QKV_B1,
+    ATTN_QKV_B3,
+    ATTN_QKV_B7,
+    span,
+)
 
 # The flash-decode gate for batch > 1, copied from JAX
 # (smmb_tpu/models/attention.py:44-45) so that the port takes JAX's route:
@@ -187,35 +198,36 @@ def _attention_math(q, k, v, cfg: TernaryAttentionConfig, use_flash=False,
     the plain math only, as in JAX."""
     if valid is not None and use_flash:
         raise ValueError("use_flash does not support ragged (valid) masks")
-    b, t, d = q.shape
-    h, hd, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
-    g = h // kvh
-    q, k = _rope_qk(q, k, cfg, _positions(0, t, q.device))
-    if use_flash:
-        out = fa.flash_attention(
-            q.reshape(b, t, h, hd).permute(0, 2, 1, 3),
-            k.reshape(b, t, kvh, hd).permute(0, 2, 1, 3),
-            v.reshape(b, t, kvh, hd).permute(0, 2, 1, 3),
-            causal=cfg.causal, window=cfg.window)
-        return out.permute(0, 2, 1, 3).reshape(b, t, d)
-    q = q.reshape(b, t, kvh, g, hd).permute(0, 2, 3, 1, 4)
-    k = k.reshape(b, t, kvh, hd).permute(0, 2, 1, 3)
-    v = v.reshape(b, t, kvh, hd).permute(0, 2, 1, 3)
-    scores = torch.einsum("bkgqd,bktd->bkgqt", q.to(torch.float32),
-                          k.to(torch.float32)) / math.sqrt(hd)
-    if cfg.causal:
-        mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
-        if cfg.window is not None:
-            mask = mask & ~torch.ones_like(mask).tril(-cfg.window)
-        scores = scores.masked_fill(~mask, float("-inf"))
-    if valid is not None:
-        eye = torch.eye(t, dtype=torch.bool, device=q.device)
-        pad_ok = valid.to(device=q.device, dtype=torch.bool)[:, None, :] | eye[None]
-        scores = scores.masked_fill(~pad_ok[:, None, None], float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgqt,bktd->bkgqd", probs.to(torch.float32),
-                       v.to(torch.float32)).to(v.dtype)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, t, d)
+    with span(ATTN_PREFILL_B9 if use_flash else ATTN_PREFILL_PLAIN):
+        b, t, d = q.shape
+        h, hd, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+        g = h // kvh
+        q, k = _rope_qk(q, k, cfg, _positions(0, t, q.device))
+        if use_flash:
+            out = fa.flash_attention(
+                q.reshape(b, t, h, hd).permute(0, 2, 1, 3),
+                k.reshape(b, t, kvh, hd).permute(0, 2, 1, 3),
+                v.reshape(b, t, kvh, hd).permute(0, 2, 1, 3),
+                causal=cfg.causal, window=cfg.window)
+            return out.permute(0, 2, 1, 3).reshape(b, t, d)
+        q = q.reshape(b, t, kvh, g, hd).permute(0, 2, 3, 1, 4)
+        k = k.reshape(b, t, kvh, hd).permute(0, 2, 1, 3)
+        v = v.reshape(b, t, kvh, hd).permute(0, 2, 1, 3)
+        scores = torch.einsum("bkgqd,bktd->bkgqt", q.to(torch.float32),
+                              k.to(torch.float32)) / math.sqrt(hd)
+        if cfg.causal:
+            mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+            if cfg.window is not None:
+                mask = mask & ~torch.ones_like(mask).tril(-cfg.window)
+            scores = scores.masked_fill(~mask, float("-inf"))
+        if valid is not None:
+            eye = torch.eye(t, dtype=torch.bool, device=q.device)
+            pad_ok = valid.to(device=q.device, dtype=torch.bool)[:, None, :] | eye[None]
+            scores = scores.masked_fill(~pad_ok[:, None, None], float("-inf"))
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.einsum("bkgqt,bktd->bkgqd", probs.to(torch.float32),
+                           v.to(torch.float32)).to(v.dtype)
+        return out.permute(0, 3, 1, 2, 4).reshape(b, t, d)
 
 
 def _proj(packed, name, inp, cfg, compute_dtype, use_kernel):
@@ -383,12 +395,13 @@ def attention_prefill(packed: dict, x: torch.Tensor, cache: dict,
     cache); pad slots are written and marked invalid. Returns (y, cache)."""
     b, t, _ = x.shape
     kw = dict(compute_dtype=compute_dtype, use_kernel=use_kernel)
-    k = _split_heads(_proj(packed, "wk", x, cfg, **kw), cfg, cfg.kv_heads)
-    v = _split_heads(_proj(packed, "wv", x, cfg, **kw), cfg, cfg.kv_heads)
-    pos = cache["pos"]
-    if cfg.rope:
-        k = apply_rope(k, _positions(pos, t, x.device), cfg.rope_theta)
-    cache = _cache_write(cache, k, v, pos, valid)
+    with span(ATTN_KV_FILL):
+        k = _split_heads(_proj(packed, "wk", x, cfg, **kw), cfg, cfg.kv_heads)
+        v = _split_heads(_proj(packed, "wv", x, cfg, **kw), cfg, cfg.kv_heads)
+        pos = cache["pos"]
+        if cfg.rope:
+            k = apply_rope(k, _positions(pos, t, x.device), cfg.rope_theta)
+        cache = _cache_write(cache, k, v, pos, valid)
     y = attention_forward(packed, x, cfg, use_flash=use_flash, valid=valid, **kw)
     return y, cache
 
@@ -523,6 +536,12 @@ def _flash_chunk_ok(cache: dict, cfg: TernaryAttentionConfig, c: int,
     )
 
 
+def _read_span(names, flash: bool, cache: dict) -> str:
+    """A cache read's span name (``ATTN_DECODE`` or ``ATTN_EXTEND``) by its
+    route: B4, B8 over an int8 cache, or the plain math."""
+    return names[2] if not flash else names[1] if "kv" in cache else names[0]
+
+
 def _step_qkv(packed, x, cache, cfg, compute_dtype, use_kernel, prenorm):
     """Q, K, V of a decode or extend step (B, C, ·) and the cache write:
     over an int8 cache under B7's gate, B7's codes go straight into the
@@ -533,20 +552,22 @@ def _step_qkv(packed, x, cache, cfg, compute_dtype, use_kernel, prenorm):
     pos = cache["pos"]
     if (prenorm is not None and "kv" in cache
             and _qkv_quant_fusable(packed, cfg, compute_dtype, use_kernel)):
-        qf, codes, scales = _proj_qkv_prenorm_quant(packed, x, cfg, prenorm, compute_dtype)
-        return _split_heads(qf, cfg), _cache_write_quantized(cache, codes, scales, pos)
-    if prenorm is not None:
-        qf, kf, vf = _proj_qkv_prenorm(packed, x, cfg, prenorm, compute_dtype)
-    else:
-        qf, kf, vf = _proj_qkv(packed, x, cfg, compute_dtype, use_kernel)
-    q = _split_heads(qf, cfg)
-    k = _split_heads(kf, cfg, cfg.kv_heads)
-    v = _split_heads(vf, cfg, cfg.kv_heads)
-    if cfg.rope:
-        at = _positions(pos, x.shape[1], x.device)
-        q = apply_rope(q, at, cfg.rope_theta)
-        k = apply_rope(k, at, cfg.rope_theta)
-    return q, _cache_write(cache, k, v, pos)
+        with span(ATTN_QKV_B7):
+            qf, codes, scales = _proj_qkv_prenorm_quant(packed, x, cfg, prenorm, compute_dtype)
+            return _split_heads(qf, cfg), _cache_write_quantized(cache, codes, scales, pos)
+    with span(ATTN_QKV_B1 if prenorm is None else ATTN_QKV_B3):
+        if prenorm is not None:
+            qf, kf, vf = _proj_qkv_prenorm(packed, x, cfg, prenorm, compute_dtype)
+        else:
+            qf, kf, vf = _proj_qkv(packed, x, cfg, compute_dtype, use_kernel)
+        q = _split_heads(qf, cfg)
+        k = _split_heads(kf, cfg, cfg.kv_heads)
+        v = _split_heads(vf, cfg, cfg.kv_heads)
+        if cfg.rope:
+            at = _positions(pos, x.shape[1], x.device)
+            q = apply_rope(q, at, cfg.rope_theta)
+            k = apply_rope(k, at, cfg.rope_theta)
+        return q, _cache_write(cache, k, v, pos)
 
 
 def attention_decode_core(packed: dict, x_t: torch.Tensor, cache: dict,
@@ -565,21 +586,23 @@ def attention_decode_core(packed: dict, x_t: torch.Tensor, cache: dict,
         raise ValueError(f"decode step takes one token, got T={one}")
     pos = cache["pos"]
     q, cache = _step_qkv(packed, x_t, cache, cfg, compute_dtype, use_kernel, prenorm)
-    if _flash_decode_ok(cache, cfg, b, use_flash):
-        if "kv" in cache:
-            out = fd.flash_attention_decode_quant(
-                q[:, 0], cache["kv"], cache["kv_scale"], pos, window=cfg.window,
-                compute_dtype=compute_dtype)
+    flash = _flash_decode_ok(cache, cfg, b, use_flash)
+    with span(_read_span(ATTN_DECODE, flash, cache)):
+        if flash:
+            if "kv" in cache:
+                out = fd.flash_attention_decode_quant(
+                    q[:, 0], cache["kv"], cache["kv_scale"], pos, window=cfg.window,
+                    compute_dtype=compute_dtype)
+            else:
+                out = fd.flash_attention_decode(
+                    q[:, 0], cache["k"], cache["v"], pos, window=cfg.window,
+                    compute_dtype=compute_dtype)
+            out = out.reshape(b, 1, -1)
         else:
-            out = fd.flash_attention_decode(
-                q[:, 0], cache["k"], cache["v"], pos, window=cfg.window,
-                compute_dtype=compute_dtype)
-        out = out.reshape(b, 1, -1)
-    else:
-        kc, vc = _cache_kv(cache, cfg.kv_heads)
-        out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window,
-                                    valid=cache.get("valid"))
-    return out, cache
+            kc, vc = _cache_kv(cache, cfg.kv_heads)
+            out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window,
+                                        valid=cache.get("valid"))
+        return out, cache
 
 
 def attention_decode_step(packed: dict, x_t: torch.Tensor, cache: dict,
@@ -606,21 +629,23 @@ def attention_extend_core(packed: dict, x: torch.Tensor, cache: dict,
     b, c, _ = x.shape
     pos = cache["pos"]
     q, cache = _step_qkv(packed, x, cache, cfg, compute_dtype, use_kernel, prenorm)
-    if _flash_chunk_ok(cache, cfg, c, use_flash):
-        if "kv" in cache:
-            out = fd.flash_attention_chunk_quant(
-                q, cache["kv"], cache["kv_scale"], pos, window=cfg.window,
-                compute_dtype=compute_dtype)
+    flash = _flash_chunk_ok(cache, cfg, c, use_flash)
+    with span(_read_span(ATTN_EXTEND, flash, cache)):
+        if flash:
+            if "kv" in cache:
+                out = fd.flash_attention_chunk_quant(
+                    q, cache["kv"], cache["kv_scale"], pos, window=cfg.window,
+                    compute_dtype=compute_dtype)
+            else:
+                out = fd.flash_attention_chunk(
+                    q, cache["k"], cache["v"], pos, window=cfg.window,
+                    compute_dtype=compute_dtype)
+            out = out.reshape(b, c, -1)
         else:
-            out = fd.flash_attention_chunk(
-                q, cache["k"], cache["v"], pos, window=cfg.window,
-                compute_dtype=compute_dtype)
-        out = out.reshape(b, c, -1)
-    else:
-        kc, vc = _cache_kv(cache, cfg.kv_heads)
-        out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window,
-                                    valid=cache.get("valid"))
-    return out, cache
+            kc, vc = _cache_kv(cache, cfg.kv_heads)
+            out = _chunk_attention_math(q, kc, vc, pos, cfg.head_dim, window=cfg.window,
+                                        valid=cache.get("valid"))
+        return out, cache
 
 
 def attention_extend(packed: dict, x: torch.Tensor, cache: dict,

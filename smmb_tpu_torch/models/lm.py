@@ -53,6 +53,7 @@ from smmb_tpu_torch.models.train import (
 )
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
+from smmb_tpu_torch.utils.spans import LM_DECODE_STEP, LM_HEAD, LM_PREFILL, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,12 +143,13 @@ def pack_lm(params: dict, quantize: bool = False) -> dict:
 
 def _head_logits(packed, h, cfg, compute_dtype, use_kernel):
     b, t, d = h.shape
-    h2 = h.reshape(b * t, d)
-    if use_kernel:
-        y = packed_spmm(h2, packed["head"], compute_dtype=compute_dtype)
-    else:
-        y = packed_spmm_ref(h2, packed["head"], dtype=torch.float32)
-    return (y * packed["head_scale"]).reshape(b, t, cfg.vocab)
+    with span(LM_HEAD):
+        h2 = h.reshape(b * t, d)
+        if use_kernel:
+            y = packed_spmm(h2, packed["head"], compute_dtype=compute_dtype)
+        else:
+            y = packed_spmm_ref(h2, packed["head"], dtype=torch.float32)
+        return (y * packed["head_scale"]).reshape(b, t, cfg.vocab)
 
 
 def lm_forward(packed: dict, tokens: torch.Tensor, cfg: TernaryLMConfig, *,
@@ -186,22 +188,23 @@ def lm_prefill(packed: dict, tokens: torch.Tensor, cache: list,
     a ragged cache; each row's learned position is its logical one,
     ``clip(cumsum(mask) - 1, 0)`` (pads reuse position 0 and are masked out
     of attention)."""
-    b, t = tokens.shape
-    if prompt_mask is None:
-        x = packed["embed"][tokens] + packed["pos"][None, :t]
-    else:
-        prompt_mask = prompt_mask.to(torch.bool)
-        pos_ids = (torch.cumsum(prompt_mask.to(torch.int64), dim=1) - 1).clamp_min(0)
-        x = packed["embed"][tokens] + packed["pos"][pos_ids]
-    new_cache = []
-    for blk, c in zip(packed["blocks"], cache):
-        x, c = cfg._blk["prefill"](blk, x, c, cfg.block, compute_dtype=compute_dtype,
-                                   use_kernel=use_kernel, use_flash=use_flash,
-                                   valid=prompt_mask)
-        new_cache.append(c)
-    h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
-    logits = _head_logits(packed, h, cfg, compute_dtype, use_kernel)
-    return logits[:, -1], new_cache
+    with span(LM_PREFILL):
+        b, t = tokens.shape
+        if prompt_mask is None:
+            x = packed["embed"][tokens] + packed["pos"][None, :t]
+        else:
+            prompt_mask = prompt_mask.to(torch.bool)
+            pos_ids = (torch.cumsum(prompt_mask.to(torch.int64), dim=1) - 1).clamp_min(0)
+            x = packed["embed"][tokens] + packed["pos"][pos_ids]
+        new_cache = []
+        for blk, c in zip(packed["blocks"], cache):
+            x, c = cfg._blk["prefill"](blk, x, c, cfg.block, compute_dtype=compute_dtype,
+                                       use_kernel=use_kernel, use_flash=use_flash,
+                                       valid=prompt_mask)
+            new_cache.append(c)
+        h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
+        logits = _head_logits(packed, h, cfg, compute_dtype, use_kernel)
+        return logits[:, -1], new_cache
 
 
 def lm_decode_step(packed: dict, token_t: torch.Tensor, cache: list,
@@ -212,19 +215,20 @@ def lm_decode_step(packed: dict, token_t: torch.Tensor, cache: list,
     lockstep). ``pos_ids`` (B,) gives each row its own learned-position
     index (ragged batches and batched speculative decoding, where a row's
     logical position trails its buffer position)."""
-    if pos_ids is None:
-        pe = packed["pos"][cache[0]["pos"]][None, None]
-    else:
-        pe = packed["pos"][pos_ids][:, None]
-    x = packed["embed"][token_t][:, None, :] + pe
-    new_cache = []
-    for blk, c in zip(packed["blocks"], cache):
-        x, c = cfg._blk["decode"](blk, x, c, cfg.block, compute_dtype=compute_dtype,
-                                  use_kernel=use_kernel, use_flash=use_flash)
-        new_cache.append(c)
-    h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
-    logits = _head_logits(packed, h, cfg, compute_dtype, use_kernel)
-    return logits[:, 0], new_cache
+    with span(LM_DECODE_STEP):
+        if pos_ids is None:
+            pe = packed["pos"][cache[0]["pos"]][None, None]
+        else:
+            pe = packed["pos"][pos_ids][:, None]
+        x = packed["embed"][token_t][:, None, :] + pe
+        new_cache = []
+        for blk, c in zip(packed["blocks"], cache):
+            x, c = cfg._blk["decode"](blk, x, c, cfg.block, compute_dtype=compute_dtype,
+                                      use_kernel=use_kernel, use_flash=use_flash)
+            new_cache.append(c)
+        h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
+        logits = _head_logits(packed, h, cfg, compute_dtype, use_kernel)
+        return logits[:, 0], new_cache
 
 
 def _make_sampler(temperature: float, top_k: int | None, top_p: float | None = None):

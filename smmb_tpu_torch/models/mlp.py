@@ -28,6 +28,7 @@ from smmb_tpu_torch.parallel.sharded import (
     sharded_spmm_row,
 )
 from smmb_tpu_torch.utils import rng
+from smmb_tpu_torch.utils.spans import MLP_FORWARD, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,14 +95,15 @@ def mlp_forward(
     use_kernel: bool = True,
 ) -> torch.Tensor:
     """Single-device forward through packed layers (PReLU fused per layer)."""
-    for w, b, s in zip(packed["w"], packed["b"], _layer_scales(packed)):
-        if s is not None:
-            x = x * s  # weight scale folded into activations (s > 0)
-        if use_kernel:
-            x = packed_spmm(x, w, b, alpha=cfg.alpha, compute_dtype=compute_dtype)
-        else:
-            x = packed_spmm_ref(x, w, b, alpha=cfg.alpha, dtype=compute_dtype)
-    return x
+    with span(MLP_FORWARD):
+        for w, b, s in zip(packed["w"], packed["b"], _layer_scales(packed)):
+            if s is not None:
+                x = x * s  # weight scale folded into activations (s > 0)
+            if use_kernel:
+                x = packed_spmm(x, w, b, alpha=cfg.alpha, compute_dtype=compute_dtype)
+            else:
+                x = packed_spmm_ref(x, w, b, alpha=cfg.alpha, dtype=compute_dtype)
+        return x
 
 
 def shard_mlp(packed: dict, mesh) -> dict:

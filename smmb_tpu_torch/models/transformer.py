@@ -22,6 +22,7 @@ B6, as JAX's gates do: their residuals are added around B1's products.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -47,6 +48,13 @@ from smmb_tpu_torch.models.train import absmean_scale, qat_linear, ternarize_ste
 from smmb_tpu_torch.ops.dense import prelu
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
+from smmb_tpu_torch.utils.spans import (
+    BLOCK_ATTN,
+    BLOCK_MLP_B1,
+    BLOCK_MLP_B6,
+    BLOCK_TAIL_B5,
+    span,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,21 +137,22 @@ def _fused_block_h(hdim: int, cap: int = 2048) -> int:
     return best
 
 
-def _mlp_fusable(packed, h2d, compute_dtype, use_kernel) -> bool:
+def _mlp_fusable(packed, h, compute_dtype, use_kernel) -> bool:
     """Route the small-M MLP half through one ``fused_mlp`` call (B6)?
+    ``h`` (..., K): its leading dims are the M rows.
 
     Semantic (as JAX): the kernel is on, no LoRA on either MLP weight,
     M ≤ 32 rows, a float compute dtype, K aligned to the 512-row group, a
     valid hidden slab, and the ``w_down`` shape chain. Hopper limit: the
     (8, K) f32 rows a block stages fit its shared memory
     (``fused_mlp.fits_shared``: K ≤ 6656), in place of JAX's Mosaic cap."""
-    k = h2d.shape[-1]
+    k = h.shape[-1]
     hdim = packed["w_up"].shape[1]
     return bool(
         use_kernel
         and packed.get("w_up_lora") is None
         and packed.get("w_down_lora") is None
-        and h2d.shape[0] <= 32
+        and math.prod(h.shape[:-1]) <= 32
         and compute_dtype in fk.FLOAT_DTYPES
         and k % GROUP_ROWS == 0
         and fk.fits_shared(k)
@@ -185,39 +194,41 @@ def _fused_tail(packed, out, x, cfg, compute_dtype):
     """``fused_block_tail`` on the pre-``wo`` mix ``out`` (B, T, A) with the
     residual stream ``x`` (B, T, D)."""
     ap = packed["attn"]
-    y = fk.fused_block_tail(
-        out.reshape(-1, out.shape[-1]), x.reshape(-1, x.shape[-1]),
-        ap["wo"], ap["wo_scale"], ap["bo"], packed["norm2"],
-        packed["w_up"], packed["s_up"], packed["b_up"],
-        packed["w_down"], packed["s_down"], packed["b_down"],
-        alpha=cfg.alpha, eps=cfg.eps, compute_dtype=compute_dtype,
-        block_h=_fused_block_h(packed["w_up"].shape[1]),
-    )
-    return y.reshape(x.shape)
+    with span(BLOCK_TAIL_B5):
+        y = fk.fused_block_tail(
+            out.reshape(-1, out.shape[-1]), x.reshape(-1, x.shape[-1]),
+            ap["wo"], ap["wo_scale"], ap["bo"], packed["norm2"],
+            packed["w_up"], packed["s_up"], packed["b_up"],
+            packed["w_down"], packed["s_down"], packed["b_down"],
+            alpha=cfg.alpha, eps=cfg.eps, compute_dtype=compute_dtype,
+            block_h=_fused_block_h(packed["w_up"].shape[1]),
+        )
+        return y.reshape(x.shape)
 
 
 def _mlp_half(packed, x, cfg, spmm, compute_dtype=None, use_kernel=False):
-    h = rmsnorm(x, packed["norm2"], cfg.eps)
-    h2d = h.reshape(-1, h.shape[-1])
-    if compute_dtype is not None and _mlp_fusable(packed, h2d, compute_dtype, use_kernel):
-        down = fk.fused_mlp(
-            h2d, packed["w_up"], packed["s_up"], packed["b_up"],
-            packed["w_down"], packed["s_down"], packed["b_down"],
-            alpha=cfg.alpha, compute_dtype=compute_dtype,
-            block_h=_fused_block_h(packed["w_up"].shape[1], 1024),
-        ).reshape(x.shape)
-        return x + down
-    up_lora = packed.get("w_up_lora")
-    if up_lora is None:
-        up = spmm(h, packed["w_up"], packed["s_up"], packed["b_up"], cfg.alpha)
-    else:
-        # the adapter adds before the activation, so B1 runs without its
-        # PReLU epilogue and the PReLU follows the sum (JAX's route)
-        pre = spmm(h, packed["w_up"], packed["s_up"], packed["b_up"])
-        up = prelu(pre + lora_residual(h, up_lora), cfg.alpha)
-    down = spmm(up, packed["w_down"], packed["s_down"], packed["b_down"])
-    dn_lora = packed.get("w_down_lora")
-    return x + (down if dn_lora is None else down + lora_residual(up, dn_lora))
+    fused = compute_dtype is not None and _mlp_fusable(packed, x, compute_dtype, use_kernel)
+    with span(BLOCK_MLP_B6 if fused else BLOCK_MLP_B1):
+        h = rmsnorm(x, packed["norm2"], cfg.eps)
+        if fused:
+            down = fk.fused_mlp(
+                h.reshape(-1, h.shape[-1]), packed["w_up"], packed["s_up"], packed["b_up"],
+                packed["w_down"], packed["s_down"], packed["b_down"],
+                alpha=cfg.alpha, compute_dtype=compute_dtype,
+                block_h=_fused_block_h(packed["w_up"].shape[1], 1024),
+            ).reshape(x.shape)
+            return x + down
+        up_lora = packed.get("w_up_lora")
+        if up_lora is None:
+            up = spmm(h, packed["w_up"], packed["s_up"], packed["b_up"], cfg.alpha)
+        else:
+            # the adapter adds before the activation, so B1 runs without its
+            # PReLU epilogue and the PReLU follows the sum (JAX's route)
+            pre = spmm(h, packed["w_up"], packed["s_up"], packed["b_up"])
+            up = prelu(pre + lora_residual(h, up_lora), cfg.alpha)
+        down = spmm(up, packed["w_down"], packed["s_down"], packed["b_down"])
+        dn_lora = packed.get("w_down_lora")
+        return x + (down if dn_lora is None else down + lora_residual(up, dn_lora))
 
 
 def _make_spmm(compute_dtype, use_kernel):
@@ -234,10 +245,11 @@ def block_forward(packed: dict, x: torch.Tensor, cfg: TernaryBlockConfig, *,
                   compute_dtype=torch.float32, use_kernel: bool = True,
                   use_flash: bool = False) -> torch.Tensor:
     """Pre-norm block: x + attn(norm(x)), then x + mlp(norm(x))."""
-    h = rmsnorm(x, packed["norm1"], cfg.eps)
-    x = x + attention_forward(packed["attn"], h, cfg.attn,
-                              compute_dtype=compute_dtype, use_kernel=use_kernel,
-                              use_flash=use_flash)
+    with span(BLOCK_ATTN):
+        h = rmsnorm(x, packed["norm1"], cfg.eps)
+        x = x + attention_forward(packed["attn"], h, cfg.attn,
+                                  compute_dtype=compute_dtype, use_kernel=use_kernel,
+                                  use_flash=use_flash)
     return _mlp_half(packed, x, cfg, _make_spmm(compute_dtype, use_kernel),
                      compute_dtype, use_kernel)
 
@@ -247,11 +259,12 @@ def block_prefill(packed: dict, x: torch.Tensor, cache: dict,
                   use_kernel: bool = True, use_flash: bool = False, valid=None):
     """Prompt pass: full block forward + KV-cache fill. Returns (y, cache).
     ``valid`` (B, T): real-token mask for left-padded ragged batches."""
-    h = rmsnorm(x, packed["norm1"], cfg.eps)
-    att, cache = attention_prefill(
-        packed["attn"], h, cache, cfg.attn, compute_dtype=compute_dtype,
-        use_kernel=use_kernel, use_flash=use_flash, valid=valid)
-    x = x + att
+    with span(BLOCK_ATTN):
+        h = rmsnorm(x, packed["norm1"], cfg.eps)
+        att, cache = attention_prefill(
+            packed["attn"], h, cache, cfg.attn, compute_dtype=compute_dtype,
+            use_kernel=use_kernel, use_flash=use_flash, valid=valid)
+        x = x + att
     return _mlp_half(packed, x, cfg, _make_spmm(compute_dtype, use_kernel),
                      compute_dtype, use_kernel), cache
 
@@ -264,19 +277,21 @@ def block_decode_step(packed: dict, x_t: torch.Tensor, cache: dict,
     kw = dict(compute_dtype=compute_dtype, use_kernel=use_kernel)
     b, t, _ = x_t.shape
     if _tail_fusable(packed, b * t, compute_dtype, use_kernel):
-        if _qkv_prenorm_fusable(packed["attn"], cfg.attn, compute_dtype, use_kernel):
-            out, cache = attention_decode_core(
-                packed["attn"], x_t, cache, cfg.attn, use_flash=use_flash,
-                prenorm=(packed["norm1"], cfg.eps), **kw)
-        else:
-            h = rmsnorm(x_t, packed["norm1"], cfg.eps)
-            out, cache = attention_decode_core(
-                packed["attn"], h, cache, cfg.attn, use_flash=use_flash, **kw)
+        with span(BLOCK_ATTN):
+            if _qkv_prenorm_fusable(packed["attn"], cfg.attn, compute_dtype, use_kernel):
+                out, cache = attention_decode_core(
+                    packed["attn"], x_t, cache, cfg.attn, use_flash=use_flash,
+                    prenorm=(packed["norm1"], cfg.eps), **kw)
+            else:
+                h = rmsnorm(x_t, packed["norm1"], cfg.eps)
+                out, cache = attention_decode_core(
+                    packed["attn"], h, cache, cfg.attn, use_flash=use_flash, **kw)
         return _fused_tail(packed, out, x_t, cfg, compute_dtype), cache
-    h = rmsnorm(x_t, packed["norm1"], cfg.eps)
-    att, cache = attention_decode_step(packed["attn"], h, cache, cfg.attn,
-                                       use_flash=use_flash, **kw)
-    x_t = x_t + att
+    with span(BLOCK_ATTN):
+        h = rmsnorm(x_t, packed["norm1"], cfg.eps)
+        att, cache = attention_decode_step(packed["attn"], h, cache, cfg.attn,
+                                           use_flash=use_flash, **kw)
+        x_t = x_t + att
     return _mlp_half(packed, x_t, cfg, _make_spmm(compute_dtype, use_kernel),
                      compute_dtype, use_kernel), cache
 
@@ -292,19 +307,21 @@ def block_extend(packed: dict, x: torch.Tensor, cache: dict,
     kw = dict(compute_dtype=compute_dtype, use_kernel=use_kernel)
     b, c, _ = x.shape
     if _tail_fusable(packed, b * c, compute_dtype, use_kernel):
-        if _qkv_prenorm_fusable(packed["attn"], cfg.attn, compute_dtype, use_kernel):
-            out, cache = attention_extend_core(
-                packed["attn"], x, cache, cfg.attn, use_flash=use_flash,
-                prenorm=(packed["norm1"], cfg.eps), **kw)
-        else:
-            h = rmsnorm(x, packed["norm1"], cfg.eps)
-            out, cache = attention_extend_core(
-                packed["attn"], h, cache, cfg.attn, use_flash=use_flash, **kw)
+        with span(BLOCK_ATTN):
+            if _qkv_prenorm_fusable(packed["attn"], cfg.attn, compute_dtype, use_kernel):
+                out, cache = attention_extend_core(
+                    packed["attn"], x, cache, cfg.attn, use_flash=use_flash,
+                    prenorm=(packed["norm1"], cfg.eps), **kw)
+            else:
+                h = rmsnorm(x, packed["norm1"], cfg.eps)
+                out, cache = attention_extend_core(
+                    packed["attn"], h, cache, cfg.attn, use_flash=use_flash, **kw)
         return _fused_tail(packed, out, x, cfg, compute_dtype), cache
-    h = rmsnorm(x, packed["norm1"], cfg.eps)
-    att, cache = attention_extend(packed["attn"], h, cache, cfg.attn,
-                                  use_flash=use_flash, **kw)
-    x = x + att
+    with span(BLOCK_ATTN):
+        h = rmsnorm(x, packed["norm1"], cfg.eps)
+        att, cache = attention_extend(packed["attn"], h, cache, cfg.attn,
+                                      use_flash=use_flash, **kw)
+        x = x + att
     return _mlp_half(packed, x, cfg, _make_spmm(compute_dtype, use_kernel),
                      compute_dtype, use_kernel), cache
 
