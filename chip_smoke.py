@@ -6,8 +6,11 @@ which exits non-zero on failure:
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every CUDA kernel of the path from the sources in the checkout,
-   and count the HMMA and IMMA instructions in B1's SASS (``cuobjdump``):
-   its bf16 and W2A8 modes run on ``mma.sync``, so both must be there; and
+   and count the HMMA, IMMA and HGMMA instructions in B1's SASS
+   (``cuobjdump``): its bf16 and W2A8 modes run on ``mma.sync`` and its
+   wide bf16 body on ``wgmma``, so all three must be there, the wide
+   body's registers and spills (none) and any wgmma serialisation ptxas
+   reports logged; and
    the HMMA in ``flash_attention.cu``'s SASS (B9's and B9p's bf16 body;
    as many as the first port's, ``B9_PARENT_HMMA``: the CUDA-core body has
    none) and in ``bcsr_spmm.cu``'s (B2's mma body), with the registers and
@@ -20,7 +23,10 @@ which exits non-zero on failure:
    mode, at the test shapes and the headline shapes, with and without bias
    and PReLU, and the launch counter rising once per call; B1's row
    identity: in bf16 and int8, rows of M = 2, 5, 16, 17, 64 and 256 calls
-   bitwise the M = 1 calls, at 1024×8192 and 4096×4096; C1's reading: B1's
+   bitwise the M = 1 calls, at 1024×8192 and 4096×4096, and the wide bf16
+   body at two shapes ``tile_for`` routes to it (4097×2560×6912,
+   8192×6912×2560): against plain, counted in ``launches_wide``, bitwise
+   the 64×128 tile, its rows bitwise the M = 1 calls; C1's reading: B1's
    f32 headline call and the library's f32 product against f64 beside C1's
    limits (B1's RMS error at most 1.25× the library's, its largest at most
    2×), logged (C1 is a measured precision gap, ROADMAP queue B);
@@ -38,7 +44,10 @@ which exits non-zero on failure:
    ``torch.matmul`` on the dense bf16 W, per call and on the device (the
    profiler); B1's device time in bf16 and
    int8 under each of its four tiles at the paths' shapes, every tile's
-   output bitwise equal; B1's f32 body under each of its four tiles at
+   output bitwise equal; B1 in bf16 at the LM prefill's projections and
+   head at M = 16,384 (``B1_WIDE_SHAPES``) on the wide body and on the
+   64×128 tile, bitwise equal, beside the bound and ``torch.matmul`` bf16
+   on the dense W; B1's f32 body under each of its four tiles at
    those shapes, ``entry()``'s three layers, 32×1024×1024 and two ragged
    K, every tile's output bitwise ``packed_spmm_f32_chain``, device µs by
    tile beside ``torch.matmul`` f32 (TF32 off); its K order
@@ -464,6 +473,101 @@ def time_b1_tiles(torch, dev) -> None:
         f"{m}x{k}x{n} {str(c).split('.')[1]} {v:.2f} us" for (m, k, n, c), v in picked.items()))
 
 
+# the LM prefill's B1 shapes at its longest request (4 prompts of 4096
+# tokens; ternary-lm-2b): the fused QKV and the output projection, K and V,
+# the MLP's up and down projections, and the head
+B1_WIDE_SHAPES = ((16384, 2560, 2560), (16384, 2560, 640), (16384, 2560, 6912),
+                  (16384, 6912, 2560), (16384, 2560, 128256))
+
+
+def check_b1_wide(torch, dev, gen) -> None:
+    """Phase 3: B1's wide bf16 body at shapes ``tile_for`` routes to it
+    (ragged M, K of 13.5 groups): within 1e-5 of the plain version (f32 X
+    and Y), counted in ``packed_spmm.launches_wide``, bitwise the same call
+    on the 64x128 tile, and its rows bitwise the M = 1 calls."""
+    from smmb_tpu_torch.formats.packed import pack_ternary_device
+    from smmb_tpu_torch.kernels.packed_spmm import (
+        WIDE_TILE,
+        packed_spmm,
+        packed_spmm_plain,
+        tile_for,
+    )
+    from smmb_tpu_torch.utils import rng
+
+    bf16 = torch.bfloat16
+    for (m, k, n) in ((4097, 2560, 6912), (8192, 6912, 2560)):
+        p = pack_ternary_device(rng.rand_ternary(gen, (k, n), non_zero=2))
+        b, x = rng.rand_dense(gen, (n,)), rng.rand_dense(gen, (m, k))
+        check(tile_for(m, n, bf16)[:2] == WIDE_TILE, f"tile_for keeps {m}x{n} off the wide body")
+        before = packed_spmm.launches_wide
+        y = packed_spmm(x, p, b, ALPHA, compute_dtype=bf16)
+        check(packed_spmm.launches_wide == before + 1, f"launches_wide at {m}x{k}x{n}")
+        small = packed_spmm(x, p, b, ALPHA, compute_dtype=bf16, block_m=64, block_n=128)
+        ref = packed_spmm_plain(x, p, b, ALPHA, compute_dtype=bf16)
+        rows = (0, 1, 127, 128, m // 2, m - 1)
+        ones = torch.cat([packed_spmm(x[r:r + 1], p, b, ALPHA, compute_dtype=bf16)
+                          for r in rows])
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        check(err <= 1e-5 * max(1.0, float(ref.abs().max())),
+              f"B1 wide body vs plain at {m}x{k}x{n}: err {err:.3e}")
+        check(torch.equal(y, small), f"B1 wide body != the 64x128 tile at {m}x{k}x{n}")
+        check(torch.equal(y[list(rows)], ones), f"B1 wide rows != M=1 calls at {m}x{k}x{n}")
+        log(f"B1 wide body at {m}x{k}x{n}: err {err:.3e} vs plain, bitwise the 64x128 tile "
+            f"and rows {rows} bitwise the M=1 calls")
+
+
+def time_b1_wide(torch, dev, spec) -> list:
+    """Phase 5: B1 in bf16 at the LM prefill's shapes (``B1_WIDE_SHAPES``):
+    device µs (the profiler) on the tile ``tile_for`` picks (the wide body)
+    and forced onto the 64x128 tile, bitwise equal, beside the bound at
+    density 1/2 (``bench/roofline.py``) and ``torch.matmul`` bf16 on the
+    dense W. Returns a JSON row a shape."""
+    from smmb_tpu_torch.bench.flops import sparse_flops, spmm_bytes
+    from smmb_tpu_torch.bench.roofline import roofline_bound
+    from smmb_tpu_torch.formats.packed import pack_ternary_device, unpack_ternary
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, tile_for
+    from smmb_tpu_torch.utils import rng
+
+    gen = rng.make_generator(27, dev)
+    rows = []
+    for (m, k, n) in B1_WIDE_SHAPES:
+        w = rng.rand_ternary(gen, (k, n), non_zero=2)
+        nnz = int(torch.count_nonzero(w))
+        p = pack_ternary_device(w, nnz=nnz)
+        wd = unpack_ternary(p).to(torch.bfloat16)
+        del w
+        x = rng.rand_dense(gen, (m, k), dtype=torch.bfloat16)
+        pick = tile_for(m, n, torch.bfloat16)[:2]
+        y = packed_spmm(x, p, compute_dtype=torch.bfloat16)
+        y64 = packed_spmm(x, p, compute_dtype=torch.bfloat16, block_m=64, block_n=128)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y64), f"B1 wide body != the 64x128 tile at {m}x{k}x{n}")
+        del y, y64
+        n_calls = 5 if n > 100000 else 20
+        us = _device_us(lambda: packed_spmm(x, p, compute_dtype=torch.bfloat16), n_calls)
+        us64 = _device_us(lambda: packed_spmm(x, p, compute_dtype=torch.bfloat16, block_m=64,
+                                              block_n=128), n_calls)
+        lib = _device_us(lambda: torch.matmul(x, wd), n_calls)
+        bound_s, bound_by = roofline_bound(
+            sparse_flops(m, n, nnz), spmm_bytes(m, n, k, weight_bytes=p.weight_bytes(),
+                                                x_itemsize=2, y_itemsize=2, bias=False),
+            spec, "bf16")
+        dense_s, _ = roofline_bound(2.0 * m * n * k, 0, spec, "bf16")
+        row = {"b1_wide_device_us": [m, k, n], "tile_for": list(pick), "us": us,
+               "us_64x128": us64, "speedup": us64 / us, "matmul_bf16_us": lib,
+               "bound_us": bound_s * 1e6, "bound_by": bound_by,
+               "roofline_share": bound_s * 1e6 / us, "dense_bound_us": dense_s * 1e6,
+               "bitwise_64x128": True}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del wd, x
+    log("B1 bf16 at the prefill's shapes, device us tile_for's / 64x128 / torch.matmul: "
+        + ", ".join(f"{'x'.join(map(str, r['b1_wide_device_us']))} {r['us']:.1f} / "
+                    f"{r['us_64x128']:.1f} / {r['matmul_bf16_us']:.1f}" for r in rows))
+    return rows
+
+
 # B1's f32 body timed under each tile (phase 5): time_b1_tiles's shapes,
 # entry()'s three layers, the LM prefill's projections and two ragged K
 B1_F32_SHAPES = ((256, 4096, 4096), (1, 4096, 4096), (1, 1024, 8192), (32, 1024, 3072),
@@ -596,11 +700,22 @@ def main() -> int:
                 f"spill stores, {loads} bytes spill loads")
     else:
         log("packed_spmm.cu was up to date: no ptxas report this run")
+    if "packed_spmm.cu" in build_logs:
+        for (ot,), regs, stores, loads in _ptxas_kernels(
+                build_logs["packed_spmm.cu"], r"packed_spmm_mma_wgI(f|13__nv_bfloat16)E"):
+            log(f"B1 packed_spmm_mma_wg<{'f32' if ot == 'f' else 'bf16'} out>: {regs} "
+                f"registers, {stores} bytes spill stores, {loads} bytes spill loads")
+            check(stores + loads == 0, "B1's wide bf16 body spills")
+        serial = [line.strip() for line in build_logs["packed_spmm.cu"].splitlines()
+                  if "C7512" in line or "serialized" in line]
+        log(f"B1 wgmma serialization warnings: {serial or 'none'}")
     sass = _sass(_build.library_path("packed_spmm.cu"))
-    hmma, imma = sass.count("HMMA"), sass.count("IMMA")
-    log(f"packed_spmm.cu SASS: {hmma} HMMA, {imma} IMMA")
+    hmma, imma, hgmma = sass.count("HMMA"), sass.count("IMMA"), sass.count("HGMMA")
+    log(f"packed_spmm.cu SASS: {hmma} HMMA, {imma} IMMA, {hgmma} HGMMA")
     check(hmma > 0, "B1's bf16 mode has no HMMA in its SASS")
     check(imma > 0, "B1's W2A8 mode has no IMMA in its SASS")
+    # its wide bf16 body runs on the warpgroup MMA: HGMMA (wgmma)
+    check(hgmma > 0, "B1's wide bf16 body has no HGMMA in its SASS")
     # B9's and B9p's bf16 body runs on mma.sync: HMMA in flash_attention.cu
     fa_hmma = _sass(_build.library_path("flash_attention.cu")).count("HMMA")
     log(f"flash_attention.cu SASS: {fa_hmma} HMMA (the first port's CUDA-core body beside "
@@ -708,6 +823,7 @@ def main() -> int:
                       f"{cdt} {k}x{n} (tile {tile_for(m, n, cdt)})")
         log(f"B1 rows of M in (2, 5, 16, 17, 64, 256) == M=1 calls at {k}x{n}, "
             "bf16 and int8")
+    check_b1_wide(torch, dev, gen)
     x3 = rng.rand_dense(gen, (3, 4, 512))
     p3 = pack_ternary_device(rng.rand_ternary(gen, (512, 256)))
     y3 = packed_spmm(x3, p3, None, ALPHA)
@@ -836,6 +952,7 @@ def main() -> int:
                           "library_device_us": _device_us(lambda: torch.matmul(x1b, w1))}
         print(json.dumps(m1_rows[label]), flush=True)
     time_b1_tiles(torch, dev)
+    time_b1_wide(torch, dev, spec)
     f32_tiles = time_b1_f32(torch, dev)
     order = _b1_order_rows(torch, dev)
     for r in order:
@@ -902,7 +1019,7 @@ def main() -> int:
         "bound_ms": main_mode["bound_ms"],
         "bound_by": main_mode["bound_by"],
         "library_ms": main_mode["library_ms"],
-        "design": "mma.sync",
+        "design": "mma.sync; bf16 at large M: wgmma fed by TMA",
     }, *bcsr_rows, *fused_rows, *flash_rows, *int8_rows, *pipe_rows]}
     lm_tp, a4b = par["lm"], par["a4b"]
     moe_tp = a4b["moe_lm"]
@@ -5597,7 +5714,7 @@ def _a5_tune_mode(torch, autotune, x, p, cdt) -> dict:
     import io
 
     from smmb_tpu_torch.bench.measure import measure_device
-    from smmb_tpu_torch.kernels.packed_spmm import MMA_TILES, packed_spmm, tile_for
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, tile_for, tiles_of
 
     m, k, n, nz = A5_SHAPE
     mode = str(cdt).split(".")[1]
@@ -5611,10 +5728,10 @@ def _a5_tune_mode(torch, autotune, x, p, cdt) -> dict:
         cand, _, us = line.strip().rpartition(": ")
         c = json.loads(cand)
         cands[f"{c['block_m']}x{c['block_n']}"] = float(us.split()[0])
-    pick = (cfg["block_m"], cfg["block_n"])
-    check(set(cfg) == {"block_m", "block_n"} and pick in MMA_TILES,
-          f"autotune {mode} picked {cfg}, not one of {MMA_TILES}")
-    check(len(cands) == len(MMA_TILES), f"autotune {mode} timed {cands}")
+    pick, tiles = (cfg["block_m"], cfg["block_n"]), tiles_of(cdt)
+    check(set(cfg) == {"block_m", "block_n"} and pick in tiles,
+          f"autotune {mode} picked {cfg}, not one of {tiles}")
+    check(len(cands) == len(tiles), f"autotune {mode} timed {cands}")
 
     def no_timer(*a, **kw):
         raise AssertionError("autotune measured on a cached key")
@@ -5655,7 +5772,9 @@ def _a5_cli(tmp) -> dict:
     --dtype bf16`` in a subprocess prints one JSON config as its last line."""
     import os
 
-    from smmb_tpu_torch.kernels.packed_spmm import MMA_TILES
+    import torch
+
+    from smmb_tpu_torch.kernels.packed_spmm import tiles_of
 
     env = {**os.environ, "SMMB_TORCH_AUTOTUNE_CACHE": os.path.join(tmp, "cli.json")}
     t = time.perf_counter()
@@ -5666,7 +5785,8 @@ def _a5_cli(tmp) -> dict:
     check(cli.returncode == 0, f"autotune CLI exited {cli.returncode}:\n{cli.stderr[-4000:]}")
     lines = cli.stdout.strip().splitlines()
     cfg = json.loads(lines[-1])
-    check(isinstance(cfg, dict) and (cfg.get("block_m"), cfg.get("block_n")) in MMA_TILES,
+    check(isinstance(cfg, dict)
+          and (cfg.get("block_m"), cfg.get("block_n")) in tiles_of(torch.bfloat16),
           f"autotune CLI's last line is not a config: {lines[-1]!r}")
     return {"config": cfg, "seconds": time.perf_counter() - t}
 

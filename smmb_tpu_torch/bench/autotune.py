@@ -3,7 +3,8 @@ smmb_tpu/bench/autotune.py).
 
 B1 has four output tiles in each mode, BM 16|64 by BN 64|128
 (kernels/packed_spmm.py::MMA_TILES for bf16 and int8, ``F32_TILES`` for
-f32), and every tile of a mode gives the same output bitwise; ``tile_for``
+f32), and bf16 a fifth, the wide body's 128×256 (``tiles_of``); every tile
+of a mode gives the same output bitwise; ``tile_for``
 picks one by a rule of M and N. This utility times each candidate for one (M, K, N, dtype) on the card with
 ``bench/measure.py::measure_device`` and caches the fastest in a JSON file,
 so that a deployment can pin it:
@@ -34,7 +35,7 @@ import torch
 
 from smmb_tpu_torch.bench.measure import HOST_CALLS, measure_device, measure_host
 from smmb_tpu_torch.formats.packed import pack_ternary_device
-from smmb_tpu_torch.kernels.packed_spmm import F32_TILES, MMA_TILES, packed_spmm
+from smmb_tpu_torch.kernels.packed_spmm import packed_spmm, tiles_of
 from smmb_tpu_torch.utils import rng
 from smmb_tpu_torch.utils.device import resolve_device
 
@@ -45,10 +46,9 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
 
 
 def default_candidates(m: int, dtype) -> list:
-    """The kernel's tiles for ``dtype`` (every M takes the same four: the
-    tile changes the grid, not the sums)."""
-    tiles = F32_TILES if dtype == torch.float32 else MMA_TILES
-    return [{"block_m": bm, "block_n": bn} for bm, bn in tiles]
+    """The kernel's tiles for ``dtype`` (every M takes the same ones: the
+    tile changes the grid, not the sums; bf16 has its wide tile too)."""
+    return [{"block_m": bm, "block_n": bn} for bm, bn in tiles_of(dtype)]
 
 
 def _key(m, k, n, dtype, device) -> str:

@@ -76,13 +76,16 @@ def _session(fn, args, warm: int, n_calls: int, card: bool):
 
 
 def _kernel_events(prof) -> list:
-    """The device kernels of a session's measured step (the schedule's step
-    annotation spans the step on the device too, and is left out)."""
+    """The device kernels of a session's measured step. Annotations are left
+    out: the schedule's step, and each ``utils/spans.py`` span around the
+    calls, which the profiler records on the device too (a ``kernel.B1``
+    row would double B1's time)."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not e.key.startswith("ProfilerStep")]
+            and not e.key.startswith("ProfilerStep")
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def capture_trace(fn, *args, trace_dir: str = TRACE_DIR, n_calls: int = 3) -> str:

@@ -7,7 +7,7 @@
 // in packed_decode.cuh, shared with fused_mlp.cu; the cp.async, ldmatrix
 // and mma wrappers in mma_sm90.cuh, shared with flash_attention.cu.
 //
-// Two kernels, one per kind of arithmetic:
+// Three kernels, by kind of arithmetic and size of M:
 //   * packed_spmm_float (f32 parity mode): CUDA cores, f32 FMA, no TF32.
 //     - One f32 register an output takes fmaf(x, w, acc) in one K order:
 //       chunk by chunk of PK = 8 packed rows, in a chunk plane 0's 8 logical
@@ -52,11 +52,48 @@
 //       no atomics. PK does not depend on the tile, so row r of an M-row
 //       call equals the M = 1 call bitwise whatever tile the wrapper picks
 //       (BM 16 or 64 by M, BN 64/128 so that the grid fills about a wave).
+//   * packed_spmm_mma_wg (bf16 at large M: the 128 x 256 tile, where its
+//     grid has 40 blocks or more and rows copy in 16-byte pieces): the
+//     warpgroup MMA (wgmma m64n128k16 bf16 -> f32) on Y^T = W^T X^T.
+//     - The instruction was settled by a probe on the card
+//       (scripts/torch_b1_wgmma_probe.py, H100): a wgmma k16 step into an
+//       f32 register gives the bits of mma.sync m16n8k16 on the same
+//       operands in the same order (0 of 2 x 1,048,576 outputs differed over
+//       128 chained steps, X spread over 2^-24..2^24 and normal, W ternary).
+//       So wgmma, with the operands swapped: decoded W is the register A
+//       operand (64 W columns an instruction), X's 128 rows the B operand
+//       read from shared memory, so each decoded register feeds 128 rows
+//       and X crosses shared memory once a warpgroup's two m64 tiles.
+//     - Warpgroup 2's first lane is the producer (setmaxnreg 40): a ring of
+//       WG_STAGES = 5 K chunks filled by TMA on mbarriers, X as four boxes
+//       of TC_PK columns x 128 rows (one a plane run, in the (plane, packed
+//       row) K order; 64-byte swizzle, wgmma's descriptor layout), W's raw
+//       bytes as one 128-column box a consumer warpgroup (128-byte swizzle:
+//       a warp's 32-bit loads of rows 2t.. hit 32 banks). TMA's zero fill
+//       takes ragged M, N and K (6912 = 13.5 groups of 512).
+//     - Warpgroups 0 and 1 consume (setmaxnreg 232; without it ptxas
+//       serialises the wgmmas): 128 W columns each as two m64 tiles. A
+//       lane's rows g, g + 8 of both tiles are four adjacent W columns, so
+//       one 32-bit load a packed row feeds bf16_pair's decode of all four
+//       planes' A fragments; two wgmmas a step, one commit group a step, at
+//       most two in flight; a chunk's slot is released when the next
+//       chunk's first group is waited on. Its outputs are four adjacent
+//       columns of 32 rows: one 8- or 16-byte store a row.
+//     - The K walk is packed_spmm_mma's (chunks in order, steps (u, i) in
+//       order, one f32 register an output from zero, no split-K, no
+//       atomics), so its outputs are the small tiles' bit for bit.
+//     - Bound at the prefill's shapes: operations. At 16384 x 2560 x 2560
+//       the dense bf16 rate needs 0.217 ms (0.109 counting only density
+//       1/2's non-zeros); the body took 0.313 ms, 69% of the dense rate,
+//       against the 64 x 128 tile's 0.92 (an H100 80GB HBM3 at 700 W).
+//       What is left: one tile a block (no persistent grid), so each
+//       block's TMA fill and epilogue are not overlapped with another
+//       tile's MMAs, and W's decode in the consumers' issue slots.
 //   * Rows that cannot be copied in 16-byte pieces (K or N not a multiple
 //     of the piece, or a misaligned pointer) take element loads into the
 //     same shared layout (template flag ALIGNED, chosen by the wrapper), in
-//     both kernels.
-//   * Epilogue (both kernels): dequant as __fmul_rn(float(acc), scale),
+//     packed_spmm_float and packed_spmm_mma.
+//   * Epilogue (every kernel): dequant as __fmul_rn(float(acc), scale),
 //     f32 bias with __fadd_rn, PReLU as !(v > 0), store in the output
 //     dtype; rounded like the reference's separate multiply and add.
 //   * Ragged M, N and K edges are zero in shared memory: K need not be a
@@ -71,6 +108,8 @@
 // those passes would change its sums). On the CUDA cores the f32 mode's own
 // ceiling is the f32 rate: 2 M N K / 66.9 TFLOP/s, 0.128 ms at the headline.
 // At M = 1 every mode is bound by W's bytes.
+
+#include <cuda.h>
 
 #include <type_traits>
 
@@ -647,6 +686,317 @@ cudaError_t launch_mma(const void* x, const void* w, const void* bias,
   return cudaSuccess;
 }
 
+// ---- bf16 mode at large M: warpgroup MMA fed by TMA (packed_spmm_mma_wg)
+
+constexpr int WG_BM = 128;       // X rows a tile (wgmma N)
+constexpr int WG_BN = 256;       // W columns a tile: 128 a consumer warpgroup
+constexpr int WG_STAGES = 5;     // TMA ring depth (K chunks of TC_PK packed rows)
+constexpr int WG_XPLANE = WG_BM * TC_PK * 2;          // one plane run of X: 8 KB
+constexpr int WG_WBOX = TC_PK * 128;                  // one warpgroup's W bytes: 4 KB
+constexpr int WG_STAGE = 4 * WG_XPLANE + 2 * WG_WBOX;  // 40 KB
+constexpr int WG_THREADS = 384;  // warpgroups 0, 1: consumers; 2: the TMA producer
+constexpr int WG_SMEM = WG_STAGES * WG_STAGE + 2 * WG_STAGES * 8 + 1024;  // + barriers, alignment
+
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// a 2-D box of `map` at (c0 innermost, c1) into shared memory at dst,
+// completing on `bar`; the parts past the tensor's edges read as zero
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map, int c0,
+                                         int c1, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of one X plane run (rows of 64 bytes,
+// 64-byte swizzle as TMA wrote them; 8-row groups 512 bytes apart; the
+// leading offset, unused under a swizzle, is 1)
+__device__ __forceinline__ uint64_t x_desc(unsigned addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// D(64 x 128, f32) += A(64 x 16, bf16, registers) * B(16 x 128, bf16, desc)
+__device__ __forceinline__ void wgmma_128(float (&d)[64], const unsigned (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// keep the compiler from moving the computation of registers that an
+// asynchronous wgmma reads or writes across the asm statements around it
+template <typename R, int N>
+__device__ __forceinline__ void pin(R (&r)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    if constexpr (std::is_same<R, float>::value)
+      asm volatile("" : "+f"(r[e])::"memory");
+    else
+      asm volatile("" : "+r"(r[e])::"memory");
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                                            *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// The producer: one lane keeps WG_STAGES K chunks in flight by TMA, each
+// chunk's X as four plane runs of TC_PK columns (64-byte swizzle) and W's
+// raw bytes as one box a consumer warpgroup (128-byte swizzle), on the
+// chunk's `full` barrier; a slot is filled again once both warpgroups have
+// released it on its `empty` barrier.
+__device__ __forceinline__ void wg_produce(const CUtensorMap* tmx, const CUtensorMap* tmw,
+                                           unsigned base, unsigned full0, unsigned empty0,
+                                           int m0, int n0, int nch) {
+  for (int c = 0; c < nch; ++c) {
+    const int s = c % WG_STAGES;
+    if (c >= WG_STAGES) mbar_wait(empty0 + 8 * s, ((c / WG_STAGES) & 1) ^ 1);
+    const unsigned st = base + s * WG_STAGE, bar = full0 + 8 * s;
+    mbar_expect_tx(bar, WG_STAGE);
+    const int pr0 = c * TC_PK, col0 = (pr0 / SUB) * GROUP_ROWS + pr0 % SUB;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tma_load(st + i * WG_XPLANE, tmx, col0 + i * SUB, m0, bar);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      tma_load(st + 4 * WG_XPLANE + h * WG_WBOX, tmw, n0 + 128 * h, pr0, bar);
+  }
+}
+
+// A consumer warpgroup q: W columns 128q..128q+127 of the tile as two m64
+// tiles. Lane (g, t) of its warp wq holds rows g and g + 8 of both tiles:
+// W columns 32wq + 4g + {0, 1} (tile 0) and + {2, 3} (tile 1), so one
+// 32-bit load a packed row brings its four columns' bytes, decoded in
+// registers into the A fragments of all four planes. Its outputs are four
+// adjacent columns of 32 rows: one 8- or 16-byte store a row.
+template <typename OT>
+__device__ __forceinline__ void wg_consume(const uint8_t* smem_raw, unsigned base,
+                                           unsigned full0, unsigned empty0, int m0, int n0,
+                                           int nch, int q, int wq, int lane,
+                                           const float* __restrict__ bias,
+                                           OT* __restrict__ out, int m, int n, int has_alpha,
+                                           float alpha) {
+  const int g = lane / 4, t = lane % 4;
+  const int cb = 32 * wq + 4 * g;  // this lane's first column in its warpgroup's box
+  float acc[2][64];
+#pragma unroll
+  for (int T = 0; T < 2; ++T)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[T][e] = 0.f;
+  pin(acc[0]);
+  pin(acc[1]);
+
+  for (int c = 0; c < nch; ++c) {
+    const int s = c % WG_STAGES;
+    mbar_wait(full0 + 8 * s, (c / WG_STAGES) & 1);
+    const unsigned st = base + s * WG_STAGE;
+    const uint8_t* wbox =
+        smem_raw + (st + 4 * WG_XPLANE + q * WG_WBOX - smem_addr(smem_raw));
+#pragma unroll
+    for (int u = 0; u < TC_PK / 16; ++u) {
+      // packed rows r, r + 1 (k 2t, 2t + 1) and r + 8, r + 9 (k 2t + 8, 2t + 9)
+      // of this lane's four columns; byte (row, col) of the box lies at
+      // row * 128 + ((col / 16) ^ (row % 8)) * 16 + col % 16
+      unsigned wr[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 16 * u + 2 * t + (j & 1) + 8 * (j >> 1);
+        wr[j] = *reinterpret_cast<const unsigned*>(
+            wbox + r * 128 + (((cb >> 4) ^ (r & 7)) << 4) + (cb & 15));
+      }
+      // two columns' bytes of rows (r, r + 1) a 16-bit half each
+      const unsigned p01 = __byte_perm(wr[0], wr[1], 0x5140);
+      const unsigned p23 = __byte_perm(wr[0], wr[1], 0x7362);
+      const unsigned q01 = __byte_perm(wr[2], wr[3], 0x5140);
+      const unsigned q23 = __byte_perm(wr[2], wr[3], 0x7362);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        unsigned a0[4] = {bf16_pair(p01, i), bf16_pair(p01 >> 16, i), bf16_pair(q01, i),
+                          bf16_pair(q01 >> 16, i)};
+        unsigned a1[4] = {bf16_pair(p23, i), bf16_pair(p23 >> 16, i), bf16_pair(q23, i),
+                          bf16_pair(q23 >> 16, i)};
+        const uint64_t desc = x_desc(st + i * WG_XPLANE + u * 32);
+        pin(a0);
+        pin(a1);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wgmma_128(acc[0], a0, desc);
+        wgmma_128(acc[1], a1, desc);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        // the first step of chunk c done waiting: chunk c - 1's steps are done
+        if (u == 0 && i == 0 && c > 0 && lane == 0)
+          mbar_arrive(empty0 + 8 * ((c - 1) % WG_STAGES));
+      }
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  pin(acc[0]);
+  pin(acc[1]);
+
+  // acc[T][4j + e + 2h] is W column cb + 2T + h, X row 8j + 2t + e
+  const int col = n0 + 128 * q + cb;
+  if (col >= n) return;  // n is a multiple of 16: four columns in or out
+  float bv[4] = {0.f, 0.f, 0.f, 0.f};
+  if (bias != nullptr) {
+#pragma unroll
+    for (int c4 = 0; c4 < 4; ++c4) bv[c4] = bias[col + c4];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = m0 + 8 * j + 2 * t + e;
+      if (row >= m) continue;
+      float v[4];
+#pragma unroll
+      for (int c4 = 0; c4 < 4; ++c4) {
+        float y = acc[c4 >> 1][4 * j + e + 2 * (c4 & 1)];
+        if (bias != nullptr) y = __fadd_rn(y, bv[c4]);
+        if (has_alpha && !(y > 0.f)) y = __fmul_rn(alpha, y);
+        v[c4] = y;
+      }
+      store4(out + static_cast<size_t>(row) * n + col, v);
+    }
+}
+
+// bf16 mode, Y^T = W^T X^T on the warpgroup MMA: a 128 x 256 output tile,
+// K chunks of TC_PK packed rows in order and, in a chunk, MMA steps (u, i)
+// in order (packed rows 16u..16u+15 of plane i), one f32 register an output
+// from zero: packed_spmm_mma's K walk, so its bits (wgmma's k16 step rounds
+// as mma.sync's, scripts/torch_b1_wgmma_probe.py). Warpgroups 0 and 1
+// consume, warpgroup 2's first lane produces; setmaxnreg moves registers
+// from the producer to the consumers (ptxas serialises the wgmmas without
+// them).
+template <typename OT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+packed_spmm_mma_wg(const __grid_constant__ CUtensorMap tmx,
+                   const __grid_constant__ CUtensorMap tmw, const float* __restrict__ bias,
+                   OT* __restrict__ out, int m, int n, int kp, int has_alpha, float alpha) {
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled boxes want 1024-byte alignment
+  const unsigned base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const unsigned full0 = base + WG_STAGES * WG_STAGE, empty0 = full0 + WG_STAGES * 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m0 = blockIdx.y * WG_BM, n0 = blockIdx.x * WG_BN;
+  const int nch = kp / TC_PK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp == 8 && lane == 0) wg_produce(&tmx, &tmw, base, full0, empty0, m0, n0, nch);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    wg_consume<OT>(smem_raw, base, full0, empty0, m0, n0, nch, warp / 4, warp % 4, lane, bias,
+                   out, m, n, has_alpha, alpha);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                           12000, cudaEnableDefault, &q);
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 2-D row-major tensor (rows x cols elements of `bytes` each) cut in
+// boxes of box_rows x box_cols, swizzled; the edges read as zero
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int bytes, const void* ptr,
+               uint64_t rows, uint64_t cols, uint32_t box_cols, uint32_t box_rows,
+               CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename OT>
+cudaError_t launch_wide(const void* x, const void* w, const void* bias, void* out, int m,
+                        int k, int n, int kp, int has_alpha, float alpha,
+                        cudaStream_t stream) {
+  CUtensorMap tmx, tmw;
+  if (!encode_2d(&tmx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, m, k, TC_PK, WG_BM,
+                 CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode_2d(&tmw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, kp, n, 128, TC_PK,
+                 CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  auto kern = packed_spmm_mma_wg<OT>;
+  static bool raised[64] = {};
+  const cudaError_t e = raise_smem(kern, WG_SMEM, raised);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + WG_BN - 1) / WG_BN, (m + WG_BM - 1) / WG_BM);
+  kern<<<grid, WG_THREADS, WG_SMEM, stream>>>(tmx, tmw, static_cast<const float*>(bias),
+                                              static_cast<OT*>(out), m, n, kp, has_alpha,
+                                              alpha);
+  return cudaSuccess;
+}
+
 template <bool INT8, bool ALIGNED, typename OT>
 cudaError_t dispatch_tile(int bm, int bn, const void* x, const void* w,
                           const void* bias, const void* scale, void* out, int m,
@@ -692,6 +1042,9 @@ cudaError_t launch(const void* x, const void* w, const void* bias,
   if (x_mode == 0)
     return dispatch_float<false, OT>(bm, bn, x, w, bias, out, m, k, n, kp,
                                      has_alpha, alpha, stream);
+  if (x_mode == 1 && bm == WG_BM && bn == WG_BN)  // TMA wants 16-byte rows
+    return aligned ? launch_wide<OT>(x, w, bias, out, m, k, n, kp, has_alpha, alpha, stream)
+                   : cudaErrorInvalidValue;
   const bool int8 = x_mode == 2;
   if (int8 && aligned)
     return dispatch_tile<true, true, OT>(bm, bn, x, w, bias, scale, out, m, k,
@@ -712,9 +1065,9 @@ cudaError_t launch(const void* x, const void* w, const void* bias,
 // out_bf16: 0 = f32 output, 1 = bf16 output. bias may be null.
 // w is int8[kp, n] with kp a multiple of 128 (K padded to 512 rows).
 // bm x bn: the tile (16 or 64 x 64 or 128, chosen by the wrapper), in
-// every mode. aligned: X and W rows may be copied in 16-byte pieces (K a
-// multiple of 16 / XB, N of 16, both pointers 16-byte aligned); else
-// element loads.
+// every mode, and 128 x 256 in bf16 (the wide body; aligned calls only).
+// aligned: X and W rows may be copied in 16-byte pieces (K a multiple of
+// 16 / XB, N of 16, both pointers 16-byte aligned); else element loads.
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int smmb_packed_spmm(const void* x, const void* w, const void* bias,
                                 const void* scale, void* out, int m, int k,

@@ -4,8 +4,8 @@ and its plain PyTorch version.
 Replaces the Pallas TPU kernel ``smmb_tpu/kernels/packed_spmm.py::packed_spmm``
 (``pallas_call`` at :388, body ``_kernel`` at :50). The kernel is
 ``csrc/packed_spmm.cu``, built with ``nvcc`` for ``sm_90a`` at first use
-(``_build.py``) and called through ctypes. Two designs, one per kind of
-arithmetic, neither with split-K or atomics:
+(``_build.py``) and called through ctypes. Three designs, by kind of
+arithmetic and size of M, none with split-K or atomics:
 
 - f32 mode (the parity mode, never TF32): CUDA cores, one f32 FMA chain an
   output in one K order (``packed_spmm_f32_chain`` states it in plain
@@ -23,6 +23,14 @@ arithmetic, neither with split-K or atomics:
   ``ldmatrix``; a ring of K chunks of ``K_CHUNK`` packed rows. The tile is
   ``tile_for(m, n)``: BM 16 or 64 by M, BN 64/128 so that the grid fills
   about one wave of the card's 132 SMs.
+- bf16 at large M (``WIDE_TILE``, 128×256, where its grid has at least
+  ``WIDE_MIN_BLOCKS`` blocks and the rows copy in 16-byte pieces): the
+  warpgroup MMA (``wgmma``, whose k16 step rounds as ``mma.sync``'s:
+  ``scripts/torch_b1_wgmma_probe.py``) on ``Yᵀ = Wᵀ·Xᵀ``, decoded W the
+  register operand, X and W's raw bytes
+  brought by TMA through a ring that one producer lane keeps full for two
+  consumer warpgroups; the same K walk, so the same bits.
+  ``packed_spmm.launches_wide`` counts its calls.
 
 In every mode ``block_m``/``block_n`` may name another tile of the mode
 (``bench/autotune.py`` times them). Each output element sums in one register
@@ -30,7 +38,8 @@ in the same K order for every tile, so row r of an M-row call equals the
 M=1 call bitwise, and every tile gives the same output.
 
 Bound on this card: at the M=256, K=N=4096, ~10% nnz headline the bytes
-(X, packed W, bias and Y moved once) bound every mode; f32 X times the
+(X, packed W, bias and Y moved once) bound every mode; at the LM prefill's
+M = 4096–16384 the operations bound bf16; f32 X times the
 ternary W is counted at ``bench/roofline.py``'s ``"f32_ternary"`` rate (three
 exact bf16 passes, as B2 runs them), which this f32 mode does not take: the
 passes would change its sums. On the CUDA cores its own ceiling is the f32
@@ -64,30 +73,56 @@ K_CHUNK = 32  # packed rows a K chunk of the tensor-core modes (csrc TC_PK)
 F32_K_CHUNK = 8  # packed rows a K chunk of the f32 mode (csrc PK)
 # the tensor-core modes' (BM, BN) tiles (csrc dispatch_tile instantiates each)
 MMA_TILES = ((16, 64), (16, 128), (64, 64), (64, 128))
+# bf16's large-M tile: the warpgroup-MMA body fed by TMA (csrc
+# packed_spmm_mma_wg); X and W rows must copy in 16-byte pieces
+WIDE_TILE = (128, 256)
 # the f32 mode's (BM, BN) tiles (csrc dispatch_float), largest micro-tile first
 F32_TILES = ((64, 128), (64, 64), (16, 128), (16, 64))
 NUM_SMS = 132  # an H100 SXM's SMs: the grid should fill about one wave
+# the fewest blocks of the wide tile that beat the small tiles on an H100:
+# it lost at 32 blocks and fewer at 3 of 5 shapes, won at every one from 40
+WIDE_MIN_BLOCKS = 40
 
 
-def tile_for(m: int, n: int, compute_dtype=torch.bfloat16) -> tuple[int, int, int]:
+def tiles_of(compute_dtype) -> tuple:
+    """The (BM, BN) tiles the kernel has in ``compute_dtype``'s mode."""
+    if compute_dtype == torch.float32:
+        return F32_TILES
+    return MMA_TILES + (WIDE_TILE,) if compute_dtype == torch.bfloat16 else MMA_TILES
+
+
+def tile_for(m: int, n: int, compute_dtype=torch.bfloat16,
+             aligned: bool = True) -> tuple[int, int, int]:
     """(BM, BN, K chunk in packed rows) of the kernel for an (m, n) output.
 
-    The tensor-core modes take BM = 16 up to M = 32 (M ≤ 16 is one m16
-    fragment; at M = 32 two 16-row blocks of 8 warps were faster on an H100
-    than one 32-row block, so there is no 32-row tile) and BM = 64 above,
-    and BN = 128 when that grid has at least 3/4 of a wave of blocks, else
-    64. The f32 mode takes the first of ``F32_TILES`` (the largest
-    micro-tile first; BM = 64 only above M = 32, where it leaves fewer than
-    half its rows idle) whose grid has at least 3/4 of a wave, else 16×64,
-    the most blocks. The K chunk (``K_CHUNK``, f32 ``F32_K_CHUNK``) does not
-    depend on the tile: the K walk, and so every row's result, does not
-    depend on M.
+    bf16 takes ``WIDE_TILE`` (128×256, the warpgroup-MMA body) when M is at
+    least its 128 rows, its grid has at least ``WIDE_MIN_BLOCKS`` = 40
+    blocks and the rows copy in 16-byte pieces (``aligned``: TMA's rule,
+    ``pieces_aligned``). The threshold is the card's: on an H100 at K =
+    2560, a wide block is a lone SM's ~37 µs, so below about a third of a
+    wave the small tiles' many blocks finish first (0.73–0.91× at 3–32
+    blocks, the MLP's 256×4096 among them), and from 40 blocks the wide
+    body won, 1.4× at 40–64 and 2.1–2.7× from 80 (PERF.md §6).
+    Otherwise the tensor-core modes take BM = 16 up to M = 32 (M ≤ 16 is
+    one m16 fragment; at M = 32 two 16-row blocks of 8 warps were faster on
+    an H100 than one 32-row block, so there is no 32-row tile) and BM = 64
+    above, and BN = 128 when that grid has at least 3/4 of a wave of
+    blocks, else 64. The f32 mode takes the first of
+    ``F32_TILES`` (the largest micro-tile first; BM = 64 only above M = 32,
+    where it leaves fewer than half its rows idle) whose grid has at least
+    3/4 of a wave, else 16×64, the most blocks. The K chunk (``K_CHUNK``,
+    f32 ``F32_K_CHUNK``) does not depend on the tile: the K walk, and so
+    every row's result, does not depend on M.
     """
     if compute_dtype == torch.float32:
         for bm, bn in F32_TILES:
             if (bm == 16 or m > 32) and -(-m // bm) * -(-n // bn) >= NUM_SMS * 3 // 4:
                 break
         return bm, bn, F32_K_CHUNK
+    wm, wn = WIDE_TILE
+    if (compute_dtype == torch.bfloat16 and aligned and m >= wm
+            and -(-m // wm) * -(-n // wn) >= WIDE_MIN_BLOCKS):
+        return wm, wn, K_CHUNK
     bm = 16 if m <= 32 else 64
     rows = -(-m // bm)
     bn = 128 if rows * -(-n // 128) >= NUM_SMS * 3 // 4 else 64
@@ -96,18 +131,21 @@ def tile_for(m: int, n: int, compute_dtype=torch.bfloat16) -> tuple[int, int, in
 
 def check_tile(block_m, block_n, compute_dtype) -> tuple[int, int] | None:
     """(block_m, block_n) checked against the kernel's tiles, or None when
-    both are None (``tile_for`` picks; a None beside a given size stands for
-    ``tile_for``'s size on that side). Every mode has BM in {16, 64} and BN
-    in {64, 128} (``MMA_TILES``, f32 ``F32_TILES``). Any other size raises
-    ``ValueError`` naming the mode's tiles: never a quiet fall back to
-    another tile."""
+    both are None (``tile_for`` picks). Every mode has BM in {16, 64} and BN
+    in {64, 128} (``MMA_TILES``, f32 ``F32_TILES``); a None beside one of
+    those sizes stands for the small tiles' size on that side. bf16 has
+    ``WIDE_TILE`` too, whose one side names it whole. Any other size or
+    pair raises ``ValueError`` naming the mode's tiles: never a quiet fall
+    back to another tile."""
     if block_m is None and block_n is None:
         return None
-    tiles = F32_TILES if compute_dtype == torch.float32 else MMA_TILES
-    bms = sorted({t[0] for t in tiles})
-    bns = sorted({t[1] for t in tiles})
-    if (block_m is not None and block_m not in bms) or (
-            block_n is not None and block_n not in bns):
+    tiles = tiles_of(compute_dtype)
+    wm, wn = WIDE_TILE
+    if WIDE_TILE in tiles and (block_m, block_n) in ((wm, wn), (wm, None), (None, wn)):
+        return WIDE_TILE
+    small = [t for t in tiles if t != WIDE_TILE]
+    if (block_m is not None and block_m not in {t[0] for t in small}) or (
+            block_n is not None and block_n not in {t[1] for t in small}):
         mode = str(compute_dtype).split(".")[-1]
         raise ValueError(f"packed_spmm has no {block_m}x{block_n} tile in {mode}: its tiles "
                          f"(block_m x block_n) are {', '.join(f'{a}x{b}' for a, b in tiles)}")
@@ -232,9 +270,11 @@ def packed_spmm(
         W decodes exactly, so the error comes only from the cast) or int8
         (W2A8: per-row absmax int8 X, int32 sums, per-row dequant).
       block_m, block_n: the kernel's output tile, None to let ``tile_for``
-        pick it (a None beside a given size takes ``tile_for``'s size for
-        that side). Every mode has BM in {16, 64} and BN in {64, 128}; any
-        other size raises ``ValueError``. Every tile of a mode walks K in
+        pick it (a None beside a given size takes the small tiles' size for
+        that side). Every mode has BM in {16, 64} and BN in {64, 128}; bf16
+        has 128×256 too (either side names it; it raises ``ValueError`` on
+        a call whose rows do not copy in 16-byte pieces); any other size
+        raises ``ValueError``. Every tile of a mode walks K in
         the same chunks, so the output is bitwise the same under every tile
         (``bench/autotune.py`` picks the fastest). On the CPU the tile is
         checked, then the plain version runs.
@@ -275,10 +315,17 @@ def packed_spmm(
         out = torch.empty((m, w.cols), dtype=x.dtype, device=x.device)
         if m == 0:
             return out
-        bm, bn, _ = tile_for(m, w.cols, compute_dtype)
-        if tile is not None:
-            bm, bn = tile[0] or bm, tile[1] or bn
         aligned = pieces_aligned(k, w.cols, xq.data_ptr(), w.data.data_ptr(), compute_dtype)
+        if tile is None:
+            bm, bn, _ = tile_for(m, w.cols, compute_dtype, aligned)
+        elif tile == WIDE_TILE:
+            if not aligned:
+                raise ValueError("the 128x256 tile copies X and W by TMA: K must be a multiple "
+                                 "of 8, N of 16, and both 16-byte aligned")
+            bm, bn = tile
+        else:
+            bm, bn, _ = tile_for(m, w.cols, compute_dtype, aligned=False)
+            bm, bn = tile[0] or bm, tile[1] or bn
         fn = _build.packed_spmm_lib().smmb_packed_spmm
         with torch.cuda.device(x.device):
             rc = fn(
@@ -295,7 +342,10 @@ def packed_spmm(
         if rc != 0:
             raise RuntimeError(f"packed_spmm kernel launch failed: CUDA error {rc}")
         packed_spmm.launches += 1
+        if (bm, bn) == WIDE_TILE:
+            packed_spmm.launches_wide += 1
         return out
 
 
 packed_spmm.launches = 0
+packed_spmm.launches_wide = 0  # the calls the wide bf16 body took

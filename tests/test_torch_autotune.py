@@ -89,7 +89,7 @@ def test_a_tile_the_kernel_lacks_raises(mode, kw):
         packed_spmm(tx.reshape(2, 2, 512), tp, compute_dtype=MODES[mode], **kw)
 
 
-@pytest.mark.parametrize("mode,count", [("bf16", 4), ("int8", 4), ("f32", 4)])
+@pytest.mark.parametrize("mode,count", [("bf16", 5), ("int8", 4), ("f32", 4)])
 def test_default_candidates(mode, count):
     cands = autotune.default_candidates(256, MODES[mode])
     assert len(cands) == count

@@ -26,10 +26,12 @@ from smmb_tpu_torch.kernels.packed_spmm import (
     F32_TILES,
     K_CHUNK,
     NUM_SMS,
+    WIDE_TILE,
     packed_spmm,
     pieces_aligned,
     quantize_rows,
     tile_for,
+    tiles_of,
 )
 from smmb_tpu_torch.utils.compare import TOL_DENSE, assert_close
 
@@ -194,17 +196,20 @@ def test_tile_for_every_m(cdt, n):
     chunks = set()
     for m in range(1, 301):
         bm, bn, pk = tile_for(m, n, cdt)
-        assert bm in (16, 64) and bn in (64, 128)
-        assert -(-m // bm) <= 2 or bm == 64, "up to M = 32 two 16-row blocks at most"
+        assert (bm, bn) in tiles_of(cdt)
+        assert (bm, bn) != WIDE_TILE or (cdt == torch.bfloat16 and m >= 128)
+        assert -(-m // bm) <= 2 or bm != 16, "up to M = 32 two 16-row blocks at most"
         assert -(-m // bm) <= 65535 and -(-n // bn) <= 2 ** 31 - 1
         chunks.add(pk)
     assert chunks == {K_CHUNK}
 
 
 def test_tile_for_fills_about_a_wave():
-    # the headline (M=256, N=4096) and the LM head at M=1 (N=8192): 128 blocks
+    # the headline (M=256, N=4096) and the LM head at M=1 (N=8192): 128 blocks;
+    # M=8192 fills a wave of bf16's wide tile
     for m, n, tile in ((256, 4096, (64, 128)), (1, 8192, (16, 64)), (5, 8192, (16, 64)),
-                       (17, 3072, (16, 64)), (32, 3072, (16, 64)), (33, 1024, (64, 64)), (8192, 4096, (64, 128))):
+                       (17, 3072, (16, 64)), (32, 3072, (16, 64)), (33, 1024, (64, 64)),
+                       (8192, 4096, (128, 256))):
         bm, bn, _ = tile_for(m, n)
         assert (bm, bn) == tile
     assert -(-256 // 64) * -(-4096 // 128) <= NUM_SMS

@@ -55,3 +55,28 @@ def test_annotate_context(tmp_path):
 
     d = capture_trace(call, torch.ones((4, 512)), trace_dir=str(tmp_path / "t"), n_calls=3)
     assert sum(e.get("name") == "b1" for e in _events(d)) == 3
+
+
+def test_kernel_events_leave_out_annotations():
+    """A span around a launch (``utils/spans.py``) is recorded on the device
+    as a user annotation, as the session's step is: only kernels count in
+    ``kernel_breakdown``, or a spanned kernel's time would count twice."""
+    import importlib
+    from types import SimpleNamespace as Event
+
+    from torch.autograd import DeviceType
+
+    trace = importlib.import_module("smmb_tpu_torch.bench.trace")
+    cuda, cpu = DeviceType.CUDA, DeviceType.CPU
+    events = [Event(key="packed_spmm_mma_wg", device_type=cuda, self_device_time_total=5.0,
+                    is_user_annotation=False),
+              Event(key="kernel.B1", device_type=cuda, self_device_time_total=5.0,
+                    is_user_annotation=True),
+              Event(key="ProfilerStep#2", device_type=cuda, self_device_time_total=9.0,
+                    is_user_annotation=True),
+              Event(key="aten::mm", device_type=cpu, self_device_time_total=5.0,
+                    is_user_annotation=False),
+              Event(key="no_time", device_type=cuda, self_device_time_total=0.0,
+                    is_user_annotation=False)]
+    prof = Event(key_averages=lambda: events)
+    assert [e.key for e in trace._kernel_events(prof)] == ["packed_spmm_mma_wg"]
