@@ -289,6 +289,14 @@ which exits non-zero on failure:
     (``examples/torch_*.py`` but the sharded one), each ``main([])`` on the
     card returning 0 through B1, with its wall time.
 
+31. B1g, the grouped experts, at Mellum2's routed layer (64 experts, top-8,
+    2304 -> 896 -> 2304): every expert's rows bitwise B1's at 512 and 16,384
+    tokens and on element loads; device µs against the per-expert B1 loop
+    and a per-expert ``torch.matmul`` loop; ``moe_forward`` grouped against
+    the slab path, bitwise, with both device times; a Mellum-shaped
+    ``lm_prefill`` with no host synchronisation (``--moe-grouped``: this
+    phase alone, after the build).
+
 The line before the last is the card's name and power limit, the line
 before that the per-kernel JSON summary, and the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 1 and
@@ -1005,6 +1013,7 @@ def main() -> int:
     run_runtime(torch, dev, card)
     par = run_parallel(torch, dev, card)
     run_a5(torch, dev, card)
+    b1g = run_moe_grouped(torch, dev, card)
 
     main_mode = per_mode["bf16"]  # the main path's mode and per-layer shape
     summary = {"kernels": [{
@@ -1020,7 +1029,7 @@ def main() -> int:
         "bound_by": main_mode["bound_by"],
         "library_ms": main_mode["library_ms"],
         "design": "mma.sync; bf16 at large M: wgmma fed by TMA",
-    }, *bcsr_rows, *fused_rows, *flash_rows, *int8_rows, *pipe_rows]}
+    }, *bcsr_rows, *fused_rows, *flash_rows, *int8_rows, *pipe_rows, b1g["kernel_row"]]}
     lm_tp, a4b = par["lm"], par["a4b"]
     moe_tp = a4b["moe_lm"]
     par_launches = {  # phases 28 and 29, a rank's launches on 2 ranks sharing the card
@@ -4105,21 +4114,29 @@ def run_moe_lm(torch, dev, card) -> None:
     cfg = TernaryLMConfig(**LM_TRAIN, max_len=prompt_len + 3 * steps, **MOE_LM)
     packed, prompt = build_lm(cfg, 1, prompt_len, device=dev)
     out = {}
-    # B1: per layer in the prefill 6 projections and 2 per expert; per
-    # layer a decode step the fused QKV plane, wo and 2 per expert; the
-    # head once in the prefill and once a step. No fused kernel (the MoE
-    # half has no MLP; its attention gets normalized input, no prenorm).
-    b1 = layers * (6 + 2 * e) + 1 + steps * (layers * (2 + 2 * e) + 1)
+    # B1: per layer in the prefill 6 projections, per layer a decode step
+    # the fused QKV plane and wo; the head once in the prefill and once a
+    # step. The experts: in bf16 two B1g launches a layer a call (the
+    # grouped experts); in f32 (the slab loop) 2 B1 launches per expert.
+    # No fused kernel (the MoE half has no MLP; its attention gets
+    # normalized input, no prenorm).
+    b1 = layers * 6 + 1 + steps * (layers * 2 + 1)
+    b1_slab = layers * (6 + 2 * e) + 1 + steps * (layers * (2 + 2 * e) + 1)
+    from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+
     for flash in (False, True):
+        packed_spmm.launches_grouped = 0
         toks, launches = _generate_counted(torch, packed, prompt, cfg, steps,
                                            compute_dtype=torch.bfloat16, use_flash=flash)
+        launches["packed_spmm(grouped)"] = packed_spmm.launches_grouped
         log(f"MoE generate (E={e}, top-2, bf16, flash={flash}): launches {launches}")
         check(toks.shape == (1, steps) and int(toks.min()) >= 0
               and int(toks.max()) < cfg.vocab, "MoE generate tokens shape / range")
         want = {"packed_spmm": b1, "fused_norm_qkv": 0, "fused_block_tail": 0,
                 "fused_mlp": 0, "fused_norm_qkv_quant": 0,
                 "flash_attention": layers if flash else 0,
-                "flash_attention_decode": layers * steps if flash else 0}
+                "flash_attention_decode": layers * steps if flash else 0,
+                "packed_spmm(grouped)": 2 * layers * (1 + steps)}
         check(launches == want, f"MoE generate launches {launches} != {want}")
         out[f"generate_launches{'_flash' if flash else ''}"] = launches
 
@@ -4133,7 +4150,7 @@ def run_moe_lm(torch, dev, card) -> None:
     check(torch.equal(kern.argmax(-1), ids[0]),
           "teacher-forced MoE kernel path reproduces generate's tokens")
     # the teacher-forced run takes one decode step fewer than generate
-    check(len(errs) == b1 - (layers * (2 + 2 * e) + 1) and max(errs) <= 1e-4,
+    check(len(errs) == b1_slab - (layers * (2 + 2 * e) + 1) and max(errs) <= 1e-4,
           f"MoE teacher-forced: {len(errs)} B1 calls, worst vs plain {max(errs):.3e} > 1e-4")
     with plain_kernels():
         plain = _teacher_forced(torch, cfg, packed, prompt, ids, torch.float32, True)
@@ -5878,6 +5895,323 @@ def run_a5(torch, dev, card) -> dict:
     return out
 
 
+# Mellum2-12B-A2.5B's routed layer (PERF.md §4): 64 experts, top-8, d 2304,
+# expert width 896; the prefill's tokens (2 prompts of 8192) and a short one
+MOE_GROUPED = dict(d_model=2304, d_ff=896, n_experts=64, top_k=8)
+MOE_GROUPED_TOKENS = (512, 16384)
+# one period of its 3:1 pattern at the published widths, for the prefill
+# that must not synchronise with the host
+MOE_GROUPED_LM = dict(vocab=98304, d_model=2304, n_heads=32, n_kv_heads=4, head_dim=128,
+                      d_ff=896, n_layers=4, max_len=4096, rope=True, rope_theta=5e5,
+                      n_experts=64, top_k=8, layer_windows=(1024, 1024, 1024, None),
+                      residual_f32=False)
+MOE_GROUPED_PROMPT = (2, 2048)
+
+
+def _grouped_segments(torch, moe, packed, x, cfg):
+    """The grouped rows of ``x``'s routing: (xs, offsets, host offsets)."""
+    logits = moe.router_logits(x, packed["router"])
+    expert, slot, _, _ = moe._assign(logits, moe._round8(x.shape[0]), cfg.top_k)
+    _, offsets, token, row_expert = moe.grouped_layout(expert, slot, cfg.n_experts)
+    xs = (x.index_select(0, token).to(torch.float32)
+          * packed["s_up"][row_expert][:, None]).to(torch.bfloat16)
+    return xs, offsets, offsets.tolist()
+
+
+B1G_PLAIN_TOL = 2.0 ** -7  # B1's bf16 tolerance, relative to max(1, max|ref|)
+
+
+def _b1g_plain_err(y, ref, what: str) -> float:
+    """B1g's rows against B1's plain version: the largest difference over
+    max(1, max|ref|), checked against ``B1G_PLAIN_TOL``."""
+    err = float((y.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
+    check(err <= B1G_PLAIN_TOL, f"B1g vs plain, {what}: {err:.3e} > {B1G_PLAIN_TOL:.1e}")
+    return err
+
+
+def _b1g_prefill_row(torch, calls, launches) -> dict:
+    """B1g's row of the kernels summary, from the Mellum-shaped prefill's own
+    B1g calls (their inputs kept): the kernel against the per-expert loop of
+    B1's plain version on the same rows (checked), against a per-expert
+    bf16 ``torch.matmul`` loop on the dense W, and the roofline bound of
+    each call's hit experts (X rows, their 2-bit planes, Y and bias once;
+    ``2·m_e·nnz_e + m_e·N`` operations), all summed over the calls."""
+    from smmb_tpu_torch.bench.flops import sparse_flops, spmm_bytes
+    from smmb_tpu_torch.bench.measure import measure
+    from smmb_tpu_torch.bench.roofline import chip_spec, roofline_bound
+    from smmb_tpu_torch.formats.packed import unpack_ternary
+    from smmb_tpu_torch.kernels.packed_spmm import grouped_spmm, packed_spmm_plain
+    from smmb_tpu_torch.models.moe import expert_plane
+
+    spec = chip_spec()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ms = plain_ms = lib_ms = bound_s = ops_all = ops_s = bytes_s = 0.0
+    dev_us = lib_us = 0.0
+    max_err, rel_err = 0.0, 0.0
+    for i, ((x, w, b, offsets, *rest), kw, y) in enumerate(calls):
+        alpha = rest[0] if rest else kw.get("alpha")
+        od = kw.get("out_dtype") or x.dtype
+        host = offsets.tolist()
+        segs = [(e, lo, hi) for e, (lo, hi) in enumerate(zip(host[:-1], host[1:])) if hi > lo]
+        planes = {e: expert_plane(w, e) for e, _, _ in segs}
+        xin = x.to(od)
+
+        def plain_loop():
+            return [packed_spmm_plain(xin[lo:hi], planes[e], b[e], alpha,
+                                      compute_dtype=torch.bfloat16) for e, lo, hi in segs]
+
+        for (e, lo, hi), ref in zip(segs, plain_loop()):
+            max_err = max(max_err, float((y[lo:hi].float() - ref.float()).abs().max()))
+            rel_err = max(rel_err, _b1g_plain_err(y[lo:hi], ref, f"prefill call {i}, expert {e}"))
+        dense = {e: unpack_ternary(p, torch.bfloat16) for e, p in planes.items()}
+        xb = x.to(torch.bfloat16)
+
+        def lib_loop():
+            return [xb[lo:hi] @ dense[e] for e, lo, hi in segs]
+
+        def kernel():
+            return grouped_spmm(x, w, b, offsets, alpha, out_dtype=od)
+
+        ms += measure(kernel).min_s * 1e3
+        plain_ms += measure(plain_loop, reps=3).min_s * 1e3
+        lib_ms += measure(lib_loop).min_s * 1e3
+        dev_us += _device_us(kernel, 10)
+        lib_us += _device_us(lib_loop, 5)
+        k, n = x.shape[1], w.cols
+        ops = sum(sparse_flops(hi - lo, n, int(torch.count_nonzero(dense[e])))
+                  for e, lo, hi in segs)
+        n_bytes = sum(spmm_bytes(hi - lo, n, k, weight_bytes=planes[e].weight_bytes(),
+                                 x_itemsize=2, y_itemsize=y.element_size())
+                      for e, lo, hi in segs)
+        bound_s += roofline_bound(ops, n_bytes, spec, "bf16")[0]
+        ops_all += ops
+        ops_s += ops / spec.peak_ops("bf16")
+        bytes_s += n_bytes / (spec.hbm_gbps * 1e9)
+        del dense
+    row = {
+        "name": "grouped_spmm", "route": "cuda",
+        "source": "smmb_tpu_torch/kernels/csrc/packed_spmm.cu",
+        "replaces": "smmb_tpu/models/moe.py:321",
+        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_s * 1e3, "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+        "library_ms": lib_ms, "device_us": dev_us, "library_device_us": lib_us,
+        "design": "mma.sync 64x128 (16x128 at few rows an expert), the expert and row tile "
+                  "found on the card",
+    }
+    print(json.dumps({"phase": 31, "b1g_row": row, "plain_rel_err": rel_err,
+                      "calls": len(calls), "ops": ops_all,
+                      "launches_are": "a 2 x 2048 Mellum-shaped lm_prefill (4 layers)",
+                      "plain": "packed_spmm_plain a hit expert, summed",
+                      "library": "torch.matmul bf16 on dense W a hit expert, summed"}),
+          flush=True)
+    log(f"B1g over the Mellum-shaped prefill's {launches} launches: {ms:.3f} ms (device "
+        f"{dev_us:.1f} us), plain loop {plain_ms:.3f} ms, bound {bound_s * 1e3:.3f} ms, "
+        f"matmul loop {lib_ms:.3f} ms (device {lib_us:.1f} us); within {rel_err:.2e} of the "
+        f"plain version's rows (limit {B1G_PLAIN_TOL:.1e})")
+    return row
+
+
+def run_moe_grouped(torch, dev, card) -> dict:
+    """Phase 31: B1g (``grouped_spmm``, ``expert_spmm_grouped``) at
+    Mellum2's routed layer: every expert's rows bitwise B1's on the same
+    rows and plane (up with PReLU to f32, down to bf16; 16,384 tokens on
+    the 64-row tile and 512 on the 16-row one; an unaligned shape on the
+    element loads); its device µs against the 128-launch per-expert B1 loop
+    and a per-expert bf16 ``torch.matmul`` loop on dense W; ``moe_forward``'s
+    device µs on the slab path and grouped at 512 and 16,384 tokens, the
+    two bitwise; and a Mellum-shaped ``lm_prefill`` (4 layers at the
+    published widths, one period of the 3:1 pattern) under
+    ``torch.cuda.set_sync_debug_mode("error")`` and the profiler, whose host
+    events must hold no device-to-host copy and no synchronise."""
+    from smmb_tpu_torch.formats.packed import TernaryPacked, unpack_ternary
+    from smmb_tpu_torch.kernels.packed_spmm import grouped_spmm, packed_spmm, packed_spmm_plain
+    from smmb_tpu_torch.models import moe
+    from smmb_tpu_torch.models.lm import TernaryLMConfig, init_lm, lm_init_cache, lm_prefill
+    from smmb_tpu_torch.models.lm import pack_lm
+    from smmb_tpu_torch.utils import rng
+
+    out = {"card": card}
+    cfg = moe.TernaryMoEConfig(**MOE_GROUPED)
+    masters = moe.init_moe(rng.make_generator(31, dev), cfg)
+    for name in ("w_up", "w_down"):  # LeCun scale, as the benchmark's masters
+        masters[name] = masters[name] / masters[name].shape[1] ** 0.5
+    packed = moe.pack_moe(masters, quantize=True)
+    del masters
+    planes = {name: [TernaryPacked(data=packed[name].data[e], rows=packed[name].rows,
+                                   cols=packed[name].cols, nnz=packed[name].nnz)
+                     for e in range(cfg.n_experts)] for name in ("w_up", "w_down")}
+    for n in MOE_GROUPED_TOKENS:
+        x = rng.rand_dense(rng.make_generator(32 + n, dev), (n, cfg.d_model)).to(torch.bfloat16)
+        xs, offsets, host = _grouped_segments(torch, moe, packed, x, cfg)
+        segs = [(lo, hi) for lo, hi in zip(host[:-1], host[1:])]
+        row = {"rows": host[-1], "experts_hit": sum(hi > lo for lo, hi in segs),
+               "rows_min": min(hi - lo for lo, hi in segs),
+               "rows_max": max(hi - lo for lo, hi in segs)}
+        up = grouped_spmm(xs, packed["w_up"], packed["b_up"], offsets, cfg.alpha,
+                          out_dtype=torch.float32)
+        hs = (up * packed["s_down"].repeat_interleave(
+            torch.tensor([hi - lo for lo, hi in segs], device=dev))[:, None]).to(torch.bfloat16)
+        down = grouped_spmm(hs, packed["w_down"], packed["b_down"], offsets)
+        plain_err = 0.0
+        for e, (lo, hi) in enumerate(segs):
+            if hi == lo:
+                continue
+            ref_up = packed_spmm(xs[lo:hi].float(), planes["w_up"][e], packed["b_up"][e],
+                                 cfg.alpha, compute_dtype=torch.bfloat16)
+            ref_dn = packed_spmm(hs[lo:hi], planes["w_down"][e], packed["b_down"][e],
+                                 compute_dtype=torch.bfloat16)
+            check(torch.equal(up[lo:hi], ref_up) and torch.equal(down[lo:hi], ref_dn),
+                  f"B1g at {n} tokens: expert {e}'s rows differ from B1's")
+            # and against B1's plain version, which shares none of its code
+            plain_up = packed_spmm_plain(xs[lo:hi].float(), planes["w_up"][e],
+                                         packed["b_up"][e], cfg.alpha,
+                                         compute_dtype=torch.bfloat16)
+            plain_dn = packed_spmm_plain(hs[lo:hi], planes["w_down"][e], packed["b_down"][e],
+                                         compute_dtype=torch.bfloat16)
+            plain_err = max(plain_err, _b1g_plain_err(up[lo:hi], plain_up, f"up at {n}, {e}"),
+                            _b1g_plain_err(down[lo:hi], plain_dn, f"down at {n}, {e}"))
+        row["plain_rel_err"] = plain_err
+
+        def b1_loop(inp, name, alpha, dtype):
+            return [packed_spmm(inp[lo:hi] if dtype is None else inp[lo:hi].to(dtype),
+                                planes[name][e], packed["b" + name[1:]][e], alpha,
+                                compute_dtype=torch.bfloat16)
+                    for e, (lo, hi) in enumerate(segs) if hi > lo]
+
+        dense = {name: [unpack_ternary(p).to(torch.bfloat16) for p in planes[name]]
+                 for name in ("w_up", "w_down")}
+
+        def mm_loop(inp, name):
+            return [inp[lo:hi] @ dense[name][e] for e, (lo, hi) in enumerate(segs) if hi > lo]
+
+        row["b1g_us"] = {
+            "up": _device_us(lambda: grouped_spmm(xs, packed["w_up"], packed["b_up"], offsets,
+                                                  cfg.alpha, out_dtype=torch.float32), 10),
+            "down": _device_us(lambda: grouped_spmm(hs, packed["w_down"], packed["b_down"],
+                                                    offsets), 10)}
+        row["b1_loop_us"] = {"up": _device_us(lambda: b1_loop(xs, "w_up", cfg.alpha, None), 5),
+                             "down": _device_us(lambda: b1_loop(hs, "w_down", None, None), 5)}
+        row["matmul_loop_us"] = {"up": _device_us(lambda: mm_loop(xs, "w_up"), 5),
+                                 "down": _device_us(lambda: mm_loop(hs, "w_down"), 5)}
+        del dense
+        grouped = moe.moe_forward(packed, x, cfg, compute_dtype=torch.bfloat16, no_drop=True)
+        cap = moe._round8(n)
+        route = moe._assign(moe.router_logits(x, packed["router"]), cap, cfg.top_k)
+        slab = moe._slab_forward(packed, x, cfg, *route, cap, torch.bfloat16, True)
+        check(torch.equal(grouped, slab), f"moe_forward at {n} tokens: grouped differs from "
+              "the slab path")
+        row["moe_forward_us"] = {
+            "grouped": _device_us(lambda: moe.moe_forward(packed, x, cfg,
+                                                          compute_dtype=torch.bfloat16,
+                                                          no_drop=True), 5),
+            "slab": _device_us(lambda: moe._slab_forward(packed, x, cfg, *route, cap,
+                                                         torch.bfloat16, True), 3)}
+        del slab, grouped, up, down, hs, xs
+        torch.cuda.empty_cache()
+        out[f"tokens_{n}"] = row
+        print(json.dumps({"phase": 31, "tokens": n, **row}), flush=True)
+        log(f"B1g at {n} tokens ({row['experts_hit']} experts hit, {row['rows_min']}-"
+            f"{row['rows_max']} rows each): bitwise B1 on every expert's rows, within "
+            f"{row['plain_rel_err']:.2e} of max(1, max|ref|) of the plain version's "
+            f"(limit {B1G_PLAIN_TOL:.1e}); up/down device "
+            f"us {row['b1g_us']['up']:.1f}/{row['b1g_us']['down']:.1f}, B1 loop "
+            f"{row['b1_loop_us']['up']:.1f}/{row['b1_loop_us']['down']:.1f}, matmul loop "
+            f"{row['matmul_loop_us']['up']:.1f}/{row['matmul_loop_us']['down']:.1f}; "
+            f"moe_forward grouped {row['moe_forward_us']['grouped']:.1f} us, slab "
+            f"{row['moe_forward_us']['slab']:.1f} us ({card})")
+    del packed, planes
+
+    # element loads: K and N not a whole number of 16-byte pieces
+    ucfg = moe.TernaryMoEConfig(d_model=72, d_ff=40, n_experts=5, top_k=2)
+    upk = moe.pack_moe(moe.init_moe(rng.make_generator(33, dev), ucfg), quantize=True)
+    ux = rng.rand_dense(rng.make_generator(34, dev), (300, 72)).to(torch.bfloat16)
+    xs, offsets, host = _grouped_segments(torch, moe, upk, ux, ucfg)
+    y = grouped_spmm(xs, upk["w_up"], upk["b_up"], offsets, ucfg.alpha)
+    for e, (lo, hi) in enumerate(zip(host[:-1], host[1:])):
+        plane = TernaryPacked(data=upk["w_up"].data[e], rows=72, cols=40, nnz=upk["w_up"].nnz)
+        check(torch.equal(y[lo:hi], packed_spmm(xs[lo:hi], plane, upk["b_up"][e], ucfg.alpha,
+                                                compute_dtype=torch.bfloat16)),
+              f"B1g on element loads: expert {e}'s rows differ from B1's")
+        if hi > lo:
+            _b1g_plain_err(y[lo:hi], packed_spmm_plain(xs[lo:hi], plane, upk["b_up"][e],
+                                                       ucfg.alpha, compute_dtype=torch.bfloat16),
+                           f"element loads, expert {e}")
+
+    # the serving path holds no host synchronisation
+    mcfg = TernaryLMConfig(**MOE_GROUPED_LM)
+    params = init_lm(rng.make_generator(35, dev), mcfg)
+    for tree, keys in [(params, ("embed", "pos", "norm_f"))] + [
+            (b, ("norm1", "norm2")) for b in params["blocks"]]:
+        for key in keys:  # the dense leaves in bf16: a bf16 stream, as served
+            tree[key] = tree[key].bfloat16()
+    lm = pack_lm(params, quantize=True)
+    del params
+    toks = torch.randint(0, mcfg.vocab, MOE_GROUPED_PROMPT, device=dev)
+
+    def prefill():
+        cache = lm_init_cache(mcfg, toks.shape[0], dtype=torch.bfloat16, device=dev)
+        return lm_prefill(lm, toks, cache, mcfg, compute_dtype=torch.bfloat16, use_flash=True)
+
+    prefill()
+    torch.cuda.synchronize()
+    calls = []
+
+    def recorded(*args, **kwargs):  # keeps each call's inputs; reads nothing back
+        y = grouped_spmm(*args, **kwargs)
+        calls.append((args, kwargs, y))
+        return y
+
+    packed_spmm.launches_grouped = 0
+    moe.grouped_spmm = recorded
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = prefill()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        moe.grouped_spmm = grouped_spmm
+    torch.cuda.synchronize()
+    launches = packed_spmm.launches_grouped
+    check(launches == 2 * mcfg.n_layers == len(calls), f"lm_prefill: {launches} B1g launches")
+    out["kernel_row"] = _b1g_prefill_row(torch, calls, launches)
+    del calls
+    torch.cuda.empty_cache()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    # a copy to the host shows as a DtoH memcpy and its stream synchronise;
+    # aten::item also serves CPU scalars (B9's wrapper rounds its scale on
+    # the host), so it is counted, not flagged
+    bad = sorted({n for n in names if "DtoH" in n or "Synchronize" in n or n == "aten::nonzero"})
+    spans = sorted({n for n in names if n.startswith(("moe.", "kernel.B1g", "attn.prefill"))})
+    # the block's own closing synchronise is the one allowed
+    check(bad in ([], ["cudaDeviceSynchronize"]),
+          f"lm_prefill's host events hold copies to the host or synchronises: {bad}")
+    out["prefill_no_sync"] = {"sync_debug": "error", "host_events": len(names),
+                              "flagged": bad, "cpu_items": names.count("aten::item"),
+                              "spans": spans, "finite": bool(torch.isfinite(logits).all())}
+    log(f"Mellum-shaped lm_prefill (4 layers, 2 x 2048): no synchronise under "
+        f"set_sync_debug_mode('error'); profiler events flagged {bad} (the block's closing "
+        f"synchronise), {names.count('aten::item')} aten::item on host scalars; spans {spans}")
+    print(json.dumps({"phase": 31, **out}), flush=True)
+    log("phase 31 passed")
+    return out
+
+
+def moe_grouped_alone() -> int:
+    """``python3 chip_smoke.py --moe-grouped``: build, then phase 31 alone."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device: the port runs on the card")
+    from smmb_tpu_torch.kernels import _build
+
+    _build.build_all()
+    run_moe_grouped(torch, torch.device("cuda"), card_line())
+    return 0
+
+
 def _packed_planes(packed) -> list:
     """Every ``TernaryPacked`` plane of a packed LM tree."""
     from smmb_tpu_torch.formats.packed import TernaryPacked
@@ -5899,4 +6233,6 @@ if __name__ == "__main__":
         sys.exit(fused_ab(Path(sys.argv[2]).resolve()))
     if sys.argv[1:2] == ["--c1-candidate"]:
         sys.exit(c1_candidate(Path(sys.argv[2]).resolve()))
+    if sys.argv[1:2] == ["--moe-grouped"]:
+        sys.exit(moe_grouped_alone())
     sys.exit(main())

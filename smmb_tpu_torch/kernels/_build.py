@@ -120,14 +120,23 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 
 @functools.cache
 def packed_spmm_lib() -> ctypes.CDLL:
-    """``packed_spmm.cu`` (B1)."""
-    return _load("packed_spmm.cu", {"smmb_packed_spmm": [
-        _P, _P, _P, _P, _P,  # x, w, bias, scale, out
-        _I, _I, _I, _I,  # m, k, n, kp
-        _I, _I, _I, _I, _I,  # x_mode, out_bf16, bm, bn, aligned
-        _I, _F,  # has_alpha, alpha
-        _P,  # stream
-    ]})
+    """``packed_spmm.cu`` (B1, and B1g: its experts grouped)."""
+    return _load("packed_spmm.cu", {
+        "smmb_packed_spmm": [
+            _P, _P, _P, _P, _P,  # x, w, bias, scale, out
+            _I, _I, _I, _I,  # m, k, n, kp
+            _I, _I, _I, _I, _I,  # x_mode, out_bf16, bm, bn, aligned
+            _I, _F,  # has_alpha, alpha
+            _P,  # stream
+        ],
+        "smmb_expert_spmm_grouped": [
+            _P, _P, _P, _P, _P,  # x, w, bias, offsets, out
+            _I, _I, _I, _I, _I,  # rows, k, n, kp, experts
+            _I, _I, _I,  # out_bf16, bm, aligned
+            _I, _F,  # has_alpha, alpha
+            _P,  # stream
+        ],
+    })
 
 
 @functools.cache

@@ -686,6 +686,164 @@ cudaError_t launch_mma(const void* x, const void* w, const void* bias,
   return cudaSuccess;
 }
 
+// ---- B1g: a mixture's experts in one launch (expert_spmm_grouped)
+//
+// X's rows lie in expert order: expert e's rows are offsets[e] ..
+// offsets[e + 1], its W the e-th (kp, n) plane of the stacked words, its
+// bias the e-th row of an (E, n) table. blockIdx.y counts the row tiles of
+// expert 0, then expert 1's, and so on; each block walks `offsets` to find
+// its expert (E loads, L1-resident), and the grid's ceil(R / BM) + E row
+// tiles bound the sum of ceil(rows_e / BM), so the blocks past the last
+// tile exit. Nothing of the routing reaches the host.
+//
+// The tile and its K walk are packed_spmm_mma<BM, 128, false, ALIGNED, OT>'s
+// in bf16, written out again here so that B1's kernels stay as they are:
+// chunks of TC_PK packed rows in order, MMA steps (u, i) in order, one f32
+// register an output from zero, the same epilogue. So row r of expert e is
+// B1's row on the same X row and plane, bit for bit.
+template <int BM_, bool ALIGNED, typename OT>
+__global__ void __launch_bounds__(TcTile<BM_, 128, false>::THREADS)
+expert_spmm_grouped(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
+                    const float* __restrict__ bias, const int* __restrict__ offsets,
+                    OT* __restrict__ out, int experts, int k, int n, int kp,
+                    int has_alpha, float alpha) {
+  using T = TcTile<BM_, 128, false>;
+  extern __shared__ __align__(16) uint8_t smem[];
+
+  int tile = blockIdx.y, e = 0, r0 = 0, m = 0;
+  for (; e < experts; ++e) {
+    r0 = offsets[e];
+    m = offsets[e + 1] - r0;
+    const int tiles = (m + BM_ - 1) / BM_;
+    if (tile < tiles) break;
+    tile -= tiles;
+  }
+  if (e == experts) return;
+  x += static_cast<size_t>(r0) * k * 2;
+  w += static_cast<size_t>(e) * kp * n;
+  if (bias != nullptr) bias += static_cast<size_t>(e) * n;
+  out += static_cast<size_t>(r0) * n;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wn0 = warp * T::FN * 8;
+  const int m0 = tile * BM_, n0 = blockIdx.x * 128;
+  const int nch = kp / TC_PK;
+
+  float acc[T::FM][T::FN][4];
+#pragma unroll
+  for (int f = 0; f < T::FM; ++f)
+#pragma unroll
+    for (int j = 0; j < T::FN; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[f][j][q] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < nch)
+      load_chunk<T, ALIGNED>(smem + s * T::STAGE, smem + s * T::STAGE + T::XSTAGE,
+                             x, w, m0, n0, m, k, n, s * TC_PK, tid);
+    cp_async_commit();
+  }
+
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();
+    {
+      const int nc = c + TC_STAGES - 1, slot = nc % TC_STAGES;
+      if (nc < nch)
+        load_chunk<T, ALIGNED>(smem + slot * T::STAGE,
+                               smem + slot * T::STAGE + T::XSTAGE, x, w, m0, n0,
+                               m, k, n, nc * TC_PK, tid);
+      cp_async_commit();
+    }
+    const uint8_t* xs = smem + (c % TC_STAGES) * T::STAGE;
+    const uint8_t* ws = xs + T::XSTAGE;
+
+#pragma unroll
+    for (int u = 0; u < TC_PK / T::KROWS; ++u) {
+      unsigned wb[T::FN][2];
+#pragma unroll
+      for (int j = 0; j < T::FN; ++j) {
+        const int col = wn0 + j * 8 + g;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = u * T::KROWS + h * (T::KROWS / 2) + 2 * t;
+          wb[j][h] = static_cast<unsigned>(ws[w_off<T>(r, col)]) |
+                     (static_cast<unsigned>(ws[w_off<T>(r + 1, col)]) << 8);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        unsigned a[T::FM][4];
+#pragma unroll
+        for (int f = 0; f < T::FM; ++f)
+          ldmatrix_x4(a[f], xs + (f * 16 + (lane & 15)) * T::XROW +
+                                i * T::XRUN + u * T::KROWS * T::XB +
+                                (lane >> 4) * 16);
+#pragma unroll
+        for (int j = 0; j < T::FN; ++j) {
+          const unsigned b0 = bf16_pair(wb[j][0], i);
+          const unsigned b1 = bf16_pair(wb[j][1], i);
+#pragma unroll
+          for (int f = 0; f < T::FM; ++f) mma(acc[f][j], a[f], b0, b1);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int f = 0; f < T::FM; ++f)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + f * 16 + g + 8 * h;
+      if (row >= m) continue;
+#pragma unroll
+      for (int j = 0; j < T::FN; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int col = n0 + wn0 + j * 8 + 2 * t + q;
+          if (col < n) epilogue(acc[f][j][2 * h + q], row, col, n, bias, has_alpha, alpha, out);
+        }
+    }
+}
+
+template <int BM_, bool ALIGNED, typename OT>
+cudaError_t launch_grouped(const void* x, const void* w, const void* bias,
+                           const void* offsets, void* out, int rows, int k, int n,
+                           int kp, int experts, int has_alpha, float alpha,
+                           cudaStream_t stream) {
+  using T = TcTile<BM_, 128, false>;
+  auto kern = expert_spmm_grouped<BM_, ALIGNED, OT>;
+  static bool raised[64] = {};
+  const cudaError_t e = raise_smem(kern, T::SMEM, raised);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((n + 127) / 128, (rows + BM_ - 1) / BM_ + experts);
+  kern<<<grid, T::THREADS, T::SMEM, stream>>>(
+      static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(bias), static_cast<const int*>(offsets),
+      static_cast<OT*>(out), experts, k, n, kp, has_alpha, alpha);
+  return cudaSuccess;
+}
+
+template <typename OT>
+cudaError_t dispatch_grouped(int bm, int aligned, const void* x, const void* w,
+                             const void* bias, const void* offsets, void* out,
+                             int rows, int k, int n, int kp, int experts,
+                             int has_alpha, float alpha, cudaStream_t s) {
+#define SMMB_GROUPED(BM_, AL_)                                                   \
+  if (bm == BM_ && (aligned != 0) == AL_)                                        \
+    return launch_grouped<BM_, AL_, OT>(x, w, bias, offsets, out, rows, k, n, kp, \
+                                        experts, has_alpha, alpha, s);
+  SMMB_GROUPED(16, true)
+  SMMB_GROUPED(16, false)
+  SMMB_GROUPED(64, true)
+  SMMB_GROUPED(64, false)
+#undef SMMB_GROUPED
+  return cudaErrorInvalidValue;
+}
+
 // ---- bf16 mode at large M: warpgroup MMA fed by TMA (packed_spmm_mma_wg)
 
 constexpr int WG_BM = 128;       // X rows a tile (wgmma N)
@@ -1085,6 +1243,28 @@ extern "C" int smmb_packed_spmm(const void* x, const void* w, const void* bias,
                                        alpha, s)
                : launch<float>(x, w, bias, scale, out, m, k, n, kp, x_mode, bm,
                                bn, aligned, has_alpha, alpha, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B1g: x bf16 (rows, k) in expert order, w int8 (experts, kp, n), bias f32
+// (experts, n) or null, offsets int32 (experts + 1) on the card with
+// offsets[experts] = rows. bm: 16 or 64 (the columns' tile is 128).
+// out_bf16, aligned, has_alpha, alpha: as smmb_packed_spmm's.
+extern "C" int smmb_expert_spmm_grouped(const void* x, const void* w, const void* bias,
+                                        const void* offsets, void* out, int rows, int k,
+                                        int n, int kp, int experts, int out_bf16, int bm,
+                                        int aligned, int has_alpha, float alpha,
+                                        void* stream) {
+  if (rows <= 0 || n <= 0 || k <= 0 || experts <= 0 || kp % SUB != 0 || kp * 4 < k ||
+      (bm != 16 && bm != 64) || (rows + bm - 1) / bm + experts > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      out_bf16 ? dispatch_grouped<__nv_bfloat16>(bm, aligned, x, w, bias, offsets, out, rows,
+                                                 k, n, kp, experts, has_alpha, alpha, s)
+               : dispatch_grouped<float>(bm, aligned, x, w, bias, offsets, out, rows, k, n,
+                                         kp, experts, has_alpha, alpha, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

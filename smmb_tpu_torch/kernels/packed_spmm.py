@@ -47,6 +47,16 @@ rate. Its times are in PERF.md (measured by chip_smoke.py).
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``packed_spmm_plain``. There is no fallback from one to the other.
+
+B1g (``grouped_spmm``, device kernel ``expert_spmm_grouped``) runs a
+mixture's experts in one launch: X's rows lie in expert order, expert e's
+rows ``offsets[e] .. offsets[e+1]`` against its plane of the stacked
+(E, K/4, N) words, its bias row and a shared PReLU. Each block finds its
+expert and row tile from ``offsets`` on the card (the grid has
+⌈R/BM⌉ + E row tiles, the ones past the end exit), so the host never
+reads the routing. The body is the bf16 ``mma.sync`` tile's K walk, so
+every row equals B1's on the same row bit for bit.
+``packed_spmm.launches_grouped`` counts its calls.
 """
 
 from __future__ import annotations
@@ -63,7 +73,7 @@ from smmb_tpu_torch.formats.packed import (
 from smmb_tpu_torch.kernels import _build
 from smmb_tpu_torch.ops.dense import prelu
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
-from smmb_tpu_torch.utils.spans import KERNEL_B1, span
+from smmb_tpu_torch.utils.spans import KERNEL_B1, KERNEL_B1G, span
 
 _X_MODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -349,3 +359,120 @@ def packed_spmm(
 
 packed_spmm.launches = 0
 packed_spmm.launches_wide = 0  # the calls the wide bf16 body took
+
+
+def grouped_spmm_plain(
+    x: torch.Tensor,
+    w: TernaryPacked,
+    b: torch.Tensor | None,
+    offsets: torch.Tensor,
+    alpha: float | None = None,
+    *,
+    compute_dtype=torch.bfloat16,
+    out_dtype=None,
+) -> torch.Tensor:
+    """B1g's function in plain PyTorch, in its one mode, bf16:
+    ``packed_spmm_plain`` of X (every row, at least 8, as f32 so that
+    nothing is rounded before ``out_dtype``) against all experts' planes
+    side by side, each row's own expert's columns kept, then its bias and
+    the PReLU, as B1's plain epilogue adds them. Every row meets every
+    expert: for tests and the CPU, never a main path. Where the library's
+    f32 product gives an output the same bits whatever the rows and columns
+    beside it (the CPU's at K ≤ 512 and M ≥ 2), each row is B1's plain row,
+    bit for bit."""
+    if compute_dtype != torch.bfloat16:
+        raise TypeError(f"the grouped kernel computes in bfloat16, not {compute_dtype}")
+    r = x.shape[0]
+    e, kp, n = w.data.shape
+    out_dtype = out_dtype or x.dtype
+    xf = x.to(torch.float32)
+    if r < 8:
+        xf = torch.cat([xf, xf.new_zeros(8 - r, xf.shape[1])])
+    planes = TernaryPacked(data=w.data.permute(1, 0, 2).reshape(kp, e * n), rows=w.rows,
+                           cols=e * n, nnz=w.nnz)
+    y = packed_spmm_plain(xf, planes, compute_dtype=compute_dtype)[:r].view(r, e, n)
+    ends = offsets.to(x.device)[1:].contiguous()
+    expert = torch.searchsorted(ends, torch.arange(r, device=x.device, dtype=ends.dtype),
+                                right=True)
+    y = y.gather(1, expert[:, None, None].expand(r, 1, n))[:, 0]
+    if b is not None:
+        y = y + b.to(torch.float32)[expert]
+    if alpha is not None:
+        y = prelu(y, alpha)
+    return y.to(out_dtype)
+
+
+def grouped_spmm(
+    x: torch.Tensor,
+    w: TernaryPacked,
+    b: torch.Tensor | None,
+    offsets: torch.Tensor,
+    alpha: float | None = None,
+    *,
+    compute_dtype=torch.bfloat16,
+    out_dtype=None,
+) -> torch.Tensor:
+    """B1g: ``Y[r] = prelu(X[r] @ W[e] + b[e], alpha)`` for each row r of
+    expert e's segment, one launch for all experts.
+
+    Args:
+      x: (R, K) rows in expert order, float32 or bfloat16.
+      w: the stacked ``TernaryPacked`` of ``pack_moe``: data (E, K/4, N).
+      b: (E, N) biases, added in f32, or None.
+      offsets: (E + 1,) int, expert e's rows are ``offsets[e] ..
+        offsets[e + 1]`` (offsets[E] = R); read on the card only.
+      alpha: PReLU slope, None = no activation.
+      compute_dtype: bfloat16, B1's tensor-core mode (X cast once), on the
+        card and the CPU alike.
+      out_dtype: the output's dtype, f32 or bf16 (default x's).
+    Returns:
+      (R, N) in ``out_dtype``; row r bitwise B1's on the same row and plane.
+    """
+    with span(KERNEL_B1G):
+        r, k = x.shape
+        e, kp, n = w.data.shape
+        if k != w.rows or n != w.cols:
+            raise ValueError(f"x {tuple(x.shape)} against stacked planes "
+                             f"({e}, {w.rows}, {w.cols})")
+        if offsets.shape != (e + 1,):
+            raise ValueError(f"offsets must be ({e + 1},), got {tuple(offsets.shape)}")
+        if compute_dtype != torch.bfloat16:
+            raise TypeError(f"the grouped kernel computes in bfloat16, not {compute_dtype}")
+        if x.device.type == "cpu":
+            return grouped_spmm_plain(x, w, b, offsets, alpha, out_dtype=out_dtype)
+        out_dtype = out_dtype or x.dtype
+        if out_dtype not in _OUT_DTYPES:
+            raise TypeError(f"grouped_spmm writes f32 or bf16, not {out_dtype}")
+        if w.data.device != x.device or w.data.dtype != torch.int8 \
+                or not w.data.is_contiguous():
+            raise ValueError("w.data must be a contiguous int8 tensor on x's device")
+        if kp * 4 < k or (kp * 4) % GROUP_ROWS:
+            raise ValueError(f"packed data shape {tuple(w.data.shape)} does not match K={k}")
+        if b is not None and (b.device != x.device or b.shape != (e, n)):
+            raise ValueError(f"bias must be ({e}, {n}) on x's device")
+        xq = x.to(torch.bfloat16).contiguous()
+        bias = None if b is None else b.to(torch.float32).contiguous()
+        off = offsets.to(device=x.device, dtype=torch.int32).contiguous()
+        out = torch.empty((r, n), dtype=out_dtype, device=x.device)
+        if r == 0:
+            return out
+        aligned = pieces_aligned(k, n, xq.data_ptr(), w.data.data_ptr(), torch.bfloat16)
+        # the tile does not change the bits: 64 rows once an expert averages
+        # more than 32 of them, else 16
+        bm = 64 if r > 32 * e else 16
+        fn = _build.packed_spmm_lib().smmb_expert_spmm_grouped
+        with torch.cuda.device(x.device):
+            rc = fn(
+                xq.data_ptr(), w.data.data_ptr(), None if bias is None else bias.data_ptr(),
+                off.data_ptr(), out.data_ptr(), r, k, n, kp, e,
+                int(out_dtype == torch.bfloat16), bm, int(aligned),
+                int(alpha is not None), 0.0 if alpha is None else float(alpha),
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"grouped_spmm kernel launch failed: CUDA error {rc}")
+        packed_spmm.launches_grouped += 1
+        return out
+
+
+packed_spmm.launches_grouped = 0  # B1g's calls (grouped_spmm)

@@ -58,8 +58,7 @@ from smmb_tpu_torch.utils.spans import (
     ATTN_DECODE,
     ATTN_EXTEND,
     ATTN_KV_FILL,
-    ATTN_PREFILL_B9,
-    ATTN_PREFILL_PLAIN,
+    ATTN_PREFILL,
     ATTN_QKV_B1,
     ATTN_QKV_B3,
     ATTN_QKV_B7,
@@ -86,10 +85,18 @@ class TernaryAttentionConfig:
     rope: bool = False  # rotary position embeddings on Q/K
     rope_theta: float = 10000.0
     window: int | None = None  # sliding window: t attends (t-window, t]
+    # width of a head; None = d_model // n_heads (resolved at construction)
+    head_dim: int | None = None
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
 
     @property
-    def head_dim(self) -> int:
-        return self.d_model // self.n_heads
+    def q_dim(self) -> int:
+        """Width of Q and of ``wo``'s input: n_heads · head_dim (d_model
+        unless the head width is set apart from it)."""
+        return self.n_heads * self.head_dim
 
     @property
     def kv_heads(self) -> int:
@@ -129,10 +136,10 @@ def _rope_qk(q, k, cfg: TernaryAttentionConfig, positions):
     layout and back; no-op when cfg.rope is off."""
     if not cfg.rope:
         return q, k
-    b, t, d = q.shape
+    b, t, qd = q.shape
     hd = cfg.head_dim
     q = apply_rope(q.reshape(b, t, cfg.n_heads, hd), positions,
-                   cfg.rope_theta).reshape(b, t, d)
+                   cfg.rope_theta).reshape(b, t, qd)
     k = apply_rope(k.reshape(b, t, cfg.kv_heads, hd), positions,
                    cfg.rope_theta).reshape(b, t, cfg.kv_dim)
     return q, k
@@ -140,15 +147,19 @@ def _rope_qk(q, k, cfg: TernaryAttentionConfig, positions):
 
 def init_attention(gen: torch.Generator, cfg: TernaryAttentionConfig) -> dict:
     """Ternary projection masters + biases (the reference's distributions),
-    on ``gen``'s device. Under GQA the K/V projections map to ``kv_dim``."""
-    if cfg.d_model % cfg.n_heads:
-        raise ValueError(f"d_model {cfg.d_model} % n_heads {cfg.n_heads}")
+    on ``gen``'s device. Under GQA the K/V projections map to ``kv_dim``;
+    Q maps to ``q_dim`` and ``wo`` back from it."""
+    if cfg.d_model % cfg.n_heads and cfg.head_dim == cfg.d_model // cfg.n_heads:
+        raise ValueError(f"d_model {cfg.d_model} % n_heads {cfg.n_heads}: give head_dim to "
+                         "set the heads' width apart from d_model")
     if cfg.n_heads % cfg.kv_heads:
         raise ValueError(f"n_heads {cfg.n_heads} % n_kv_heads {cfg.kv_heads} != 0")
+    shapes = {"wq": (cfg.d_model, cfg.q_dim), "wk": (cfg.d_model, cfg.kv_dim),
+              "wv": (cfg.d_model, cfg.kv_dim), "wo": (cfg.q_dim, cfg.d_model)}
     params = {}
     for name in _PROJS:
-        cols = cfg.kv_dim if name in ("wk", "wv") else cfg.d_model
-        params[name] = rng.rand_ternary(gen, (cfg.d_model, cols), non_zero=cfg.non_zero)
+        rows, cols = shapes[name]
+        params[name] = rng.rand_ternary(gen, (rows, cols), non_zero=cfg.non_zero)
         params[name.replace("w", "b")] = rng.rand_dense(gen, (cols,))
     return params
 
@@ -198,7 +209,7 @@ def _attention_math(q, k, v, cfg: TernaryAttentionConfig, use_flash=False,
     the plain math only, as in JAX."""
     if valid is not None and use_flash:
         raise ValueError("use_flash does not support ragged (valid) masks")
-    with span(ATTN_PREFILL_B9 if use_flash else ATTN_PREFILL_PLAIN):
+    with span(ATTN_PREFILL[(0 if use_flash else 2) + (cfg.window is not None)]):
         b, t, d = q.shape
         h, hd, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
         g = h // kvh
@@ -259,7 +270,7 @@ def _proj_qkv(packed, inp, cfg, compute_dtype, use_kernel):
     else:
         y = packed_spmm_ref(inp, fused, dtype=compute_dtype)
     y = (y.to(torch.float32) * packed["qkv_scale"] + packed["bqkv"]).to(y.dtype)
-    d, kvd = cfg.d_model, cfg.kv_dim
+    d, kvd = cfg.q_dim, cfg.kv_dim
     return y[..., :d], y[..., d:d + kvd], y[..., d + kvd:]
 
 
@@ -461,7 +472,7 @@ def _proj_qkv_prenorm(packed, x, cfg, prenorm, compute_dtype):
         packed["qkv_scale"], packed["bqkv"], eps=prenorm[1],
         compute_dtype=compute_dtype,
     ).reshape(*lead, -1)
-    d, kvd = cfg.d_model, cfg.kv_dim
+    d, kvd = cfg.q_dim, cfg.kv_dim
     return y[..., :d], y[..., d:d + kvd], y[..., d + kvd:]
 
 
@@ -473,6 +484,7 @@ def _qkv_quant_fusable(packed, cfg, compute_dtype, use_kernel) -> bool:
     in place of JAX's 6 MiB VMEM cap on the plane."""
     return bool(
         _qkv_prenorm_fusable(packed, cfg, compute_dtype, use_kernel)
+        and cfg.q_dim == cfg.d_model  # B7's q columns are its input's width
         and not cfg.rope
         and cfg.head_dim % 128 == 0
         and fk.fits_shared_quant(cfg.d_model, cfg.head_dim)

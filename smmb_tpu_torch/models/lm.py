@@ -36,6 +36,7 @@ ones, and the QAT forward sums the blocks' load-balance losses into aux.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -76,18 +77,48 @@ class TernaryLMConfig:
     n_experts: int | None = None
     top_k: int = 1
     capacity_factor: float = 1.25
+    head_dim: int | None = None  # None = d_model // n_heads
+    # one attention window a layer (None in it: full attention), e.g. three
+    # sliding layers to one full one; None = ``window`` for every layer
+    layer_windows: tuple | None = None
+    # MoE blocks: False rounds the routed half's f32 output to the stream's
+    # dtype before the residual add (``TernaryMoEBlockConfig.residual_f32``)
+    residual_f32: bool = True
 
-    @property
-    def block(self):
+    def __post_init__(self):
+        if self.layer_windows is not None:
+            object.__setattr__(self, "layer_windows", tuple(self.layer_windows))
+            if len(self.layer_windows) != self.n_layers:
+                raise ValueError(f"layer_windows has {len(self.layer_windows)} entries "
+                                 f"for {self.n_layers} layers")
+
+    def _block_with(self, window):
         common = dict(d_model=self.d_model, n_heads=self.n_heads, d_ff=self.d_ff,
                       alpha=self.alpha, causal=True, non_zero=self.non_zero,
                       eps=self.eps, n_kv_heads=self.n_kv_heads, rope=self.rope,
-                      rope_theta=self.rope_theta, window=self.window)
+                      rope_theta=self.rope_theta, window=window, head_dim=self.head_dim)
         if self.n_experts is not None:
             return mb.TernaryMoEBlockConfig(n_experts=self.n_experts, top_k=self.top_k,
                                             capacity_factor=self.capacity_factor,
-                                            **common)
+                                            residual_f32=self.residual_f32, **common)
         return tb.TernaryBlockConfig(**common)
+
+    @functools.cached_property
+    def blocks(self) -> tuple:
+        """Each layer's block config: its window from ``layer_windows``, or
+        ``window`` for every layer (built once: every step reads it)."""
+        wins = self.layer_windows or (self.window,) * self.n_layers
+        return tuple(self._block_with(w) for w in wins)
+
+    @property
+    def block(self):
+        """The one block config of every layer. Raises when ``layer_windows``
+        gives the layers different windows: a caller that takes one config
+        for all layers (the parallel entry points) cannot serve them."""
+        if self.layer_windows is not None and len(set(self.layer_windows)) > 1:
+            raise ValueError("the layers' windows differ (layer_windows): this entry "
+                             "point takes one block config for every layer")
+        return self._block_with(self.layer_windows[0] if self.layer_windows else self.window)
 
     @property
     def _blk(self) -> dict:
@@ -106,11 +137,10 @@ class TernaryLMConfig:
 def init_lm(gen: torch.Generator, cfg: TernaryLMConfig) -> dict:
     """Dense embeddings and norms + ternary masters for the blocks and the
     head, on ``gen``'s device."""
-    bcfg = cfg.block
     scale = 1.0 / math.sqrt(cfg.d_model)
     embed = rng.rand_dense(gen, (cfg.vocab, cfg.d_model)) * scale
     pos = rng.rand_dense(gen, (cfg.max_len, cfg.d_model)) * scale
-    blocks = [cfg._blk["init"](gen, bcfg) for _ in range(cfg.n_layers)]
+    blocks = [cfg._blk["init"](gen, bcfg) for bcfg in cfg.blocks]
     return {
         "embed": embed,
         "pos": pos,
@@ -158,8 +188,8 @@ def lm_forward(packed: dict, tokens: torch.Tensor, cfg: TernaryLMConfig, *,
     """Full causal forward: (B, T) tokens → (B, T, vocab) logits."""
     b, t = tokens.shape
     x = packed["embed"][tokens] + packed["pos"][None, :t]
-    for blk in packed["blocks"]:
-        x = cfg._blk["forward"](blk, x, cfg.block, compute_dtype=compute_dtype,
+    for blk, bcfg in zip(packed["blocks"], cfg.blocks):
+        x = cfg._blk["forward"](blk, x, bcfg, compute_dtype=compute_dtype,
                                 use_kernel=use_kernel, use_flash=use_flash)
     h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
     return _head_logits(packed, h, cfg, compute_dtype, use_kernel)
@@ -171,9 +201,9 @@ def lm_init_cache(cfg: TernaryLMConfig, batch: int, dtype=torch.float32,
     """One preallocated (B, max_len) KV cache per block on ``device``
     (None = the CUDA card); ``quantized``: the merged int8 layout
     (``attention.init_kv_cache``)."""
-    return [cfg._blk["cache"](cfg.block, batch, cfg.max_len, dtype=dtype,
+    return [cfg._blk["cache"](bcfg, batch, cfg.max_len, dtype=dtype,
                               quantized=quantized, ragged=ragged, device=device)
-            for _ in range(cfg.n_layers)]
+            for bcfg in cfg.blocks]
 
 
 def lm_prefill(packed: dict, tokens: torch.Tensor, cache: list,
@@ -197,8 +227,8 @@ def lm_prefill(packed: dict, tokens: torch.Tensor, cache: list,
             pos_ids = (torch.cumsum(prompt_mask.to(torch.int64), dim=1) - 1).clamp_min(0)
             x = packed["embed"][tokens] + packed["pos"][pos_ids]
         new_cache = []
-        for blk, c in zip(packed["blocks"], cache):
-            x, c = cfg._blk["prefill"](blk, x, c, cfg.block, compute_dtype=compute_dtype,
+        for blk, c, bcfg in zip(packed["blocks"], cache, cfg.blocks):
+            x, c = cfg._blk["prefill"](blk, x, c, bcfg, compute_dtype=compute_dtype,
                                        use_kernel=use_kernel, use_flash=use_flash,
                                        valid=prompt_mask)
             new_cache.append(c)
@@ -222,8 +252,8 @@ def lm_decode_step(packed: dict, token_t: torch.Tensor, cache: list,
             pe = packed["pos"][pos_ids][:, None]
         x = packed["embed"][token_t][:, None, :] + pe
         new_cache = []
-        for blk, c in zip(packed["blocks"], cache):
-            x, c = cfg._blk["decode"](blk, x, c, cfg.block, compute_dtype=compute_dtype,
+        for blk, c, bcfg in zip(packed["blocks"], cache, cfg.blocks):
+            x, c = cfg._blk["decode"](blk, x, c, bcfg, compute_dtype=compute_dtype,
                                       use_kernel=use_kernel, use_flash=use_flash)
             new_cache.append(c)
         h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
@@ -341,8 +371,8 @@ def lm_extend(packed: dict, tokens: torch.Tensor, cache: list,
     else:
         x = packed["embed"][tokens] + packed["pos"][pos_ids]
     new_cache = []
-    for blk, ch in zip(packed["blocks"], cache):
-        x, ch = cfg._blk["extend"](blk, x, ch, cfg.block, compute_dtype=compute_dtype,
+    for blk, ch, bcfg in zip(packed["blocks"], cache, cfg.blocks):
+        x, ch = cfg._blk["extend"](blk, x, ch, bcfg, compute_dtype=compute_dtype,
                                    use_kernel=use_kernel, use_flash=use_flash)
         new_cache.append(ch)
     h = tb.rmsnorm(x, packed["norm_f"], cfg.eps)
@@ -365,8 +395,8 @@ def lm_prefill_chunked(packed: dict, tokens: torch.Tensor, cache: list,
     for c0 in range(0, t, chunk):
         x = _chunk_embed(packed, tokens[:, c0:c0 + chunk], cache[0]["pos"], cfg)
         new_cache = []
-        for blk, ch in zip(packed["blocks"], cache):
-            x, ch = cfg._blk["extend"](blk, x, ch, cfg.block, compute_dtype=compute_dtype,
+        for blk, ch, bcfg in zip(packed["blocks"], cache, cfg.blocks):
+            x, ch = cfg._blk["extend"](blk, x, ch, bcfg, compute_dtype=compute_dtype,
                                        use_kernel=use_kernel, use_flash=use_flash)
             new_cache.append(ch)
         cache = new_cache
@@ -435,11 +465,10 @@ def _qat_lm_forward_aux(params: dict, tokens: torch.Tensor, cfg: TernaryLMConfig
                        attn_chunk: int | None = None):
     """(logits, aux): the QAT forward and the MoE blocks' load-balance
     losses summed (zero for dense blocks)."""
-    bcfg = cfg.block
     t = tokens.shape[1]
     x = params["embed"][tokens] + params["pos"][None, :t]
     aux = torch.zeros((), device=x.device)
-    for blk in params["blocks"]:
+    for blk, bcfg in zip(params["blocks"], cfg.blocks):
         if cfg.n_experts is not None:
             x, a = mb.qat_moe_block_forward(blk, x, bcfg, attn_chunk=attn_chunk)
             aux = aux + a

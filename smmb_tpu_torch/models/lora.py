@@ -33,8 +33,9 @@ _MLP_TARGETS = ("w_up", "w_down")
 
 def _dims(cfg: TernaryLMConfig, name: str) -> tuple[int, int]:
     d, ff = cfg.d_model, cfg.d_ff
-    kv = cfg.block.attn.kv_dim
-    return {"wq": (d, d), "wk": (d, kv), "wv": (d, kv), "wo": (d, d),
+    attn = cfg.blocks[0].attn  # every layer's widths are the same
+    qd, kv = attn.q_dim, attn.kv_dim
+    return {"wq": (d, qd), "wk": (d, kv), "wv": (d, kv), "wo": (qd, d),
             "w_up": (d, ff), "w_down": (ff, d)}[name]
 
 

@@ -34,8 +34,13 @@ in training and in serving.
 Experts are stacked on a leading axis: ``pack_moe`` gives one
 ``TernaryPacked`` whose ``data`` is (E, K_pad/4, N), each expert's words
 byte-identical to JAX's ``pack_ternary_device`` of that expert
-(``expert_plane`` takes one out). ``moe_forward`` loops over all E experts,
-empty ones included, as JAX's ``lax.scan`` does: 2·E B1 launches a call.
+(``expert_plane`` takes one out). Serving (``no_drop``) in bf16 runs the
+experts grouped: the N·k assignments' rows sorted into expert order by the
+slots ``_assign`` gives (``grouped_layout``), two B1g launches over every
+expert's rows, the combine in rank order: 2 launches a call, N·k rows in
+place of E·C. Elsewhere ``moe_forward`` loops over all E experts, empty
+ones included, as JAX's ``lax.scan`` does: 2·E B1 launches a call. The
+mode alone picks the path, so the CPU runs the card's.
 
 Training: ``qat_moe_forward`` (STE-ternarized experts, dense f32 products)
 returns the output and the Switch load-balance loss; ``make_moe_train_step``
@@ -49,11 +54,12 @@ import dataclasses
 import torch
 
 from smmb_tpu_torch.formats.packed import TernaryPacked, pack_ternary_device
-from smmb_tpu_torch.kernels.packed_spmm import packed_spmm
+from smmb_tpu_torch.kernels.packed_spmm import grouped_spmm, grouped_spmm_plain, packed_spmm
 from smmb_tpu_torch.models.train import absmean_scale, make_adam, qat_linear, ternarize_ste
 from smmb_tpu_torch.ops.dense import prelu
 from smmb_tpu_torch.ops.spmm import packed_spmm_ref
 from smmb_tpu_torch.utils import rng
+from smmb_tpu_torch.utils.spans import MOE_COMBINE, MOE_DISPATCH, MOE_ROUTE, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,9 +142,10 @@ def _assign(router_logits: torch.Tensor, capacity: int, k: int):
     k = 1 is ``route_top1``: the argmax of the gates, weighted by the raw
     gate. k > 1 is ``route_topk``: the k largest gates (the lower index first
     among equal ones), renormalized; slots are claimed rank-major, the
-    counts carried from rank to rank."""
-    n, e = router_logits.shape
-    dt = router_logits.dtype
+    counts carried from rank to rank: integer positions from one stable
+    sort, exactly the cumulative one-hot counts JAX takes rank by rank (a
+    cumulative sum down the tokens runs one thread a column on the card)."""
+    n = router_logits.shape[0]
     gates = torch.softmax(router_logits, dim=-1)
     if k == 1:
         top_i = torch.argmax(gates, dim=-1, keepdim=True)
@@ -147,14 +154,13 @@ def _assign(router_logits: torch.Tensor, capacity: int, k: int):
         srt = torch.sort(gates, dim=-1, descending=True, stable=True)
         top_v, top_i = srt.values[:, :k], srt.indices[:, :k]
         top_v = top_v / top_v.sum(dim=-1, keepdim=True)
-    counts = torch.zeros((e,), dtype=dt, device=router_logits.device)
-    slots = []
-    for r in range(k):
-        onehot = _onehot(top_i[:, r], e, dt)
-        pos = torch.cumsum(onehot, dim=0) - onehot + counts[None, :]
-        slots.append((pos * onehot).sum(dim=-1).to(torch.int64))
-        counts = counts + onehot.sum(dim=0)
-    slot = torch.stack(slots, dim=1)
+    # an assignment's slot: the assignments before it in rank-major order
+    # (every rank-0 choice, token by token, then every rank-1 choice ...)
+    # that chose the same expert, its position in a stable sort by expert
+    order = top_i.t().reshape(-1)
+    experts, at = torch.sort(order, stable=True)
+    within = torch.arange(n * k, device=order.device) - torch.searchsorted(experts, experts)
+    slot = torch.empty_like(within).scatter_(0, at, within).view(k, n).t()
     return top_i, slot, slot < capacity, top_v
 
 
@@ -213,18 +219,45 @@ def _dispatch(x: torch.Tensor, expert, slot, keep, e: int, capacity: int) -> tor
     return buf.index_copy(0, flat, src)[:spare].reshape(e, capacity, d)
 
 
-def _combine(y_e: torch.Tensor, expert, slot, keep, weight) -> torch.Tensor:
-    """Each token's expert rows gathered back, weighted and summed in rank
+def _combine_rows(rows: torch.Tensor, keep, weight) -> torch.Tensor:
+    """(N, k, D) expert rows, one an assignment, weighted and summed in rank
     order (f32; a dropped assignment adds zero)."""
-    e, c, d = y_e.shape
-    flat = (expert * c + slot.clamp_max(c - 1)).reshape(-1)
-    rows = y_e.reshape(e * c, d).index_select(0, flat).reshape(*expert.shape, d)
     terms = torch.where(keep[..., None], weight[..., None] * rows.to(torch.float32),
-                        torch.zeros((), dtype=torch.float32, device=y_e.device))
+                        torch.zeros((), dtype=torch.float32, device=rows.device))
     y = terms[:, 0]
     for r in range(1, terms.shape[1]):
         y = y + terms[:, r]
     return y
+
+
+def _combine(y_e: torch.Tensor, expert, slot, keep, weight) -> torch.Tensor:
+    """Each token's expert rows gathered back from the (E, C, D) slabs,
+    weighted and summed in rank order."""
+    e, c, d = y_e.shape
+    flat = (expert * c + slot.clamp_max(c - 1)).reshape(-1)
+    rows = y_e.reshape(e * c, d).index_select(0, flat).reshape(*expert.shape, d)
+    return _combine_rows(rows, keep, weight)
+
+
+def grouped_layout(expert: torch.Tensor, slot: torch.Tensor, n_experts: int):
+    """The grouped layout of N tokens' k assignments (every one kept, as
+    under ``no_drop``): assignment (n, r) takes row ``offsets[e] + slot`` of
+    an (N·k, D) buffer in expert order, ``offsets`` (E + 1,) the exclusive
+    cumsum of the experts' counts. Returns (row (N, k), offsets, the token of
+    each row, the expert of each row). Scatters and a cumsum on the device:
+    nothing is read back to the host."""
+    n, k = expert.shape
+    dev = expert.device
+    flat_e = expert.reshape(-1)
+    counts = torch.zeros(n_experts, dtype=torch.int64, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    row = offsets[expert] + slot
+    flat = row.reshape(-1)
+    token = torch.empty_like(flat).index_copy_(
+        0, flat, torch.arange(n * k, device=dev) // k)
+    row_expert = torch.empty_like(flat).index_copy_(0, flat, flat_e)
+    return row, offsets, token, row_expert
 
 
 def qat_moe_forward(params: dict, x: torch.Tensor, cfg: TernaryMoEConfig):
@@ -284,6 +317,30 @@ def router_logits(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
             @ router.to(torch.float32).to(torch.float64)).to(torch.float32)
 
 
+def _grouped_forward(packed: dict, x: torch.Tensor, cfg: TernaryMoEConfig, expert, slot,
+                     keep, weight, use_kernel) -> torch.Tensor:
+    """The experts on N·k rows in expert order, in bf16: dispatch (each
+    assignment's row, scaled by its expert's ``s_up`` in f32 and cast
+    once), B1g up with PReLU, the ``s_down`` scale, B1g down, and the
+    combine of ``_combine_rows``. Row for row the slab path's arithmetic,
+    so its output, bit for bit. Where ``moe_forward.routed_offsets`` is a
+    list, each call appends its (E + 1,) ``offsets`` there, on the device."""
+    bf16 = torch.bfloat16
+    with span(MOE_DISPATCH):
+        row, offsets, token, row_expert = grouped_layout(expert, slot, cfg.n_experts)
+        if moe_forward.routed_offsets is not None:
+            moe_forward.routed_offsets.append(offsets)
+        xs = x.index_select(0, token).to(torch.float32) * packed["s_up"][row_expert][:, None]
+    spmm = grouped_spmm if use_kernel else grouped_spmm_plain
+    h = spmm(xs.to(bf16), packed["w_up"], packed["b_up"], offsets, cfg.alpha,
+             out_dtype=torch.float32)
+    h = h * packed["s_down"][row_expert][:, None]
+    y = spmm(h.to(bf16), packed["w_down"], packed["b_down"], offsets, out_dtype=x.dtype)
+    with span(MOE_COMBINE):
+        rows = y.index_select(0, row.reshape(-1)).reshape(*expert.shape, -1)
+        return _combine_rows(rows, keep, weight)
+
+
 def moe_forward(packed: dict, x: torch.Tensor, cfg: TernaryMoEConfig, *,
                 compute_dtype=torch.float32, use_kernel: bool = True,
                 no_drop: bool = False) -> torch.Tensor:
@@ -293,13 +350,30 @@ def moe_forward(packed: dict, x: torch.Tensor, cfg: TernaryMoEConfig, *,
     ``no_drop=True`` is the serving mode: C = N rounded up to 8, so no token
     drops (top-k picks distinct experts, so an expert gets at most one
     assignment a token) and a token's output is the same whatever else is in
-    the call, which is what makes decode agree with the prefill. Training
-    keeps the competitive capacity. The slabs grow with N·C, so long prompts
-    prefill in chunks (``generate(prefill_chunk=...)``)."""
+    the call, which is what makes decode agree with the prefill. There, in
+    bf16, the experts run grouped: the N·k assignments' rows in expert
+    order, two B1g launches over all experts, the result the slab path's
+    bit for bit. Training, the competitive capacity and the f32 and W2A8
+    modes keep the (E, C, D) slabs and a B1 pair an expert, on the CPU as
+    on the card."""
     n = x.shape[0]
     cap = _round8(n) if no_drop else cfg.capacity(n)
-    logits = router_logits(x, packed["router"])
-    expert, slot, keep, weight = _assign(logits, cap, cfg.top_k)
+    with span(MOE_ROUTE):
+        logits = router_logits(x, packed["router"])
+        expert, slot, keep, weight = _assign(logits, cap, cfg.top_k)
+    if no_drop and compute_dtype == torch.bfloat16:
+        return _grouped_forward(packed, x, cfg, expert, slot, keep, weight, use_kernel)
+    return _slab_forward(packed, x, cfg, expert, slot, keep, weight, cap, compute_dtype,
+                         use_kernel)
+
+
+moe_forward.routed_offsets = None  # a list: each grouped call's offsets go there
+
+
+def _slab_forward(packed: dict, x: torch.Tensor, cfg: TernaryMoEConfig, expert, slot,
+                  keep, weight, cap: int, compute_dtype, use_kernel) -> torch.Tensor:
+    """The experts on (E, C, D) f32 slabs: a B1 pair an expert, empty ones
+    included, as JAX's ``lax.scan``."""
     x_e = _dispatch(x, expert, slot, keep, cfg.n_experts, cap)
     y_e = torch.stack([
         _expert_ffn(x_e[i], expert_plane(packed["w_up"], i), packed["s_up"][i],

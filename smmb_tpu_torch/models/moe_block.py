@@ -11,10 +11,12 @@ blocks: everything cache-shaped lives in the attention half.
 Routes, as in JAX: the attention half is called on the already-normalized
 input (no ``prenorm``), so its Q/K/V are the fused plane through B1, never
 B3 or B7, and the MoE half has no fused kernel, so B5 and B6 are never
-reached. Each layer launches B1 for its projections and 2·E times for its
+reached. Each layer launches B1 for its projections and B1g twice for its
 experts (``moe.moe_forward``, ``no_drop=True`` when serving, so decode
-routes a token as the prefill routes it). The MoE half returns f32 (JAX's
-promotion), so after the first MoE half the residual stream is f32.
+routes a token as the prefill routes it; the f32 and W2A8 modes keep
+2·E B1 launches, on the CPU as on the card). The MoE half returns f32 (JAX's
+promotion), so after the first MoE half the residual stream is f32, unless
+``residual_f32=False`` rounds it to the stream's dtype before the add.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from smmb_tpu_torch.models.moe import (
     qat_moe_forward,
 )
 from smmb_tpu_torch.models.transformer import rmsnorm
+from smmb_tpu_torch.utils.spans import BLOCK_ATTN, BLOCK_MOE, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,13 +63,18 @@ class TernaryMoEBlockConfig:
     rope: bool = False
     rope_theta: float = 10000.0
     window: int | None = None
+    head_dim: int | None = None  # None = d_model // n_heads
+    # True: the MoE half's f32 output promotes the residual stream to f32
+    # (JAX's promotion); False: it is rounded to the stream's dtype first,
+    # so a bf16 stream stays bf16 (and the next attention computes in bf16)
+    residual_f32: bool = True
 
     @property
     def attn(self) -> TernaryAttentionConfig:
         return TernaryAttentionConfig(
             d_model=self.d_model, n_heads=self.n_heads, causal=self.causal,
             non_zero=self.non_zero, n_kv_heads=self.n_kv_heads, rope=self.rope,
-            rope_theta=self.rope_theta, window=self.window,
+            rope_theta=self.rope_theta, window=self.window, head_dim=self.head_dim,
         )
 
     @property
@@ -105,20 +113,23 @@ def init_moe_block_cache(cfg: TernaryMoEBlockConfig, batch: int, max_len: int,
 
 
 def _moe_half(packed, x, cfg, compute_dtype, use_kernel):
-    h = rmsnorm(x, packed["norm2"], cfg.eps)
-    b, t, d = h.shape
-    y = moe_forward(packed["moe"], h.reshape(b * t, d), cfg.moe,
-                    compute_dtype=compute_dtype, use_kernel=use_kernel, no_drop=True)
-    return x + y.reshape(b, t, d)
+    with span(BLOCK_MOE):
+        h = rmsnorm(x, packed["norm2"], cfg.eps)
+        b, t, d = h.shape
+        y = moe_forward(packed["moe"], h.reshape(b * t, d), cfg.moe,
+                        compute_dtype=compute_dtype, use_kernel=use_kernel, no_drop=True)
+        y = y.reshape(b, t, d)
+        return x + (y if cfg.residual_f32 else y.to(x.dtype))
 
 
 def moe_block_forward(packed: dict, x: torch.Tensor, cfg: TernaryMoEBlockConfig, *,
                       compute_dtype=torch.float32, use_kernel: bool = True,
                       use_flash: bool = False) -> torch.Tensor:
     """Pre-norm MoE block: x + attn(norm(x)), then x + moe(norm(x))."""
-    h = rmsnorm(x, packed["norm1"], cfg.eps)
-    x = x + attention_forward(packed["attn"], h, cfg.attn, compute_dtype=compute_dtype,
-                              use_kernel=use_kernel, use_flash=use_flash)
+    with span(BLOCK_ATTN):
+        h = rmsnorm(x, packed["norm1"], cfg.eps)
+        x = x + attention_forward(packed["attn"], h, cfg.attn, compute_dtype=compute_dtype,
+                                  use_kernel=use_kernel, use_flash=use_flash)
     return _moe_half(packed, x, cfg, compute_dtype, use_kernel)
 
 
@@ -126,33 +137,39 @@ def moe_block_prefill(packed: dict, x: torch.Tensor, cache: dict,
                       cfg: TernaryMoEBlockConfig, *, compute_dtype=torch.float32,
                       use_kernel: bool = True, use_flash: bool = False, valid=None):
     """Prompt pass: the block forward + the KV-cache fill. Returns (y, cache)."""
-    h = rmsnorm(x, packed["norm1"], cfg.eps)
-    att, cache = attention_prefill(packed["attn"], h, cache, cfg.attn,
-                                   compute_dtype=compute_dtype, use_kernel=use_kernel,
-                                   use_flash=use_flash, valid=valid)
-    return _moe_half(packed, x + att, cfg, compute_dtype, use_kernel), cache
+    with span(BLOCK_ATTN):
+        h = rmsnorm(x, packed["norm1"], cfg.eps)
+        att, cache = attention_prefill(packed["attn"], h, cache, cfg.attn,
+                                       compute_dtype=compute_dtype, use_kernel=use_kernel,
+                                       use_flash=use_flash, valid=valid)
+        x = x + att
+    return _moe_half(packed, x, cfg, compute_dtype, use_kernel), cache
 
 
 def moe_block_extend(packed: dict, x: torch.Tensor, cache: dict,
                      cfg: TernaryMoEBlockConfig, *, compute_dtype=torch.float32,
                      use_kernel: bool = True, use_flash: bool = False):
     """A (B, C, D) chunk appended at the cache position. Returns (y, cache)."""
-    h = rmsnorm(x, packed["norm1"], cfg.eps)
-    att, cache = attention_extend(packed["attn"], h, cache, cfg.attn,
-                                  compute_dtype=compute_dtype, use_kernel=use_kernel,
-                                  use_flash=use_flash)
-    return _moe_half(packed, x + att, cfg, compute_dtype, use_kernel), cache
+    with span(BLOCK_ATTN):
+        h = rmsnorm(x, packed["norm1"], cfg.eps)
+        att, cache = attention_extend(packed["attn"], h, cache, cfg.attn,
+                                      compute_dtype=compute_dtype, use_kernel=use_kernel,
+                                      use_flash=use_flash)
+        x = x + att
+    return _moe_half(packed, x, cfg, compute_dtype, use_kernel), cache
 
 
 def moe_block_decode_step(packed: dict, x_t: torch.Tensor, cache: dict,
                           cfg: TernaryMoEBlockConfig, *, compute_dtype=torch.float32,
                           use_kernel: bool = True, use_flash: bool = False):
     """One decode step through the block: x_t (B, 1, d_model)."""
-    h = rmsnorm(x_t, packed["norm1"], cfg.eps)
-    att, cache = attention_decode_step(packed["attn"], h, cache, cfg.attn,
-                                       compute_dtype=compute_dtype, use_kernel=use_kernel,
-                                       use_flash=use_flash)
-    return _moe_half(packed, x_t + att, cfg, compute_dtype, use_kernel), cache
+    with span(BLOCK_ATTN):
+        h = rmsnorm(x_t, packed["norm1"], cfg.eps)
+        att, cache = attention_decode_step(packed["attn"], h, cache, cfg.attn,
+                                           compute_dtype=compute_dtype,
+                                           use_kernel=use_kernel, use_flash=use_flash)
+        x_t = x_t + att
+    return _moe_half(packed, x_t, cfg, compute_dtype, use_kernel), cache
 
 
 def qat_moe_block_forward(params: dict, x: torch.Tensor, cfg: TernaryMoEBlockConfig,

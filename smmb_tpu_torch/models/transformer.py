@@ -70,13 +70,14 @@ class TernaryBlockConfig:
     rope: bool = False
     rope_theta: float = 10000.0
     window: int | None = None
+    head_dim: int | None = None  # None = d_model // n_heads
 
     @property
     def attn(self) -> TernaryAttentionConfig:
         return TernaryAttentionConfig(
             d_model=self.d_model, n_heads=self.n_heads, causal=self.causal,
             non_zero=self.non_zero, n_kv_heads=self.n_kv_heads, rope=self.rope,
-            rope_theta=self.rope_theta, window=self.window,
+            rope_theta=self.rope_theta, window=self.window, head_dim=self.head_dim,
         )
 
 

@@ -138,5 +138,5 @@ def attention_forward_sp(packed: dict, x: torch.Tensor, cfg, *, mesh: Mesh,
     v = _proj(packed, "wv", x, compute_dtype, use_kernel).reshape(bl, tl, cfg.kv_heads, hd)
     att = _ring_body(q, k, v, mesh, cfg.causal, cfg.rope_theta if cfg.rope else None,
                      cfg.window)
-    return _proj(packed, "wo", att.reshape(bl, tl, dm), compute_dtype,
+    return _proj(packed, "wo", att.reshape(bl, tl, -1), compute_dtype,
                  use_kernel).reshape(bl, tl, dm)

@@ -48,7 +48,7 @@ def _block_body_sp(d: dict, x_l: torch.Tensor, cfg, mesh: Mesh, compute_dtype,
     v = _proj(a, "wv", h, compute_dtype, use_kernel).reshape(bl, tl, acfg.kv_heads, hd)
     att = _ring_body(q, k, v, mesh, cfg.causal, acfg.rope_theta if acfg.rope else None,
                      acfg.window)
-    x_l = x_l + _proj(a, "wo", att.reshape(bl, tl, dm), compute_dtype,
+    x_l = x_l + _proj(a, "wo", att.reshape(bl, tl, -1), compute_dtype,
                       use_kernel).reshape(bl, tl, dm)
     h2 = rmsnorm(x_l, d["norm2"], cfg.eps).reshape(bl * tl, dm)
     if "moe" in d:

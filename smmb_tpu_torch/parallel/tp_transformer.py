@@ -132,6 +132,9 @@ def _check_heads(attn_cfg, ms: int) -> None:
 def _local_cfg(attn_cfg, ms: int):
     """The attention config of the rank's heads (head_dim unchanged)."""
     _check_heads(attn_cfg, ms)
+    if attn_cfg.q_dim != attn_cfg.d_model:
+        raise ValueError(f"head_dim {attn_cfg.head_dim} sets Q's width apart from d_model: "
+                         "the tensor-parallel shards take Q as wide as d_model")
     return dataclasses.replace(attn_cfg, d_model=attn_cfg.d_model // ms,
                                n_heads=attn_cfg.n_heads // ms,
                                n_kv_heads=attn_cfg.kv_heads // ms)

@@ -28,12 +28,18 @@ The names, from the entry points down (``[…]`` is the route):
   (``models/transformer.py``);
 - ``attn.qkv[B3|B7|B1]``: a decode or extend step's projection, rope and
   cache write; ``attn.decode[B4|B8|plain]``, ``attn.extend[B4|B8|plain]``:
-  the cache read; ``attn.prefill[B9|plain]``: the prefill's attention math;
+  the cache read; ``attn.prefill[B9|plain]``: the prefill's attention math,
+  ``attn.prefill[B9/w|plain/w]`` in a layer with a sliding window;
   ``attn.kv_fill``: the prefill's K/V projections, rope and cache write
   (``models/attention.py``);
-- ``kernel.B1`` … ``kernel.B9p``: each kernel wrapper's call on one 2-D (or
-  head-layout) input, CPU or CUDA: checks, casts, tile choice and launch
-  (``kernels/*.py``), beside its ``.launches`` counter.
+- ``block.moe``: an MoE block's norm2, routed half and residual
+  (``models/moe_block.py``); inside it ``moe.route`` (the router's logits
+  and the assignments), ``moe.dispatch`` (rows into expert order, scaled),
+  the two ``kernel.B1g`` calls and ``moe.combine`` (``models/moe.py``);
+- ``kernel.B1`` … ``kernel.B9p``, ``kernel.B1g``: each kernel wrapper's
+  call on one 2-D (or head-layout) input, CPU or CUDA: checks, casts, tile
+  choice and launch (``kernels/*.py``), beside its ``.launches`` counter
+  (B1g's: ``packed_spmm.launches_grouped``).
 """
 
 from __future__ import annotations
@@ -57,10 +63,21 @@ ATTN_QKV_B1 = "attn.qkv[B1]"
 ATTN_DECODE = ("attn.decode[B4]", "attn.decode[B8]", "attn.decode[plain]")
 ATTN_EXTEND = ("attn.extend[B4]", "attn.extend[B8]", "attn.extend[plain]")
 ATTN_PREFILL_B9 = "attn.prefill[B9]"
+ATTN_PREFILL_B9_WINDOW = "attn.prefill[B9/w]"
 ATTN_PREFILL_PLAIN = "attn.prefill[plain]"
+ATTN_PREFILL_PLAIN_WINDOW = "attn.prefill[plain/w]"
+# a prefill's names by route (B9, plain math), each full, then windowed
+ATTN_PREFILL = (ATTN_PREFILL_B9, ATTN_PREFILL_B9_WINDOW, ATTN_PREFILL_PLAIN,
+                ATTN_PREFILL_PLAIN_WINDOW)
 ATTN_KV_FILL = "attn.kv_fill"
 
+BLOCK_MOE = "block.moe"
+MOE_ROUTE = "moe.route"
+MOE_DISPATCH = "moe.dispatch"
+MOE_COMBINE = "moe.combine"
+
 KERNEL_B1 = "kernel.B1"
+KERNEL_B1G = "kernel.B1g"
 KERNEL_B2 = "kernel.B2"
 KERNEL_B3 = "kernel.B3"
 KERNEL_B4 = "kernel.B4"

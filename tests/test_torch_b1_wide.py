@@ -130,14 +130,25 @@ def _global_names(source: str) -> list:
 
 def test_every_b1_kernel_counts_as_a_ternary_projection():
     """``spmm_roofline.*`` reads the device time of the kernels whose names
-    hold a string of ``perfbench/counts/kernels/port.json``'s
-    ``ternary_projections``: every body of B1 is among them."""
-    groups = json.loads((ROOT / "perfbench/counts/kernels/port.json").read_text())
+    hold a string of ``perfbench/counts/kernels/*.json``'s
+    ``ternary_projections``: every body of B1 is among them. B1g
+    (``expert_spmm_grouped``, the routed experts in one launch) is read by
+    ``expert_roofline.*`` through ``routed_experts`` and is no projection."""
+    groups = {}
+    for path in sorted((ROOT / "perfbench/counts/kernels").glob("*.json")):
+        for key, value in json.loads(path.read_text()).items():
+            if isinstance(value, list):
+                groups.setdefault(key, []).extend(value)
     names = _global_names(
         (ROOT / "smmb_tpu_torch/kernels/csrc/packed_spmm.cu").read_text())
-    assert {"packed_spmm_float", "packed_spmm_mma", "packed_spmm_mma_wg"} <= set(names)
+    assert {"packed_spmm_float", "packed_spmm_mma", "packed_spmm_mma_wg",
+            "expert_spmm_grouped"} <= set(names)
     for name in names:
-        assert any(s in name for s in groups["ternary_projections"]), name
+        projection = any(s in name for s in groups["ternary_projections"])
+        if name == "expert_spmm_grouped":
+            assert not projection and any(s in name for s in groups["routed_experts"])
+        else:
+            assert projection, name
 
 
 # ---------------------------------------------------------------- the card

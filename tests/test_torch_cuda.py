@@ -23,8 +23,11 @@ The packed VJP (B1 forward on W, backward on the packed Wᵀ): y, dx and db
 against autograd through the plain version at the fused kernels' f32 1e-4
 and bf16 2**-7 (bf16 x, y and dx; the backward rounds the masked gradient to
 bf16 before its product, as JAX's VJP casts it). The MoE layer on B1 (2·E
-launches a call) against its plain products as the fused kernels (a bf16
+launches a call; in bf16 serving two B1g launches) against its plain
+products as the fused kernels (a bf16
 hidden row can round to the neighbouring bf16 before the down projection);
+B1g's rows bitwise B1's on each expert's rows, and the grouped serving
+path bitwise the slab path;
 its serving rows bitwise the one-token calls (B1's rows do not depend on
 M, and the combine sums each token's experts in rank order). The sharded
 B1 and B2 paths run in one 2-rank gloo world sharing the card
@@ -50,6 +53,7 @@ from smmb_tpu_torch.kernels import fused_mlp as fk
 from smmb_tpu_torch.kernels.packed_spmm import (
     F32_TILES,
     MMA_TILES,
+    grouped_spmm,
     packed_spmm,
     packed_spmm_f32_chain,
     packed_spmm_plain,
@@ -1020,9 +1024,11 @@ def _moe_layer(cuda, seed, d=1024, f=4096, e=8, k=2):
 @pytest.mark.parametrize("no_drop", [False, True])
 def test_moe_layer_on_b1_matches_plain(cuda, cdt, no_drop):
     cfg, packed, x = _moe_layer(cuda, 40)
-    packed_spmm.launches = 0
+    packed_spmm.launches = packed_spmm.launches_grouped = 0
     y = tmoe.moe_forward(packed, x, cfg, compute_dtype=cdt, no_drop=no_drop)
-    assert packed_spmm.launches == 2 * cfg.n_experts
+    grouped = no_drop and cdt == torch.bfloat16  # B1g: the experts in two launches
+    assert (packed_spmm.launches, packed_spmm.launches_grouped) == (
+        (0, 2) if grouped else (2 * cfg.n_experts, 0))
     ref = tmoe.moe_forward(packed, x, cfg, compute_dtype=cdt, no_drop=no_drop,
                            use_kernel=False)
     torch.cuda.synchronize()
@@ -1040,6 +1046,48 @@ def test_moe_decode_rows_bitwise_the_forward_rows(cuda, cdt):
     for i in (0, 5, 31):
         one = tmoe.moe_forward(packed, x[i:i + 1], cfg, compute_dtype=cdt, no_drop=True)
         assert torch.equal(one[0], full[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,e,m,out_dtype,alpha", [
+    (256, 384, 8, 300, torch.float32, ALPHA),  # 64-row tiles
+    (256, 384, 64, 40, torch.bfloat16, None),  # 16-row tiles, most experts empty
+    (72, 40, 5, 123, torch.float32, ALPHA),  # element loads: K % 8, N % 16
+])
+def test_b1g_rows_bitwise_b1(cuda, k, n, e, m, out_dtype, alpha):
+    """Each expert's rows of one B1g call equal B1's call on those rows and
+    that expert's plane, bit for bit."""
+    gen = rng.make_generator(50 + e)
+    cfg = tmoe.TernaryMoEConfig(d_model=k, d_ff=n, n_experts=e)
+    packed = tmoe.pack_moe(tmoe.init_moe(gen, cfg), quantize=True)
+    counts = torch.randint(0, 2 * m // e + 1, (e,), generator=gen, device=cuda)
+    counts[0] = 0
+    offsets = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
+    x = rng.rand_dense(gen, (int(offsets[-1]), k)).to(torch.bfloat16)
+    packed_spmm.launches_grouped = 0
+    y = grouped_spmm(x, packed["w_up"], packed["b_up"], offsets, alpha, out_dtype=out_dtype)
+    assert packed_spmm.launches_grouped == 1 and y.dtype == out_dtype
+    host = offsets.tolist()
+    for i, (lo, hi) in enumerate(zip(host[:-1], host[1:])):
+        want = packed_spmm(x[lo:hi].to(out_dtype), tmoe.expert_plane(packed["w_up"], i),
+                           packed["b_up"][i], alpha, compute_dtype=torch.bfloat16)
+        assert torch.equal(y[lo:hi], want), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 300])
+def test_moe_grouped_equals_slab_on_card(cuda, n):
+    """Serving's grouped experts (two B1g launches) against the slab path
+    (2·E B1 launches) on the same routing: bitwise, 64 experts, top-8."""
+    cfg = tmoe.TernaryMoEConfig(d_model=256, d_ff=128, n_experts=64, top_k=8)
+    gen = rng.make_generator(60)
+    packed = tmoe.pack_moe(tmoe.init_moe(gen, cfg), quantize=True)
+    x = rng.rand_dense(gen, (n, 256)).to(torch.bfloat16)
+    got = tmoe.moe_forward(packed, x, cfg, compute_dtype=torch.bfloat16, no_drop=True)
+    cap = tmoe._round8(n)
+    route = tmoe._assign(tmoe.router_logits(x, packed["router"]), cap, 8)
+    want = tmoe._slab_forward(packed, x, cfg, *route, cap, torch.bfloat16, True)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
